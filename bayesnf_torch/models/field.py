@@ -20,13 +20,13 @@ Model structure (per member):
 """
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from bayesnf_torch.models import features as feat_lib
-from bayesnf_torch.ops import fused_mlp
 from bayesnf_torch.ops import special
 
 
@@ -240,6 +240,50 @@ def aug_features(config: FieldConfig, x: torch.Tensor) -> torch.Tensor:
   return torch.cat([x, seasonal_features_for(config, x)], dim=-1)
 
 
+def encode_raw_t(
+    input_scales,
+    fourier_degrees,
+    interactions,
+    lsa: torch.Tensor,
+    fs_raw: torch.Tensor,
+    x_t: torch.Tensor,
+    seasonal_t: torch.Tensor,
+) -> list:
+  """Features-major encode from the static config values and the two encode
+  leaves (the form the K1 training kernel takes).
+
+  Args:
+    input_scales: (D,) floats.
+    fourier_degrees: (D,) ints.
+    interactions: ((i, j), ...) input-dim index pairs.
+    lsa: (E, D) log scale adjustments.
+    fs_raw: (E, G) pre-softplus feature-group scales.
+    x_t: (D, N) raw inputs, shared by every member.
+    seasonal_t: (2F, N) seasonal features of the time column (2F may be 0).
+
+  Returns:
+    List of (E, f_g, N) tensors, one per non-empty feature group.
+  """
+  scales = torch.tensor(
+      tuple(input_scales), dtype=x_t.dtype, device=x_t.device
+  )
+  scaled_x = x_t / (scales * torch.exp(lsa))[:, :, None]  # (E, D, N)
+  e = scaled_x.shape[0]
+
+  groups = [scaled_x]
+  for i, degree in enumerate(fourier_degrees):
+    if degree > 0:
+      groups.append(feat_lib.fourier_features_t(scaled_x[:, i], degree))
+  if seasonal_t.shape[0]:
+    groups.append(seasonal_t.expand(e, -1, -1))
+  if len(interactions):
+    inter_idx = torch.tensor(tuple(interactions), device=x_t.device)
+    groups.append(torch.prod(scaled_x[:, inter_idx, :], dim=2))
+
+  group_scales = special.softplus(fs_raw)  # (E, G)
+  return [g * group_scales[:, i, None, None] for i, g in enumerate(groups)]
+
+
 def encode_t_groups(
     config: FieldConfig,
     params: tuple,
@@ -257,25 +301,10 @@ def encode_t_groups(
   Returns:
     List of (E, f_g, N) tensors, one per feature group.
   """
-  input_scales = torch.tensor(
-      config.input_scales, dtype=x_t.dtype, device=x_t.device
+  return encode_raw_t(
+      config.input_scales, config.fourier_degrees, config.interactions,
+      params[IDX_LOG_SCALE_ADJ], params[IDX_FEATURE_SCALES], x_t, seasonal_t,
   )
-  lsa = params[IDX_LOG_SCALE_ADJ]  # (E, D)
-  scaled_x = x_t / (input_scales * torch.exp(lsa))[:, :, None]  # (E, D, N)
-  e = scaled_x.shape[0]
-
-  groups = [scaled_x]
-  for i, degree in enumerate(config.fourier_degrees):
-    if degree > 0:
-      groups.append(feat_lib.fourier_features_t(scaled_x[:, i], degree))
-  if config.seasonal_frequencies:
-    groups.append(seasonal_t.expand(e, -1, -1))
-  if config.interactions:
-    inter_idx = torch.tensor(config.interactions, device=x_t.device)
-    groups.append(torch.prod(scaled_x[:, inter_idx, :], dim=2))
-
-  group_scales = special.softplus(params[IDX_FEATURE_SCALES])  # (E, G)
-  return [g * group_scales[:, i, None, None] for i, g in enumerate(groups)]
 
 
 def dense_params(config: FieldConfig, params: tuple):
@@ -286,6 +315,60 @@ def dense_params(config: FieldConfig, params: tuple):
   return weights, biases
 
 
+class _BlendedAct(torch.autograd.Function):
+  """w * elu(z) + (1 - w) * tanh(z), whose backward reuses the forward's
+  values (elu' = e^z for z < 0, tanh' = 1 - tanh^2), as the JAX package's
+  custom JVP does: no transcendental is evaluated twice."""
+
+  @staticmethod
+  def forward(ctx, z, w):
+    q = torch.exp(torch.clamp(z, max=0.0))
+    positive = z > 0
+    e = torch.where(positive, z, q - 1.0)
+    t = torch.tanh(z)
+    ctx.save_for_backward(w, e, t, torch.where(positive, 1.0, q))
+    return w * e + (1.0 - w) * t
+
+  @staticmethod
+  def backward(ctx, g):
+    w, e, t, de = ctx.saved_tensors
+    dz = (w * de + (1.0 - w) * (1.0 - t * t)) * g
+    dw = None
+    if ctx.needs_input_grad[1]:
+      dw = ((e - t) * g).sum_to_size(w.shape)
+    return dz, dw
+
+
+def blended_act(z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+  """The field's activation; `w` broadcasts against `z`."""
+  return _BlendedAct.apply(z, w)
+
+
+def mlp_t(depth, h0_groups, weights, biases, scales_raw, logit) -> torch.Tensor:
+  """Features-major field MLP, plain PyTorch: one `torch.matmul` per layer.
+
+  Args:
+    depth: hidden layers.
+    h0_groups: sequence of (E, f_g, N) feature-group tensors.
+    weights: depth + 1 tensors (E, fan_in, fan_out); the last has fan_out 1.
+    biases: depth + 1 tensors (E, fan_out).
+    scales_raw: (E, depth + 1) pre-softplus layer scales.
+    logit: (E,) activation logits.
+
+  Returns:
+    (E, N) predictions.
+  """
+  h = torch.cat(tuple(h0_groups), dim=1)
+  s = special.softplus(scales_raw)
+  w = torch.sigmoid(logit)[:, None, None]
+  for l in range(depth + 1):
+    z = torch.matmul(weights[l].transpose(1, 2), h * (1.0 / math.sqrt(h.shape[1])))
+    z = s[:, l, None, None] * (z + biases[l][:, :, None])
+    if l < depth:
+      h = blended_act(z, w)
+  return z[:, 0, :]
+
+
 def apply_field_t(
     config: FieldConfig,
     params: tuple,
@@ -294,7 +377,7 @@ def apply_field_t(
 ) -> torch.Tensor:
   """Features-major forward, plain PyTorch: (D, N) inputs -> (E, N)."""
   weights, biases = dense_params(config, params)
-  return fused_mlp.fused_field_mlp_t_reference(
+  return mlp_t(
       config.depth,
       encode_t_groups(config, params, x_t, seasonal_t),
       weights,
@@ -302,3 +385,27 @@ def apply_field_t(
       params[IDX_LAYER_SCALES],
       params[IDX_ACTIVATION_LOGIT],
   )
+
+
+def scatter_fused_train_grads(
+    config: FieldConfig, dlsa, dfs, dws, dbs, dscales, dlogit, dobs
+) -> list:
+  """Map `ops.fused_mlp.fused_train` gradient outputs onto param slots.
+
+  The kernel returns (losses, dlsa, dfs, dweights, dbiases, dscales,
+  dlogit, dobs); this is the one place that couples that output order to
+  the flat parameter layout. `dobs` columns are (log_noise_scale,
+  nb_shape_raw, zinb_logit).
+  """
+  grads = [None] * len(param_specs(config))
+  grads[IDX_LOG_NOISE_SCALE] = dobs[..., 0]
+  grads[IDX_NB_SHAPE_RAW] = dobs[..., 1]
+  grads[IDX_ZINB_LOGIT] = dobs[..., 2]
+  grads[IDX_LOG_SCALE_ADJ] = dlsa
+  grads[IDX_FEATURE_SCALES] = dfs
+  grads[IDX_ACTIVATION_LOGIT] = dlogit
+  grads[IDX_LAYER_SCALES] = dscales
+  for l in range(config.depth + 1):
+    grads[IDX_FIRST_DENSE + 2 * l] = dws[l]
+    grads[IDX_FIRST_DENSE + 2 * l + 1] = dbs[l]
+  return grads

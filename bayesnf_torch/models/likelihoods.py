@@ -5,8 +5,8 @@
   total_count = 1/shape, logits = -log(shape) - log(mean).
 - ZINB: NB plus inflated-zero probability sigmoid(zinb_logit).
 
-Only the forecast parameters are here (what predict needs); the
-log-likelihoods arrive with training.
+The log-likelihood is ported for NORMAL (what full-batch training needs);
+the count models' log-likelihoods arrive with their slice.
 """
 
 import enum
@@ -21,6 +21,41 @@ class LikelihoodDist(enum.Enum):
   NORMAL = 'NORMAL'
   NB = 'NB'
   ZINB = 'ZINB'
+
+
+def log_likelihood(
+    distribution: LikelihoodDist,
+    params: tuple,
+    pred: torch.Tensor,
+    y: torch.Tensor,
+    weights: torch.Tensor | None = None,
+) -> torch.Tensor:
+  """Summed log-likelihood of observations `y` given predictions `pred`.
+
+  Args:
+    distribution: observation model.
+    params: flat parameter tuple, each leaf with a leading member axis E;
+      only the three leading scalars are read.
+    pred: (E, B) field predictions.
+    y: (B,) observed targets, shared by every member.
+    weights: optional (B,) per-observation weights.
+
+  Returns:
+    (E,) sums over the rows of the (weighted) elementwise log-probs.
+
+  Raises:
+    NotImplementedError: for NB and ZINB.
+  """
+  if distribution != LikelihoodDist.NORMAL:
+    raise NotImplementedError(
+        f'The {distribution.value} log-likelihood is not ported to PyTorch '
+        'yet (ROADMAP.md, queue 1 item 10).'
+    )
+  scale = 0.01 + torch.exp(params[field_lib.IDX_LOG_NOISE_SCALE])
+  lp = special.normal_log_prob(y, pred, scale[:, None])
+  if weights is not None:
+    lp = lp * weights
+  return lp.sum(dim=-1)
 
 
 def forecast_params(

@@ -1,0 +1,990 @@
+// Fused training objective (NORMAL likelihood, shared inputs) for Hopper
+// (sm_90a): encode from raw inputs, MLP forward, loss, full backward, with
+// the loss and every gradient summed over all rows.
+//
+// Replaces the Pallas TPU kernel `fused_train` (body `_train_kernel_raw`,
+// helpers `_encode_in_kernel`, `_encode_backward_in_kernel`,
+// `_likelihood_tile`) in bayesnf_tpu/ops/fused_mlp.py. Per ensemble member e:
+//
+//   sx   = x * exp(-(lsa + log input_scales))                     (D rows)
+//   h_0  = [sx, octave Fourier(sx_i), seasonal, sx_a * sx_b] * softplus(fs)
+//   z_l  = s_l * (W_l^T (h_l / sqrt(fan_in_l)) + b_l),  h_{l+1} = act(z_l)
+//   pred = s_out * (W_out^T (h_depth / sqrt(width)) + b_out)
+//   loss = lik_scale * sum_rows [ (pred - y)^2 / (2 sigma^2) + log sigma
+//                                 + log(2 pi) / 2 ],  sigma = 0.01 + e^obs0
+//
+// and d loss / d (lsa, fs, W_l, b_l, scales_raw, logit, obs), hand-derived as
+// in the TPU kernel. fp32 throughout (FMA, no TF32, no fast-math intrinsics).
+//
+// What bounds it: at the training path's shapes (64 members x 38,096 rows,
+// width 512, depth 2, 49 encoded features) one call is ~4.2 TFLOP of fp32
+// FMA (1.73 MFLOP per row and member: the forward, the backward's
+// W dv products, and the weight-gradient contraction over rows), so it is
+// bound by the SIMT fp32 pipe. Memory traffic is the scratch below, a few
+// GB per call.
+//
+// Design. The TPU kernel keeps a member's weights, the tile's activations and
+// the running weight gradients in VMEM across its sequential row tiles. A
+// Hopper block has 227 KB of shared memory, one width-512 weight matrix and
+// its gradient are 1 MiB each, and blocks run in no order. So one call runs,
+// for each chunk of rows (sized so the scratch stays under a budget the
+// wrapper sets):
+//   1. `train_tile_kernel`, grid (row tiles, members). A block encodes its TR
+//      rows into shared memory, runs the forward with two ping-pong buffers
+//      (as the K2 forward does), the loss, and the backward chain
+//      dh_l = W_l dv_l / sqrt(fan_in_l) with the same two buffers, then the
+//      encode backward. It writes to global scratch each layer's matmul input
+//      lhs_l = h_l / sqrt(fan_in_l), pre-activation z_l (read back by the same
+//      block in the backward) and pre-scale cotangent dv_l, in row-contiguous
+//      passes over shared memory, and per-tile partial sums of the scalar
+//      gradients (block reductions in a fixed order). Depth does not change
+//      its shared memory. The first layer's W dv has only F outputs (49 at
+//      the main shape), so it runs as one dot product per thread
+//      (`narrow_matmul`) rather than a 512-column pass that would leave most
+//      columns idle.
+//   2. `wgrad_kernel`: dW_l += sum over the chunk's rows of lhs_l dv_l^T,
+//      a hand-written 128 x 128-tile SIMT GEMM, one thread summing each
+//      output over rows in order.
+//   3. `rowdot_kernel`: db_l += sum_rows dv_l, and the output layer's
+//      dW_out += sum_rows lhs_depth dv_out, one warp per output.
+// and once at the end `finalize_kernel` sums the per-tile partials in tile
+// order and applies the scalar chain rules. Every reduction has a fixed
+// order and there are no atomics, so results are bitwise reproducible.
+// Padded rows of the ragged last tile read x = 0 and carry a zero loss
+// cotangent, so they add exactly zero to every sum.
+// Making it fast (wgmma, TMA, keeping z_l on chip, bf16 operands) is later
+// work.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kRowGroups = 4;                        // threads along rows
+constexpr int kColGroups = kThreads / kRowGroups;    // 64 along columns
+constexpr int kColsPerPass = 8 * kColGroups;         // 512 output columns
+constexpr int kKTile = 8;                            // reduction rows per stage
+constexpr int kLdw = kColsPerPass + 4;               // staged-tile row stride
+constexpr int kPrefetch = kKTile * kColsPerPass / kThreads;  // 16 per thread
+constexpr int kMaxLayers = 9;                        // depth <= 8, + output
+constexpr int kMaxInputs = 8;
+constexpr int kMaxPairs = 32;
+constexpr int kMaxGroups = kMaxInputs + 3;
+constexpr int kWarps = kThreads / 32;
+// W dv products with at most this many outputs per row use narrow_matmul.
+constexpr int kNarrowRows = 128;
+constexpr float kTwoPi = 6.283185307179586f;
+constexpr float kHalfLog2Pi = 0.9189385332046727f;
+
+// Partial sums per (member, row tile), in this order:
+//   kPartRR      sum (pred - y)^2 over valid rows
+//   kPartGV      sum g * v_out (g = d loss / d pred, v_out = pred / s_out)
+//   kPartLogit   sum dh * d act / d w over every hidden layer
+//   kPartDzz+l   sum dz_l * z_l, l < depth
+//   then num_inputs sums of d loss / d lsa, then num_groups sums
+//   <dh0_g, raw_g> (before the sigmoid(fs_raw) factor).
+constexpr int kPartRR = 0;
+constexpr int kPartGV = 1;
+constexpr int kPartLogit = 2;
+constexpr int kPartDzz = 3;
+
+struct TrainArgs {
+  const float* x;                  // (D, N)
+  const float* seasonal;           // (S2, N)
+  const float* y;                  // (N,)
+  const float* w[kMaxLayers];      // (E, fan_in_l, fan_out_l)
+  const float* b[kMaxLayers];      // (E, fan_out_l)
+  const float* lsa_eff;            // (E, D): lsa + log(input_scales)
+  const float* fs_raw;             // (E, G)
+  const float* scales_raw;         // (E, depth + 1)
+  const float* logit;              // (E,)
+  const float* obs_raw;            // (E, 3)
+  float* lhs[kMaxLayers];          // (E, fan_in_l, ld) chunk scratch
+  float* z[kMaxLayers];            // (E, width, ld), l < depth
+  float* dv[kMaxLayers];           // (E, fan_out_l, ld)
+  float* partials;                 // (E, num_tiles, num_partials)
+  float rsqrt[kMaxLayers];         // 1/sqrt(fan_in_l), rounded from double
+  float lik_scale;
+  int fourier_degree[kMaxInputs];
+  int pair_a[kMaxPairs];
+  int pair_b[kMaxPairs];
+  int depth;
+  int num_inputs;
+  int num_seasonal;
+  int num_pairs;
+  int num_groups;
+  int num_features;
+  int width;
+  int n_rows;                      // valid rows N
+  int row0;                        // first row of this chunk
+  int ld;                          // scratch row stride (rows per chunk)
+  int tile0;                       // global index of the chunk's first tile
+  int num_tiles;                   // tiles over all N rows
+  int num_partials;
+};
+
+__device__ __forceinline__ float softplus(float x) {
+  // jax.nn.softplus: logaddexp(x, 0).
+  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+}
+
+__device__ __forceinline__ float sigmoid(float x) {
+  return 1.f / (1.f + expf(-x));
+}
+
+__device__ __forceinline__ float blended_act(float z, float w) {
+  const float q = expf(fminf(z, 0.f));
+  const float elu = z > 0.f ? z : q - 1.f;
+  return w * elu + (1.f - w) * tanhf(z);
+}
+
+// d act / d z and d act / d w, with the TPU kernel's `_act_grad` formulas.
+__device__ __forceinline__ void blended_act_grad(float z, float w, float* dz,
+                                                 float* dw) {
+  const float q = expf(fminf(z, 0.f));
+  const float t = tanhf(z);
+  const float elu = z > 0.f ? z : q - 1.f;
+  const float delu = z > 0.f ? 1.f : q;
+  *dz = w * delu + (1.f - w) * (1.f - t * t);
+  *dw = elu - t;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Sum of `v` over the block in a fixed order; the total is valid on thread 0.
+// Every thread must call it.
+__device__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  __syncthreads();  // `red` is free
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float total = 0.f;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kWarps; ++i) total += red[i];
+  }
+  return total;
+}
+
+// Block matmul on activations held features-major in shared memory:
+//   out(c, r) = sum_k A(k, c) * in[k * LDH + r],  c < n_out, k < n_red,
+// with A(k, c) = a[k * lda + c] when kTrans is false (a weight W read as
+// W[k][c], the forward) and a[c * lda + k] when it is true (W[c][k], the
+// backward's W dv). A is staged through `w_tile` in kKTile x kColsPerPass
+// tiles, prefetched into registers one tile ahead; the load order keeps
+// neighbouring threads on neighbouring addresses in both cases. Each thread
+// holds an (RT rows x 8 columns) accumulator and hands each column to
+// `epi(c, r0, vals)`, vals[i] being row r0 + i. Starts with a barrier, so the
+// caller may reuse w_tile's memory right before the call.
+template <int TR, bool kTrans, typename Epilogue>
+__device__ __forceinline__ void block_matmul(const float* __restrict__ a,
+                                             int n_red, int n_out, int lda,
+                                             const float* in, float* w_tile,
+                                             Epilogue epi) {
+  constexpr int RT = TR / kRowGroups;
+  constexpr int LDH = TR + 4;
+  const int tid = threadIdx.x;
+  const int cg = tid % kColGroups;
+  const int r0 = (tid / kColGroups) * RT;
+
+  auto load = [&](float (&pre)[kPrefetch], int k0, int j0) {
+#pragma unroll
+    for (int q = 0; q < kPrefetch; ++q) {
+      const int i = tid + q * kThreads;
+      const int kk = kTrans ? i % kKTile : i / kColsPerPass;
+      const int c = kTrans ? i / kKTile : i % kColsPerPass;
+      const int k = k0 + kk, j = j0 + c;
+      float v = 0.f;
+      if (k < n_red && j < n_out) {
+        v = __ldg(a + (kTrans ? (size_t)j * lda + k : (size_t)k * lda + j));
+      }
+      pre[q] = v;
+    }
+  };
+
+  for (int j0 = 0; j0 < n_out; j0 += kColsPerPass) {
+    float acc[RT][8];
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+
+    float pre[kPrefetch];
+    load(pre, 0, j0);
+    for (int k0 = 0; k0 < n_red; k0 += kKTile) {
+      __syncthreads();  // every warp is done with the previous tile
+#pragma unroll
+      for (int q = 0; q < kPrefetch; ++q) {
+        const int i = tid + q * kThreads;
+        const int kk = kTrans ? i % kKTile : i / kColsPerPass;
+        const int c = kTrans ? i / kKTile : i % kColsPerPass;
+        w_tile[kk * kLdw + c] = pre[q];
+      }
+      __syncthreads();
+      if (k0 + kKTile < n_red) load(pre, k0 + kKTile, j0);
+#pragma unroll
+      for (int kk = 0; kk < kKTile; ++kk) {
+        if (k0 + kk < n_red) {
+          const float* hk = in + (k0 + kk) * LDH + r0;
+          float hv[RT];
+#pragma unroll
+          for (int i = 0; i < RT; i += 4) {
+            const float4 v = *reinterpret_cast<const float4*>(hk + i);
+            hv[i] = v.x;
+            hv[i + 1] = v.y;
+            hv[i + 2] = v.z;
+            hv[i + 3] = v.w;
+          }
+          const float* wk = w_tile + kk * kLdw + cg * 4;
+          const float4 wa = *reinterpret_cast<const float4*>(wk);
+          const float4 wb =
+              *reinterpret_cast<const float4*>(wk + kColsPerPass / 2);
+          const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+          for (int i = 0; i < RT; ++i)
+#pragma unroll
+            for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(hv[i], wv[c], acc[i][c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int j = j0 + cg * 4 + (c & 3) + (c >> 2) * (kColsPerPass / 2);
+      if (j < n_out) {
+        float vals[RT];
+#pragma unroll
+        for (int i = 0; i < RT; ++i) vals[i] = acc[i][c];
+        epi(j, r0, vals);
+      }
+    }
+  }
+}
+
+// The scaled inputs sx of one row (zero past the last row).
+__device__ __forceinline__ void scaled_inputs(const TrainArgs& args, int e,
+                                              int row, bool valid,
+                                              float (&sx)[kMaxInputs]) {
+  const float* lsa = args.lsa_eff + (size_t)e * args.num_inputs;
+  for (int d = 0; d < args.num_inputs; ++d) {
+    const float xd = valid ? args.x[(size_t)d * args.n_rows + row] : 0.f;
+    sx[d] = xd * expf(-lsa[d]);
+  }
+}
+
+// out[c * LDH + r] = rs * sum_j a[c * n_red + j] * in[j * LDH + r] for
+// c < n_out, j < n_red: the backward's W dv for a weight with few rows (the
+// first layer's, one row per encoded feature), where a 512-column
+// block_matmul pass would leave most columns idle. One output per thread at
+// a time: a warp shares c (a broadcast read of W's row) and covers TR
+// neighbouring r; the sum runs in j order.
+template <int TR>
+__device__ __forceinline__ void narrow_matmul(const float* __restrict__ a,
+                                              int n_red, int n_out,
+                                              const float* in, float* out,
+                                              float rs) {
+  constexpr int LDH = TR + 4;
+  for (int o = threadIdx.x; o < n_out * TR; o += kThreads) {
+    const int c = o / TR, r = o % TR;
+    const float* ac = a + (size_t)c * n_red;
+    const float* ir = in + r;
+    float acc = 0.f;
+    int j = 0;
+    if ((n_red & 3) == 0) {
+      const float4* a4 = reinterpret_cast<const float4*>(ac);
+      for (; j < n_red; j += 4) {
+        const float4 v = __ldg(a4 + j / 4);
+        acc = fmaf(v.x, ir[j * LDH], acc);
+        acc = fmaf(v.y, ir[(j + 1) * LDH], acc);
+        acc = fmaf(v.z, ir[(j + 2) * LDH], acc);
+        acc = fmaf(v.w, ir[(j + 3) * LDH], acc);
+      }
+    }
+    for (; j < n_red; ++j) acc = fmaf(__ldg(ac + j), ir[j * LDH], acc);
+    out[c * LDH + r] = acc * rs;
+  }
+}
+
+// Encodes one row: its encoded features times `rs` go to h0[k * ldh].
+__device__ __forceinline__ void encode_row(const TrainArgs& args, int e,
+                                           int row, bool valid, float* h0,
+                                           int ldh, float rs) {
+  const int d_in = args.num_inputs;
+  const int n = args.n_rows;
+  const float* fsr = args.fs_raw + (size_t)e * args.num_groups;
+  float sx[kMaxInputs];
+  scaled_inputs(args, e, row, valid, sx);
+  int k = 0, g = 0;
+  float fs = softplus(fsr[g++]);
+  for (int d = 0; d < d_in; ++d) h0[(k + d) * ldh] = (sx[d] * fs) * rs;
+  k += d_in;
+  for (int i = 0; i < d_in; ++i) {
+    const int deg = args.fourier_degree[i];
+    if (deg <= 0) continue;
+    fs = softplus(fsr[g++]);
+    const float theta = kTwoPi * sx[i];
+    float c = cosf(theta), s = sinf(theta);
+    for (int kk = 0; kk < deg; ++kk) {
+      const float dk = 1.f / (float)(kk + 1);
+      h0[(k + kk) * ldh] = ((c * dk) * fs) * rs;
+      h0[(k + deg + kk) * ldh] = ((s * dk) * fs) * rs;
+      const float c2 = 2.f * c * c - 1.f;
+      s = 2.f * s * c;
+      c = c2;
+    }
+    k += 2 * deg;
+  }
+  if (args.num_seasonal > 0) {
+    fs = softplus(fsr[g++]);
+    for (int q = 0; q < args.num_seasonal; ++q) {
+      const float v = valid ? args.seasonal[(size_t)q * n + row] : 0.f;
+      h0[(k + q) * ldh] = (v * fs) * rs;
+    }
+    k += args.num_seasonal;
+  }
+  if (args.num_pairs > 0) {
+    fs = softplus(fsr[g++]);
+    for (int p = 0; p < args.num_pairs; ++p) {
+      h0[(k + p) * ldh] = ((sx[args.pair_a[p]] * sx[args.pair_b[p]]) * fs) * rs;
+    }
+  }
+}
+
+template <int TR>
+__global__ void __launch_bounds__(kThreads, 1)
+    train_tile_kernel(const TrainArgs args) {
+  constexpr int RT = TR / kRowGroups;  // rows per thread, a multiple of 4
+  constexpr int LDH = TR + 4;          // padded row stride of the buffers
+  static_assert(RT % 4 == 0, "rows per thread must allow float4 loads");
+  static_assert(TR <= 32, "per-row phases run in warp 0");
+
+  extern __shared__ __align__(16) float smem[];
+  const int depth = args.depth;
+  const int width = args.width;
+  const int f = args.num_features;
+  const int kmax = max(f, width);
+  float* bufs[2] = {smem, smem + kmax * LDH};
+  float* w_tile = smem + 2 * kmax * LDH;  // [kKTile][kLdw]
+  float* dv_out = w_tile + kKTile * kLdw;  // [TR]
+  float* red = dv_out + TR;                // [kWarps]
+
+  const int tid = threadIdx.x;
+  const int e = blockIdx.y;
+  const int col0 = blockIdx.x * TR;        // column in the chunk's scratch
+  const int grow0 = args.row0 + col0;      // first row of the tile
+  const int n = args.n_rows;
+  const size_t ld = args.ld;
+  const int num_w = depth + 1;
+  const float* scales_raw = args.scales_raw + (size_t)e * num_w;
+  const float wgt = sigmoid(args.logit[e]);
+  float* partials =
+      args.partials +
+      ((size_t)e * args.num_tiles + args.tile0 + blockIdx.x) * args.num_partials;
+
+  // --- Encode: h_0 / sqrt(F) into bufs[0], one row per thread of warp 0.
+  if (tid < TR) {
+    const int row = grow0 + tid;
+    encode_row(args, e, row, row < n, bufs[0] + tid, LDH, args.rsqrt[0]);
+  }
+  __syncthreads();
+  {
+    float* lhs = args.lhs[0] + (size_t)e * f * ld + col0;
+    for (int i = tid; i < f * TR; i += kThreads) {
+      lhs[(i / TR) * ld + i % TR] = bufs[0][(i / TR) * LDH + i % TR];
+    }
+  }
+
+  // --- Forward; z_l and the next layer's input go to scratch.
+  int fan_in = f;
+  for (int l = 0; l < depth; ++l) {
+    const float* w = args.w[l] + (size_t)e * fan_in * width;
+    const float* b = args.b[l] + (size_t)e * width;
+    const float s = softplus(scales_raw[l]);
+    const float rs_next = args.rsqrt[l + 1];
+    float* hout = bufs[(l + 1) & 1];
+    float* zg = args.z[l] + (size_t)e * width * ld + col0;
+    float* lhs = args.lhs[l + 1] + (size_t)e * width * ld + col0;
+    block_matmul<TR, false>(
+        w, fan_in, width, width, bufs[l & 1], w_tile,
+        [&](int j, int r0, const float (&vals)[RT]) {
+          const float bj = __ldg(b + j);
+#pragma unroll
+          for (int i = 0; i < RT; ++i) hout[j * LDH + r0 + i] = s * (vals[i] + bj);
+        });
+    __syncthreads();
+    // z_l to scratch and h_{l+1} / sqrt(width) in its place, row-contiguous
+    // so that a warp's stores are whole 128-byte lines.
+    for (int i = tid; i < width * TR; i += kThreads) {
+      const int j = i / TR, r = i % TR;
+      const float zz = hout[j * LDH + r];
+      const float h = blended_act(zz, wgt) * rs_next;
+      zg[j * ld + r] = zz;
+      lhs[j * ld + r] = h;
+      hout[j * LDH + r] = h;
+    }
+    __syncthreads();
+    fan_in = width;
+  }
+
+  // --- Output layer (fixed-order reduction per row), loss and pred-cotangent.
+  const float* w_out = args.w[depth] + (size_t)e * fan_in;
+  {
+    constexpr int G = kThreads / TR;
+    const float* hin = bufs[depth & 1];
+    const int r = tid % TR, g = tid / TR;
+    float part = 0.f;
+    for (int k = g; k < fan_in; k += G) part = fmaf(hin[k * LDH + r], __ldg(w_out + k), part);
+    w_tile[g * TR + r] = part;  // free: every warp passed the barrier above
+    __syncthreads();
+    if (tid < 32) {
+      float rr = 0.f, gv = 0.f;
+      if (tid < TR) {
+        float acc = 0.f;
+#pragma unroll
+        for (int q = 0; q < G; ++q) acc += w_tile[q * TR + tid];
+        const int row = grow0 + tid;
+        const float v_out = acc + args.b[depth][e];
+        const float s_out = softplus(scales_raw[depth]);
+        const float pred = s_out * v_out;
+        const float sigma = 0.01f + expf(args.obs_raw[(size_t)e * 3]);
+        const float inv_sigma2 = 1.f / (sigma * sigma);
+        const float res = row < n ? pred - args.y[row] : 0.f;
+        const float gg = args.lik_scale * inv_sigma2 * res;
+        const float dvo = gg * s_out;
+        dv_out[tid] = dvo;
+        args.dv[depth][(size_t)e * ld + col0 + tid] = dvo;
+        rr = res * res;
+        gv = gg * v_out;
+      }
+      rr = warp_sum(rr);
+      gv = warp_sum(gv);
+      if (tid == 0) {
+        partials[kPartRR] = rr;
+        partials[kPartGV] = gv;
+      }
+    }
+  }
+  __syncthreads();
+
+  // --- Backward. dh_depth = W_out dv_out / sqrt(fan_in), into the buffer that
+  // held the output layer's input (already in scratch for the dW sums).
+  float* cur = bufs[depth & 1];
+  {
+    const float rs = args.rsqrt[depth];
+    for (int i = tid; i < fan_in * TR; i += kThreads) {
+      const int k = i / TR, r = i % TR;
+      cur[k * LDH + r] = (__ldg(w_out + k) * dv_out[r]) * rs;
+    }
+  }
+  __syncthreads();
+
+  float dlogit = 0.f;
+  for (int l = depth - 1; l >= 0; --l) {
+    const float s = softplus(scales_raw[l]);
+    const float* zg = args.z[l] + (size_t)e * width * ld + col0;
+    float* dvg = args.dv[l] + (size_t)e * width * ld + col0;
+    float dzz = 0.f;
+    for (int i = tid; i < width * TR; i += kThreads) {
+      const int j = i / TR, r = i % TR;
+      const float z = zg[j * ld + r];
+      float dact_dz, dact_dw;
+      blended_act_grad(z, wgt, &dact_dz, &dact_dw);
+      const float dh = cur[j * LDH + r];
+      dlogit += dh * dact_dw;
+      const float dz = dh * dact_dz;
+      dzz += dz * z;
+      const float dv = dz * s;
+      cur[j * LDH + r] = dv;
+      dvg[j * ld + r] = dv;
+    }
+    dzz = block_sum(dzz, red);
+    if (tid == 0) partials[kPartDzz + l] = dzz;
+    __syncthreads();
+
+    // dh_l = W_l dv_l / sqrt(fan_in_l), W_l of shape (fan_in_l, width).
+    const int fi = l == 0 ? f : width;
+    const float* w = args.w[l] + (size_t)e * fi * width;
+    const float rs = args.rsqrt[l];
+    float* nxt = cur == bufs[0] ? bufs[1] : bufs[0];
+    if (fi <= kNarrowRows) {
+      narrow_matmul<TR>(w, width, fi, cur, nxt, rs);
+    } else {
+      block_matmul<TR, true>(
+          w, width, fi, width, cur, w_tile,
+          [&](int c, int r0, const float (&vals)[RT]) {
+#pragma unroll
+            for (int i = 0; i < RT; ++i) nxt[c * LDH + r0 + i] = vals[i] * rs;
+          });
+    }
+    __syncthreads();
+    cur = nxt;
+  }
+  dlogit = block_sum(dlogit, red);
+  if (tid == 0) partials[kPartLogit] = dlogit;
+
+  // --- Encode backward: cur holds d loss / d h_0 (F x TR).
+  if (tid < 32) {
+    const int d_in = args.num_inputs;
+    const int num_groups = args.num_groups;
+    float dsx[kMaxInputs];
+    float dfs[kMaxGroups];
+    for (int d = 0; d < kMaxInputs; ++d) dsx[d] = 0.f;
+    for (int g = 0; g < kMaxGroups; ++g) dfs[g] = 0.f;
+    float sx[kMaxInputs];
+    if (tid < TR) {
+      const int row = grow0 + tid;
+      const bool valid = row < n;
+      const float* dh0 = cur + tid;
+      const float* fsr = args.fs_raw + (size_t)e * num_groups;
+      // The forward's buffers are overwritten by now: recompute sx, and the
+      // octave chains below, from the raw inputs.
+      scaled_inputs(args, e, row, valid, sx);
+      int k = 0, g = 0;
+      float fs = softplus(fsr[g]);
+      float acc = 0.f;
+      for (int d = 0; d < d_in; ++d) {
+        const float dg = dh0[(k + d) * LDH];
+        acc += dg * sx[d];
+        dsx[d] = dg * fs;
+      }
+      dfs[g++] = acc;
+      k += d_in;
+      for (int i = 0; i < d_in; ++i) {
+        const int deg = args.fourier_degree[i];
+        if (deg <= 0) continue;
+        fs = softplus(fsr[g]);
+        const float theta = kTwoPi * sx[i];
+        float c = cosf(theta), s = sinf(theta);
+        float dtheta = 0.f;
+        acc = 0.f;
+        for (int kk = 0; kk < deg; ++kk) {
+          const float dk = 1.f / (float)(kk + 1);
+          const float dgc = dh0[(k + kk) * LDH];
+          const float dgs = dh0[(k + deg + kk) * LDH];
+          acc += dgc * (c * dk);
+          acc += dgs * (s * dk);
+          const float coef = (float)(1 << kk) / (float)(kk + 1);
+          dtheta += coef * ((dgs * fs) * c - (dgc * fs) * s);
+          const float c2 = 2.f * c * c - 1.f;
+          s = 2.f * s * c;
+          c = c2;
+        }
+        dsx[i] += kTwoPi * dtheta;
+        dfs[g++] = acc;
+        k += 2 * deg;
+      }
+      if (args.num_seasonal > 0) {
+        acc = 0.f;
+        for (int q = 0; q < args.num_seasonal; ++q) {
+          const float v = valid ? args.seasonal[(size_t)q * n + row] : 0.f;
+          acc += dh0[(k + q) * LDH] * v;
+        }
+        dfs[g++] = acc;
+        k += args.num_seasonal;
+      }
+      if (args.num_pairs > 0) {
+        fs = softplus(fsr[g]);
+        acc = 0.f;
+        for (int p = 0; p < args.num_pairs; ++p) {
+          const int pa = args.pair_a[p], pb = args.pair_b[p];
+          const float dg = dh0[(k + p) * LDH];
+          acc += dg * (sx[pa] * sx[pb]);
+          const float dgs = dg * fs;
+          dsx[pa] += dgs * sx[pb];
+          dsx[pb] += dgs * sx[pa];
+        }
+        dfs[g++] = acc;
+      }
+      for (int d = 0; d < d_in; ++d) dsx[d] = dsx[d] * (-sx[d]);
+    }
+    float* out = partials + kPartDzz + depth;
+    for (int d = 0; d < d_in; ++d) {
+      const float v = warp_sum(dsx[d]);
+      if (tid == 0) out[d] = v;
+    }
+    for (int g = 0; g < num_groups; ++g) {
+      const float v = warp_sum(dfs[g]);
+      if (tid == 0) out[d_in + g] = v;
+    }
+  }
+}
+
+// dw[e] (+)= a[e] b[e]^T over `len` rows: a (E, m, ld), b (E, nn, ld),
+// dw (E, m, nn). 128 x 128 output tile per block, 8 x 8 per thread, rows
+// staged 8 at a time. Each output is summed over rows in order by one
+// thread; `accumulate` adds the chunk's sum to what dw holds.
+constexpr int kGTile = 128;
+constexpr int kGK = 8;
+constexpr int kGLd = kGTile + 4;
+constexpr int kGLoads = kGTile * kGK / kThreads;  // 4 per operand per thread
+
+__global__ void __launch_bounds__(kThreads)
+    wgrad_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                 float* __restrict__ dw, int m, int nn, int len, int ld,
+                 int accumulate) {
+  __shared__ __align__(16) float as[kGK][kGLd];
+  __shared__ __align__(16) float bs[kGK][kGLd];
+  const int e = blockIdx.z;
+  const int k0 = blockIdx.y * kGTile, j0 = blockIdx.x * kGTile;
+  const float* ap = a + (size_t)e * m * ld;
+  const float* bp = b + (size_t)e * nn * ld;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+
+  float pa[kGLoads], pb[kGLoads];
+  auto load = [&](int r0) {
+#pragma unroll
+    for (int q = 0; q < kGLoads; ++q) {
+      const int i = tid + q * kThreads;
+      const int row = i / kGK, r = r0 + i % kGK;
+      pa[q] = (k0 + row < m && r < len) ? __ldg(ap + (size_t)(k0 + row) * ld + r) : 0.f;
+      pb[q] = (j0 + row < nn && r < len) ? __ldg(bp + (size_t)(j0 + row) * ld + r) : 0.f;
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  load(0);
+  for (int r0 = 0; r0 < len; r0 += kGK) {
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kGLoads; ++q) {
+      const int i = tid + q * kThreads;
+      as[i % kGK][i / kGK] = pa[q];
+      bs[i % kGK][i / kGK] = pb[q];
+    }
+    __syncthreads();
+    if (r0 + kGK < len) load(r0 + kGK);
+#pragma unroll
+    for (int rr = 0; rr < kGK; ++rr) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&as[rr][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&as[rr][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&bs[rr][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&bs[rr][64 + tx * 4]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int k = k0 + (i >> 2) * 64 + ty * 4 + (i & 3);
+    if (k >= m) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int jj = j0 + (j >> 2) * 64 + tx * 4 + (j & 3);
+      if (jj >= nn) continue;
+      float* p = dw + ((size_t)e * m + k) * nn + jj;
+      *p = accumulate ? *p + acc[i][j] : acc[i][j];
+    }
+  }
+}
+
+// out[e][k] (+)= sum_{r < len} a[e][k][r] * (b ? b[e][r] : 1), a (E, rows,
+// ld), b (E, ld), out (E, rows): one warp per (e, k), lanes striding the rows,
+// then a fixed shuffle tree.
+__global__ void __launch_bounds__(kThreads)
+    rowdot_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                  float* __restrict__ out, int members, int rows, int len,
+                  int ld, int accumulate) {
+  const int gw = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (gw >= members * rows) return;
+  const int e = gw / rows;
+  const float* ap = a + (size_t)gw * ld;
+  float v = 0.f;
+  if (b == nullptr) {
+    for (int r = lane; r < len; r += 32) v += __ldg(ap + r);
+  } else {
+    const float* bp = b + (size_t)e * ld;
+    for (int r = lane; r < len; r += 32) v = fmaf(__ldg(ap + r), __ldg(bp + r), v);
+  }
+  v = warp_sum(v);
+  if (lane == 0) out[gw] = accumulate ? out[gw] + v : v;
+}
+
+struct FinalArgs {
+  const float* partials;   // (E, num_tiles, num_partials)
+  const float* fs_raw;     // (E, G)
+  const float* scales_raw; // (E, depth + 1)
+  const float* logit;      // (E,)
+  const float* obs_raw;    // (E, 3)
+  float* losses;           // (E,)
+  float* dlsa;             // (E, D)
+  float* dfs;              // (E, G)
+  float* dscales;          // (E, depth + 1)
+  float* dlogit;           // (E,)
+  float* dobs;             // (E, 3)
+  float lik_scale;
+  int n_rows;
+  int depth;
+  int num_inputs;
+  int num_groups;
+  int num_tiles;
+  int num_partials;
+};
+
+// One block of 32 threads per member: thread p sums partial p over the
+// tiles in order; thread 0 then applies the scalar chain rules.
+__global__ void finalize_kernel(const FinalArgs args) {
+  __shared__ float sums[32];
+  const int e = blockIdx.x, p = threadIdx.x;
+  const int np = args.num_partials;
+  if (p < np) {
+    const float* src = args.partials + (size_t)e * args.num_tiles * np + p;
+    float acc = 0.f;
+    for (int t = 0; t < args.num_tiles; ++t) acc += src[(size_t)t * np];
+    sums[p] = acc;
+  }
+  __syncthreads();
+  if (p != 0) return;
+  const int depth = args.depth, d_in = args.num_inputs;
+  const int num_w = depth + 1;
+  const float sigma = 0.01f + expf(args.obs_raw[(size_t)e * 3]);
+  const float inv_sigma2 = 1.f / (sigma * sigma);
+  const float rr = sums[kPartRR];
+  const float nf = (float)args.n_rows;
+  args.losses[e] = args.lik_scale *
+                   (0.5f * inv_sigma2 * rr + nf * (logf(sigma) + kHalfLog2Pi));
+  float* dobs = args.dobs + (size_t)e * 3;
+  dobs[0] = args.lik_scale * (sigma - 0.01f) *
+            (nf / sigma - rr * inv_sigma2 / sigma);
+  dobs[1] = 0.f;
+  dobs[2] = 0.f;
+  const float* raw = args.scales_raw + (size_t)e * num_w;
+  float* dscales = args.dscales + (size_t)e * num_w;
+  for (int l = 0; l < depth; ++l) {
+    dscales[l] = sums[kPartDzz + l] / softplus(raw[l]) * sigmoid(raw[l]);
+  }
+  dscales[depth] = sums[kPartGV] * sigmoid(raw[depth]);
+  const float w = sigmoid(args.logit[e]);
+  args.dlogit[e] = sums[kPartLogit] * w * (1.f - w);
+  const float* enc = sums + kPartDzz + depth;
+  for (int d = 0; d < d_in; ++d) args.dlsa[(size_t)e * d_in + d] = enc[d];
+  const float* fsr = args.fs_raw + (size_t)e * args.num_groups;
+  for (int g = 0; g < args.num_groups; ++g) {
+    args.dfs[(size_t)e * args.num_groups + g] = enc[d_in + g] * sigmoid(fsr[g]);
+  }
+}
+
+int num_partials(int depth, int num_inputs, int num_groups) {
+  return kPartDzz + depth + num_inputs + num_groups;
+}
+
+// Scratch floats per chunk row and member: lhs_l (F + depth * width), z_l
+// (depth * width), dv_l (depth * width + 1).
+size_t floats_per_row(int num_features, int width, int depth) {
+  return (size_t)num_features + 3 * (size_t)depth * width + 1;
+}
+
+template <int TR>
+cudaError_t launch_tile(const TrainArgs& args, int tiles, int members,
+                        size_t smem_bytes, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      train_tile_kernel<TR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes));
+  if (err != cudaSuccess) return err;
+  train_tile_kernel<TR><<<dim3(tiles, members), kThreads, smem_bytes, stream>>>(args);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory of one `train_tile_kernel` block (bytes); the wrapper picks
+// tile_rows with it.
+size_t bnf_fused_train_smem_bytes(int tile_rows, int num_features, int width) {
+  const int kmax = num_features > width ? num_features : width;
+  return (2 * (size_t)kmax * (tile_rows + 4) + (size_t)kKTile * kLdw +
+          tile_rows + kWarps) *
+         sizeof(float);
+}
+
+// Global scratch (bytes) for chunks of `chunk_rows` rows over `n_rows` rows.
+size_t bnf_fused_train_scratch_bytes(int members, int num_features, int width,
+                                     int depth, int num_inputs, int num_groups,
+                                     int chunk_rows, int n_rows,
+                                     int tile_rows) {
+  const size_t tiles = (n_rows + tile_rows - 1) / tile_rows;
+  return ((size_t)members * chunk_rows *
+              floats_per_row(num_features, width, depth) +
+          (size_t)members * tiles * num_partials(depth, num_inputs, num_groups)) *
+         sizeof(float);
+}
+
+// Loss and gradients of the NORMAL training objective on `stream`. Pointers
+// are device pointers to contiguous float32 tensors, except the host arrays
+// `weights`, `biases`, `dweights`, `dbiases` (depth + 1 device pointers),
+// `rsqrts` (depth + 1 floats), `fourier_degrees` (num_inputs ints) and
+// `pairs` (2 * num_pairs ints). `scratch` holds
+// bnf_fused_train_scratch_bytes(...) bytes. Returns the first launch's
+// cudaError_t that is not cudaSuccess, or 0.
+int bnf_fused_train(const void* x, const void* seasonal, const void* y,
+                    const void* const* weights, const void* const* biases,
+                    const void* lsa_eff, const void* fs_raw,
+                    const void* scales_raw, const void* logit,
+                    const void* obs_raw, void* losses, void* dlsa, void* dfs,
+                    void* const* dweights, void* const* dbiases, void* dscales,
+                    void* dlogit, void* dobs, void* scratch,
+                    const float* rsqrts, const int* fourier_degrees,
+                    const int* pairs, float lik_scale, int depth, int members,
+                    int num_inputs, int num_seasonal, int num_pairs, int width,
+                    int n_rows, int tile_rows, int chunk_rows, void* stream) {
+  if (depth < 0 || depth + 1 > kMaxLayers || members < 1 || members > 65535 ||
+      n_rows < 1 || num_inputs < 1 || num_inputs > kMaxInputs ||
+      num_pairs < 0 || num_pairs > kMaxPairs || num_seasonal < 0 ||
+      chunk_rows < tile_rows || chunk_rows % tile_rows != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  TrainArgs args = {};
+  int num_features = num_inputs + num_seasonal + num_pairs;
+  int num_groups = 1 + (num_seasonal > 0) + (num_pairs > 0);
+  for (int i = 0; i < num_inputs; ++i) {
+    args.fourier_degree[i] = fourier_degrees[i];
+    if (fourier_degrees[i] > 0) {
+      num_features += 2 * fourier_degrees[i];
+      ++num_groups;
+    }
+  }
+  for (int p = 0; p < num_pairs; ++p) {
+    args.pair_a[p] = pairs[2 * p];
+    args.pair_b[p] = pairs[2 * p + 1];
+    if (args.pair_a[p] < 0 || args.pair_a[p] >= num_inputs ||
+        args.pair_b[p] < 0 || args.pair_b[p] >= num_inputs) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (depth == 0) width = num_features;
+  const int np = num_partials(depth, num_inputs, num_groups);
+  if (np > 32) return static_cast<int>(cudaErrorInvalidValue);
+
+  args.x = static_cast<const float*>(x);
+  args.seasonal = static_cast<const float*>(seasonal);
+  args.y = static_cast<const float*>(y);
+  for (int l = 0; l <= depth; ++l) {
+    args.w[l] = static_cast<const float*>(weights[l]);
+    args.b[l] = static_cast<const float*>(biases[l]);
+    args.rsqrt[l] = rsqrts[l];
+  }
+  args.lsa_eff = static_cast<const float*>(lsa_eff);
+  args.fs_raw = static_cast<const float*>(fs_raw);
+  args.scales_raw = static_cast<const float*>(scales_raw);
+  args.logit = static_cast<const float*>(logit);
+  args.obs_raw = static_cast<const float*>(obs_raw);
+  args.lik_scale = lik_scale;
+  args.depth = depth;
+  args.num_inputs = num_inputs;
+  args.num_seasonal = num_seasonal;
+  args.num_pairs = num_pairs;
+  args.num_groups = num_groups;
+  args.num_features = num_features;
+  args.width = width;
+  args.n_rows = n_rows;
+  args.ld = chunk_rows;
+  args.num_tiles = (n_rows + tile_rows - 1) / tile_rows;
+  args.num_partials = np;
+
+  // Carve the scratch: lhs_0..lhs_depth, z_0..z_{depth-1}, dv_0..dv_depth,
+  // then the partials.
+  float* p = static_cast<float*>(scratch);
+  const size_t rows = (size_t)members * chunk_rows;
+  for (int l = 0; l <= depth; ++l) {
+    args.lhs[l] = p;
+    p += rows * (l == 0 ? num_features : width);
+  }
+  for (int l = 0; l < depth; ++l) {
+    args.z[l] = p;
+    p += rows * width;
+  }
+  for (int l = 0; l <= depth; ++l) {
+    args.dv[l] = p;
+    p += rows * (l == depth ? 1 : width);
+  }
+  args.partials = p;
+
+  const size_t smem = bnf_fused_train_smem_bytes(tile_rows, num_features, width);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  for (int row0 = 0; row0 < n_rows; row0 += chunk_rows) {
+    const int chunk = n_rows - row0 < chunk_rows ? n_rows - row0 : chunk_rows;
+    const int tiles = (chunk + tile_rows - 1) / tile_rows;
+    const int len = tiles * tile_rows;
+    const int acc = row0 > 0;
+    args.row0 = row0;
+    args.tile0 = row0 / tile_rows;
+    switch (tile_rows) {
+      case 32:
+        err = launch_tile<32>(args, tiles, members, smem, s);
+        break;
+      case 16:
+        err = launch_tile<16>(args, tiles, members, smem, s);
+        break;
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int fan_in = num_features;
+    for (int l = 0; l < depth; ++l) {
+      const dim3 grid((width + kGTile - 1) / kGTile,
+                      (fan_in + kGTile - 1) / kGTile, members);
+      wgrad_kernel<<<grid, kThreads, 0, s>>>(
+          args.lhs[l], args.dv[l], static_cast<float*>(dweights[l]), fan_in,
+          width, len, chunk_rows, acc);
+      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+      fan_in = width;
+    }
+    for (int l = 0; l <= depth; ++l) {
+      const int fan_out = l == depth ? 1 : width;
+      const int warps = members * fan_out;
+      rowdot_kernel<<<(warps + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+          args.dv[l], nullptr, static_cast<float*>(dbiases[l]), members,
+          fan_out, len, chunk_rows, acc);
+      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    }
+    {
+      const int warps = members * fan_in;
+      rowdot_kernel<<<(warps + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+          args.lhs[depth], args.dv[depth], static_cast<float*>(dweights[depth]),
+          members, fan_in, len, chunk_rows, acc);
+      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+
+  FinalArgs fin = {};
+  fin.partials = args.partials;
+  fin.fs_raw = args.fs_raw;
+  fin.scales_raw = args.scales_raw;
+  fin.logit = args.logit;
+  fin.obs_raw = args.obs_raw;
+  fin.losses = static_cast<float*>(losses);
+  fin.dlsa = static_cast<float*>(dlsa);
+  fin.dfs = static_cast<float*>(dfs);
+  fin.dscales = static_cast<float*>(dscales);
+  fin.dlogit = static_cast<float*>(dlogit);
+  fin.dobs = static_cast<float*>(dobs);
+  fin.lik_scale = lik_scale;
+  fin.n_rows = n_rows;
+  fin.depth = depth;
+  fin.num_inputs = num_inputs;
+  fin.num_groups = num_groups;
+  fin.num_tiles = args.num_tiles;
+  fin.num_partials = np;
+  finalize_kernel<<<members, 32, 0, s>>>(fin);
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* bnf_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

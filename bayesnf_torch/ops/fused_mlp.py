@@ -1,7 +1,7 @@
-"""Fused ensemble field-MLP forward (counterpart of the features-major forward
-in `bayesnf_tpu/ops/fused_mlp.py`).
+"""Fused ensemble field-MLP kernels (counterparts of K2, the features-major
+forward, and K1, the fused training objective, in `bayesnf_tpu/ops/fused_mlp.py`).
 
-Per ensemble member e:
+K2, per ensemble member e:
 
     h_0 = concat(feature groups)                       (E, F, N)
     for l in 0..depth-1:
@@ -11,11 +11,17 @@ Per ensemble member e:
 
 with s_l = softplus(layer_scales_raw[l]) and w = sigmoid(activation_logit).
 
-`fused_field_mlp_t` launches the hand-written CUDA kernel
+K1 computes, from the raw inputs, the encode, the same MLP, the NORMAL
+negative log-likelihood summed over rows, and its gradient with respect to
+every learned input (see `fused_train`).
+
+`fused_field_mlp_t` and `fused_train` launch the hand-written CUDA kernels
 (`csrc/fused_mlp_fwd.cu`, which replaces the Pallas kernel
-`_forward_kernel_t`) on CUDA tensors, and computes
-`fused_field_mlp_t_reference`, the plain PyTorch version, on CPU tensors.
-It never falls back: on a CUDA tensor it launches the kernel or raises.
+`_forward_kernel_t`, and `csrc/fused_train.cu`, which replaces
+`_train_kernel_raw`) on CUDA tensors, and compute their plain PyTorch
+versions, `fused_field_mlp_t_reference` and `fused_train_reference`, on CPU
+tensors. They never fall back: on a CUDA tensor each launches its kernel or
+raises.
 """
 
 import ctypes
@@ -24,28 +30,29 @@ import math
 
 import torch
 
+from bayesnf_torch.models import field as field_lib
 from bayesnf_torch.ops import _build
 from bayesnf_torch.ops import special
 
 _LIB_NAME = 'fused_mlp_fwd'
-MAX_DEPTH = 8  # kMaxLayers - 1 in the kernel source.
+_TRAIN_LIB_NAME = 'fused_train'
+MAX_DEPTH = 8  # kMaxLayers - 1 in the kernel sources.
 MAX_MEMBERS = 65535  # gridDim.y.
 # Opt-in shared memory of one block on sm_90 (227 KB).
 MAX_SHARED_BYTES = 232448
-TILE_ROWS = (32, 16)  # The kernel's instantiations, largest first.
-
-
-def _act(z: torch.Tensor, w) -> torch.Tensor:
-  """w * elu(z) + (1 - w) * tanh(z), with the JAX package's formulas."""
-  q = torch.exp(torch.clamp(z, max=0.0))
-  elu = torch.where(z > 0, z, q - 1.0)
-  return w * elu + (1.0 - w) * torch.tanh(z)
+TILE_ROWS = (32, 16)  # The kernels' instantiations, largest first.
+MAX_INPUTS = 8  # kMaxInputs in csrc/fused_train.cu.
+MAX_PAIRS = 32  # kMaxPairs.
+MAX_PARTIALS = 32  # Per-tile partial sums: 3 + depth + inputs + groups.
+# Global scratch one `fused_train` call may hold; rows are processed in
+# chunks that fit it.
+TRAIN_SCRATCH_BYTES = 2 << 30
 
 
 def fused_field_mlp_t_reference(
     depth, h0_groups, weights, biases, scales_raw, logit
 ) -> torch.Tensor:
-  """Plain PyTorch forward: one `torch.matmul` per layer.
+  """Plain PyTorch forward (`field.mlp_t`): one `torch.matmul` per layer.
 
   Args:
     depth: hidden layers.
@@ -58,15 +65,7 @@ def fused_field_mlp_t_reference(
   Returns:
     (E, N) predictions.
   """
-  h = torch.cat(tuple(h0_groups), dim=1)
-  s = special.softplus(scales_raw)
-  w = torch.sigmoid(logit)[:, None, None]
-  for l in range(depth + 1):
-    z = torch.matmul(weights[l].transpose(1, 2), h * (1.0 / math.sqrt(h.shape[1])))
-    z = s[:, l, None, None] * (z + biases[l][:, :, None])
-    if l < depth:
-      h = _act(z, w)
-  return z[:, 0, :]
+  return field_lib.mlp_t(depth, h0_groups, weights, biases, scales_raw, logit)
 
 
 def pick_tile_rows(num_features: int, width: int) -> int:
@@ -210,3 +209,339 @@ def fused_field_mlp_t(
 
 
 fused_field_mlp_t.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K1: the fused training objective (NORMAL, inputs shared by every member).
+# ---------------------------------------------------------------------------
+
+
+def _check_ported(distribution, x_t, seasonal_t, y, precision, n_valid):
+  """Raises ValueError for the K1 variants not ported yet (ROADMAP.md,
+  queue 2, K1 stages 2-5)."""
+  if distribution != 'NORMAL':
+    raise ValueError(
+        f'fused_train: the {distribution} likelihood is not ported yet '
+        '(ROADMAP.md, queue 2, K1 stage 2).'
+    )
+  if x_t.ndim != 2 or seasonal_t.ndim != 2 or y.ndim != 1:
+    raise ValueError(
+        'fused_train: per-member or grouped inputs are not ported yet '
+        '(ROADMAP.md, queue 2, K1 stage 3); x_t, seasonal_t and y must be '
+        '(D, N), (2F, N) and (N,).'
+    )
+  if n_valid is not None:
+    raise ValueError(
+        'fused_train: a dynamic valid-row count is not ported yet '
+        '(ROADMAP.md, queue 2, K1 stage 4).'
+    )
+  if precision != 'f32':
+    raise ValueError(
+        f'fused_train: precision {precision!r} is not ported yet (ROADMAP.md, '
+        "queue 2, K1 stage 5); only 'f32' runs."
+    )
+
+
+def _feature_layout(fourier_degrees, interactions, num_inputs, num_seasonal):
+  """(encoded features F, feature groups G) of the encode."""
+  degrees = [int(d) for d in fourier_degrees if d > 0]
+  f = num_inputs + 2 * sum(degrees) + num_seasonal + len(interactions)
+  g = 1 + len(degrees) + (num_seasonal > 0) + (len(interactions) > 0)
+  return f, g
+
+
+def fused_train_reference(
+    distribution, depth, lik_scale, input_scales, fourier_degrees,
+    interactions, x_t, seasonal_t, weights, biases, lsa, fs_raw, scales_raw,
+    logit, obs_raw, y, precision='f32', n_valid=None,
+):
+  """Plain PyTorch K1: autograd through `field.encode_raw_t`, `field.mlp_t`
+  and the NORMAL log-likelihood. Same arguments and outputs as
+  :func:`fused_train`."""
+  _check_ported(distribution, x_t, seasonal_t, y, precision, n_valid)
+  num_w = depth + 1
+  leaves = [
+      t.detach().requires_grad_(True)
+      for t in (lsa, fs_raw, *weights, *biases, scales_raw, logit, obs_raw)
+  ]
+  ws, bs = leaves[2 : 2 + num_w], leaves[2 + num_w : 2 + 2 * num_w]
+  with torch.enable_grad():
+    groups = field_lib.encode_raw_t(
+        input_scales, fourier_degrees, interactions, leaves[0], leaves[1],
+        x_t, seasonal_t,
+    )
+    pred = field_lib.mlp_t(depth, groups, ws, bs, *leaves[-3:-1])
+    scale = 0.01 + torch.exp(leaves[-1][:, 0])
+    losses = -lik_scale * special.normal_log_prob(
+        y, pred, scale[:, None]).sum(dim=-1)
+    # At depth 0 the activation logit is unused: its gradient is zero.
+    grads = torch.autograd.grad(
+        losses.sum(), leaves, allow_unused=True, materialize_grads=True)
+  return (
+      losses.detach(), grads[0], grads[1], tuple(grads[2 : 2 + num_w]),
+      tuple(grads[2 + num_w : 2 + 2 * num_w]), *grads[-3:],
+  )
+
+
+@functools.cache
+def _train_lib() -> ctypes.CDLL:
+  lib = _build.load_library(_TRAIN_LIB_NAME)
+  ptr, ptrs, i32 = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int
+  lib.bnf_fused_train.argtypes = [
+      ptr, ptr, ptr,  # x, seasonal, y
+      ptrs, ptrs,  # weights, biases
+      ptr, ptr, ptr, ptr, ptr,  # lsa_eff, fs_raw, scales_raw, logit, obs_raw
+      ptr, ptr, ptr,  # losses, dlsa, dfs
+      ptrs, ptrs,  # dweights, dbiases
+      ptr, ptr, ptr,  # dscales, dlogit, dobs
+      ptr,  # scratch
+      ctypes.POINTER(ctypes.c_float),  # rsqrts
+      ctypes.POINTER(i32), ctypes.POINTER(i32),  # fourier degrees, pairs
+      ctypes.c_float,  # lik_scale
+      i32, i32, i32, i32, i32, i32,  # depth, members, inputs, seasonal, pairs, width
+      i32, i32, i32,  # n_rows, tile_rows, chunk_rows
+      ptr,  # stream
+  ]
+  lib.bnf_fused_train.restype = ctypes.c_int
+  lib.bnf_fused_train_smem_bytes.argtypes = [i32] * 3
+  lib.bnf_fused_train_smem_bytes.restype = ctypes.c_size_t
+  lib.bnf_fused_train_scratch_bytes.argtypes = [i32] * 9
+  lib.bnf_fused_train_scratch_bytes.restype = ctypes.c_size_t
+  lib.bnf_cuda_error_string.argtypes = [ctypes.c_int]
+  lib.bnf_cuda_error_string.restype = ctypes.c_char_p
+  return lib
+
+
+def _check_train_inputs(
+    depth, input_scales, fourier_degrees, interactions, x_t, seasonal_t,
+    weights, biases, lsa, fs_raw, scales_raw, logit, obs_raw, y,
+):
+  """Raises ValueError on anything the K1 kernel does not take.
+
+  Returns:
+    (width, encoded features F, feature groups G).
+  """
+  d, n = x_t.shape
+  e = weights[0].shape[0] if weights else 0
+  if not 0 <= depth <= MAX_DEPTH:
+    raise ValueError(f'depth must be in [0, {MAX_DEPTH}], got {depth}.')
+  if len(weights) != depth + 1 or len(biases) != depth + 1:
+    raise ValueError(
+        f'Expected {depth + 1} weights and biases, got {len(weights)} and '
+        f'{len(biases)}.'
+    )
+  if not 1 <= e <= MAX_MEMBERS:
+    raise ValueError(f'members must be in [1, {MAX_MEMBERS}], got {e}.')
+  if not 1 <= d <= MAX_INPUTS or len(input_scales) != d or len(
+      fourier_degrees) != d:
+    raise ValueError(
+        f'Expected 1 to {MAX_INPUTS} inputs with one input scale and one '
+        f'Fourier degree each; got x_t of {d} rows, {len(input_scales)} '
+        f'scales and {len(fourier_degrees)} degrees.'
+    )
+  if len(interactions) > MAX_PAIRS or any(
+      not (0 <= a < d and 0 <= b < d) for a, b in interactions):
+    raise ValueError(
+        f'Expected at most {MAX_PAIRS} interaction pairs of input indices '
+        f'below {d}, got {interactions}.'
+    )
+  if n < 1:
+    raise ValueError('fused_train needs at least one row.')
+  f, g = _feature_layout(fourier_degrees, interactions, d, seasonal_t.shape[0])
+  if 3 + depth + d + g > MAX_PARTIALS:
+    raise ValueError(
+        f'depth {depth}, {d} inputs and {g} feature groups exceed the '
+        f"kernel's {MAX_PARTIALS} per-tile partial sums."
+    )
+  width = weights[0].shape[-1] if depth else f
+  fan_ins = [f] + [width] * depth
+  fan_outs = [width] * depth + [1]
+  expected = [
+      (seasonal_t, (seasonal_t.shape[0], n)),
+      (y, (n,)),
+      *[(w, (e, fi, fo)) for w, fi, fo in zip(weights, fan_ins, fan_outs)],
+      *[(b, (e, fo)) for b, fo in zip(biases, fan_outs)],
+      (lsa, (e, d)),
+      (fs_raw, (e, g)),
+      (scales_raw, (e, depth + 1)),
+      (logit, (e,)),
+      (obs_raw, (e, 3)),
+  ]
+  for t, shape in expected:
+    if tuple(t.shape) != shape:
+      raise ValueError(f'Expected a tensor of shape {shape}, got {t.shape}.')
+  for t in (x_t, *(t for t, _ in expected)):
+    if t.dtype != torch.float32:
+      raise ValueError(f'Expected float32 tensors, got {t.dtype}.')
+    if t.device != x_t.device:
+      raise ValueError(
+          f'All tensors must be on {x_t.device}; got one on {t.device}.'
+      )
+    if not t.is_contiguous():
+      raise ValueError('All tensors must be contiguous.')
+  return width, f, g
+
+
+def pick_train_tile_rows(num_features: int, width: int, lib=None) -> int:
+  """Rows per `fused_train` tile block: the largest instantiated tile whose
+  two activation buffers fit in shared memory.
+
+  Raises:
+    ValueError: if even the smallest tile does not fit in shared memory.
+  """
+  fn = (lib or _train_lib()).bnf_fused_train_smem_bytes
+  for tile_rows in TILE_ROWS:
+    if fn(tile_rows, num_features, width) <= MAX_SHARED_BYTES:
+      return tile_rows
+  raise ValueError(
+      f'fused_train: width {width} with {num_features} input features does '
+      f'not fit a {TILE_ROWS[-1]}-row tile in {MAX_SHARED_BYTES} bytes of '
+      'shared memory.'
+  )
+
+
+def _launch_fused_train(
+    lib, stream, dims, depth, lik_scale, input_scales, fourier_degrees,
+    interactions, x_t, seasonal_t, weights, biases, lsa, fs_raw, scales_raw,
+    logit, obs_raw, y,
+):
+  """Allocates the outputs and the scratch, and runs one K1 call of `lib`
+  on `stream`; `dims` is what `_check_train_inputs` returned for these
+  inputs."""
+  width, f, g = dims
+  d, n = x_t.shape
+  e = weights[0].shape[0]
+  s2 = seasonal_t.shape[0]
+  dev = x_t.device
+  tile_rows = pick_train_tile_rows(f, width, lib)
+  scratch_bytes = functools.partial(
+      lib.bnf_fused_train_scratch_bytes, e, f, width, depth, d, g)
+  # Rows per chunk: as many whole tiles as the scratch budget holds.
+  per_row = scratch_bytes(1, 0, tile_rows)
+  chunk_rows = max(1, TRAIN_SCRATCH_BYTES // per_row // tile_rows) * tile_rows
+  chunk_rows = min(chunk_rows, -(-n // tile_rows) * tile_rows)
+  scratch = torch.empty(
+      scratch_bytes(chunk_rows, n, tile_rows) // 4, dtype=torch.float32,
+      device=dev)
+  # The input scales fold into the learned log scale (as the TPU kernel
+  # does): x / (s * e^lsa) = x * e^-(lsa + log s).
+  lsa_eff = lsa + torch.log(
+      torch.tensor(tuple(input_scales), dtype=torch.float32, device=dev))
+  out = dict(
+      losses=torch.empty((e,), dtype=torch.float32, device=dev),
+      dlsa=torch.empty((e, d), dtype=torch.float32, device=dev),
+      dfs=torch.empty((e, g), dtype=torch.float32, device=dev),
+      dweights=tuple(torch.empty_like(w) for w in weights),
+      dbiases=tuple(torch.empty_like(b) for b in biases),
+      dscales=torch.empty_like(scales_raw),
+      dlogit=torch.empty_like(logit),
+      dobs=torch.empty_like(obs_raw),
+  )
+  fan_ins = [f] + [width] * depth
+
+  def ptr_array(ts):
+    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+  pairs = [int(i) for pair in interactions for i in pair]
+  err = lib.bnf_fused_train(
+      x_t.data_ptr(), seasonal_t.data_ptr(), y.data_ptr(),
+      ptr_array(weights), ptr_array(biases),
+      lsa_eff.data_ptr(), fs_raw.data_ptr(), scales_raw.data_ptr(),
+      logit.data_ptr(), obs_raw.data_ptr(),
+      out['losses'].data_ptr(), out['dlsa'].data_ptr(), out['dfs'].data_ptr(),
+      ptr_array(out['dweights']), ptr_array(out['dbiases']),
+      out['dscales'].data_ptr(), out['dlogit'].data_ptr(),
+      out['dobs'].data_ptr(), scratch.data_ptr(),
+      # 1/sqrt(fan_in) in double, rounded to float32 (as the JAX package).
+      (ctypes.c_float * (depth + 1))(*[1.0 / math.sqrt(fi) for fi in fan_ins]),
+      (ctypes.c_int * d)(*[int(k) for k in fourier_degrees]),
+      (ctypes.c_int * max(1, len(pairs)))(*pairs),
+      float(lik_scale), depth, e, d, s2, len(interactions), width, n,
+      tile_rows, chunk_rows, stream,
+  )
+  if err != 0:
+    raise RuntimeError(
+        f'fused_train kernel launch failed: CUDA error {err} '
+        f'({lib.bnf_cuda_error_string(err).decode()}).'
+    )
+  return (out['losses'], out['dlsa'], out['dfs'], out['dweights'],
+          out['dbiases'], out['dscales'], out['dlogit'], out['dobs'])
+
+
+def fused_train(
+    distribution, depth, lik_scale, input_scales, fourier_degrees,
+    interactions, x_t, seasonal_t, weights, biases, lsa, fs_raw, scales_raw,
+    logit, obs_raw, y, precision='f32', n_valid=None,
+):
+  """Fused training objective from raw inputs: loss and gradients (K1).
+
+  Per ensemble member e, loss_e = lik_scale * sum_rows -log p(y | pred_e)
+  under the NORMAL model with scale 0.01 + exp(obs_raw[e, 0]), pred_e the
+  field MLP applied to the encode of the raw inputs; with the gradient with
+  respect to every learned input. The caller adds the prior.
+
+  Takes the JAX package's arguments, without its TPU-only `tile` and
+  `subtiles`. On CPU tensors it returns :func:`fused_train_reference`; on
+  CUDA tensors it launches the kernels of `csrc/fused_train.cu` on the
+  current stream and counts the call in `fused_train.launches`.
+
+  Args:
+    distribution: 'NORMAL' (NB and ZINB are not ported yet).
+    depth: hidden layers.
+    lik_scale: multiplier of the negative log-likelihood.
+    input_scales: (D,) static input scale divisors.
+    fourier_degrees: (D,) static octave counts.
+    interactions: static ((a, b), ...) input-dim pairs.
+    x_t: (D, N) raw inputs shared by every member.
+    seasonal_t: (2F, N) seasonal rows (2F may be 0).
+    weights: depth + 1 tensors (E, fan_in, fan_out).
+    biases: depth + 1 tensors (E, fan_out).
+    lsa: (E, D) log scale adjustments.
+    fs_raw: (E, G) pre-softplus feature-group scales.
+    scales_raw: (E, depth + 1) pre-softplus layer scales.
+    logit: (E,) activation logits.
+    obs_raw: (E, 3) (log_noise_scale, nb_shape_raw, zinb_logit).
+    y: (N,) targets shared by every member.
+    precision: 'f32' only.
+    n_valid: None only (every row counts).
+
+  Returns:
+    (losses (E,), dlsa, dfs_raw, dweights, dbiases, dscales_raw, dlogit,
+    dobs_raw), each gradient shaped like its input; dobs_raw[:, 1:] is 0.
+
+  Raises:
+    ValueError: for an unported variant (NB/ZINB, per-member inputs,
+      n_valid, 'bf16'), and on CUDA for shapes, dtypes, devices or layouts
+      the kernel does not take, or a width whose tile does not fit in
+      shared memory.
+    RuntimeError: if the kernel fails to build or to launch.
+  """
+  _check_ported(distribution, x_t, seasonal_t, y, precision, n_valid)
+  tensors = (x_t, seasonal_t, *weights, *biases, lsa, fs_raw, scales_raw,
+             logit, obs_raw, y)
+  if all(t.device.type == 'cpu' for t in tensors):
+    return fused_train_reference(
+        distribution, depth, lik_scale, input_scales, fourier_degrees,
+        interactions, x_t, seasonal_t, weights, biases, lsa, fs_raw,
+        scales_raw, logit, obs_raw, y,
+    )
+  if x_t.device.type != 'cuda':
+    raise ValueError(
+        f'fused_train runs on CUDA or CPU tensors, got {x_t.device}.'
+    )
+  dims = _check_train_inputs(
+      depth, input_scales, fourier_degrees, interactions, x_t, seasonal_t,
+      weights, biases, lsa, fs_raw, scales_raw, logit, obs_raw, y,
+  )
+  lib = _train_lib()
+  with torch.cuda.device(x_t.device):
+    outs = _launch_fused_train(
+        lib, torch.cuda.current_stream().cuda_stream, dims, depth, lik_scale,
+        input_scales, fourier_degrees, interactions, x_t, seasonal_t,
+        weights, biases, lsa, fs_raw, scales_raw, logit, obs_raw, y,
+    )
+  fused_train.launches += 1
+  return outs
+
+
+fused_train.launches = 0

@@ -1,9 +1,11 @@
-"""Special functions the NORMAL serving path needs (counterpart of
-`bayesnf_tpu/ops/special.py`).
+"""Special functions of the NORMAL serving and training paths (counterpart
+of `bayesnf_tpu/ops/special.py`).
 
-Only what predict uses is here; the count-model functions (incomplete beta,
-Stirling series) arrive with the NB/ZINB slice.
+The count-model functions (incomplete beta, Stirling series) arrive with the
+NB/ZINB slice.
 """
+
+import math
 
 import torch
 
@@ -26,6 +28,25 @@ def log_softplus(x: torch.Tensor) -> torch.Tensor:
   """
   safe_x = torch.clamp(x, min=-20.0)
   return torch.where(x < -20.0, x, torch.log(softplus(safe_x)))
+
+
+def logistic_log_prob(x: torch.Tensor, loc=0.0, scale=1.0) -> torch.Tensor:
+  """Elementwise log-density of Logistic(loc, scale).
+
+  log p(x) = -z - 2*softplus(-z) - log(scale), z = (x - loc)/scale.
+  """
+  z = (x - loc) / scale
+  return -z - 2.0 * softplus(-z) - math.log(scale)
+
+
+def normal_log_prob(x, loc: torch.Tensor, scale) -> torch.Tensor:
+  """Elementwise log-density of Normal(loc, scale).
+
+  log(2 pi) is taken in float32, as the JAX package takes it.
+  """
+  z = (x - loc) / scale
+  log_2pi = torch.log(torch.tensor(2.0 * math.pi, dtype=loc.dtype))
+  return -0.5 * z * z - 0.5 * log_2pi.item() - torch.log(scale)
 
 
 def normal_cdf(x, loc=0.0, scale=1.0) -> torch.Tensor:

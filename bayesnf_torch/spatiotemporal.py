@@ -1,18 +1,22 @@
-"""Public estimator API for serving: BayesianNeuralField{MAP,MLE}
-(counterpart of `bayesnf_tpu/spatiotemporal.py`).
+"""Public estimator API: BayesianNeuralField{MAP,MLE} (counterpart of
+`bayesnf_tpu/spatiotemporal.py`).
 
 Same constructor keywords and the same `bayesnf-tpu-estimator-v1` `.npz`
 artifact as the JAX package, in both directions: an estimator fitted and
 saved there loads here with `load(path, device)` and predicts on that
-device; one saved here loads there.
+device; one fitted or saved here loads there.
 
-What this slice serves, and what it does not yet:
+What the port does, and what it does not yet:
 
-- `predict` for the NORMAL observation model, on the 'kernel' (CUDA) or
-  'torch' backend (`inference/backends.py`). It returns tensors on the
-  parameters' device.
-- `fit` and `likelihood_model` raise NotImplementedError, and so does
-  loading a VI, NB or ZINB artifact (ROADMAP.md, queue 1).
+- `fit` for MAP and MLE with the NORMAL observation model: full-batch Adam
+  on one device, on the 'kernel' (CUDA) or 'torch' backend
+  (`inference/map.py`). Minibatches, NB/ZINB, checkpoints, streaming,
+  precision other than 'f32' and a mesh raise NotImplementedError.
+- `predict` for the NORMAL observation model, on the 'kernel' or 'torch'
+  backend (`inference/backends.py`). It returns tensors on the parameters'
+  device.
+- `likelihood_model` raises NotImplementedError, and so does loading a VI,
+  NB or ZINB artifact (ROADMAP.md, queue 1).
 - The port runs on one device: the artifact's `fit_mesh` is read and
   ignored.
 """
@@ -25,6 +29,7 @@ import torch
 
 from bayesnf_torch.calendar import seasonalities_to_array
 from bayesnf_torch.data import SpatiotemporalDataHandler
+from bayesnf_torch.inference import map as map_lib
 from bayesnf_torch.inference import predict as predict_lib
 from bayesnf_torch.models import field as field_lib
 
@@ -208,12 +213,6 @@ class BayesianNeuralFieldEstimator:
         backend=backend,
     )
 
-  def fit(self, table, seed, **kwargs):
-    raise NotImplementedError(
-        'Training is not ported to PyTorch yet (ROADMAP.md, queue 1 item 7); '
-        'fit with bayesnf_tpu, save, and load the artifact here.'
-    )
-
   def likelihood_model(self, table, backend='auto'):
     raise NotImplementedError(
         'likelihood_model is not ported to PyTorch yet (ROADMAP.md, queue 1 '
@@ -346,7 +345,78 @@ class BayesianNeuralFieldMAP(BayesianNeuralFieldEstimator):
   """Stochastic ensembles of maximum-a-posteriori estimates."""
 
   _ensemble_dims = 2
+  _prior_weight = 1.0
+
+  def fit(
+      self,
+      table,
+      seed: int,
+      ensemble_size=16,
+      learning_rate=0.005,
+      num_epochs=5_000,
+      batch_size=None,
+      num_splits=1,
+      backend='auto',
+      device='cuda',
+      **unported,
+  ) -> 'BayesianNeuralFieldMAP':
+    """Run stochastic ensemble MAP (or MLE) inference, full batch.
+
+    Args:
+      table: training DataFrame (feature and target columns).
+      seed: int seed of the initialization (split i of several uses
+        `map.split_seed(seed, i, num_splits)`).
+      ensemble_size: number of members.
+      learning_rate: Adam learning rate.
+      num_epochs: full-batch steps.
+      batch_size: None or at least len(table) (full batch).
+      num_splits: sequential ensemble splits.
+      backend: 'auto' (the CUDA kernel K1 on a CUDA device, plain PyTorch
+        on the CPU) | 'torch' | 'kernel'.
+      device: where the fit runs and `params_` live.
+      **unported: the JAX package's `mesh`, `checkpoint_dir`,
+        `checkpoint_every`, `precision`, `stream_chunk_steps` and
+        `stream_member_remix`; anything but their defaults raises.
+
+    Returns:
+      self, with `params_` leaves (1, ensemble_size, ...) on `device` and
+      `losses_` (1, ensemble_size, num_epochs) as numpy.
+
+    Raises:
+      NotImplementedError: for minibatches (batch_size < len(table)), the
+        NB and ZINB models, and the unported arguments above.
+      RuntimeError: if `device` is CUDA and CUDA is not available.
+    """
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+      raise RuntimeError(
+          f"Cannot fit on {device}: CUDA is not available (pass device='cpu' "
+          'to fit on the CPU).'
+      )
+    train_data = self.data_handler.get_train(table)
+    train_target = self.data_handler.get_target(table)
+    n = train_data.shape[0]
+    batch_size = n if batch_size is None else min(batch_size, n)
+    config = self._field_config((batch_size, train_data.shape[-1]))
+    aug = field_lib.aug_features(
+        config, torch.as_tensor(train_data, dtype=torch.float32,
+                                device=device))
+    params, losses = map_lib.fit_map(
+        aug, train_target, seed=seed,
+        observation_model=self.observation_model, config=config,
+        num_particles=ensemble_size, learning_rate=learning_rate,
+        num_epochs=num_epochs, prior_weight=self._prior_weight,
+        batch_size=batch_size, num_splits=num_splits, backend=backend,
+        device=device, **unported,
+    )
+    # One device: the JAX package's (num_devices, per_device) group shape.
+    self.params_ = tuple(
+        p.reshape((1, ensemble_size) + tuple(p.shape[1:])) for p in params)
+    self.losses_ = losses.reshape((1, ensemble_size) + losses.shape[1:])
+    return self
 
 
 class BayesianNeuralFieldMLE(BayesianNeuralFieldMAP):
   """Stochastic ensembles of maximum likelihood estimates."""
+
+  _prior_weight = 0.0

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving path on one CUDA card.
+"""Smoke run of the PyTorch port's serving and training paths on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -7,26 +7,39 @@ Run from the root of a checkout, on a machine with one NVIDIA H100 and the
 CUDA toolkit (nvcc). It imports nothing of JAX. Phases, one line each:
 
 1. Refuse to run without CUDA; print the card's name and power limit.
-2. Build the K2 kernel (`bayesnf_torch/ops/csrc/fused_mlp_fwd.cu`) with nvcc
-   from the checkout's sources.
-3. Hold the kernel against its plain PyTorch version on the card, at the
-   main path's shapes (64 members, 49 features, 4096 rows, width 512, depth
-   2) and at a ragged row count, widths 256 and 1024 and depths 1 and 3;
-   time both with CUDA events.
+2. Build the K2 forward (`bayesnf_torch/ops/csrc/fused_mlp_fwd.cu`) and the
+   K1 training kernel (`.../fused_train.cu`) with nvcc from the checkout's
+   sources, both compiles started together; print ptxas's registers, spills
+   and shared memory.
+3. Hold K2 against its plain PyTorch version on the card, at the serving
+   path's shapes (64 members, 49 features, 4096 rows, width 512, depth 2)
+   and at a ragged row count, widths 256 and 1024 and depths 1 and 3; time
+   both with CUDA events.
+3t. Hold K1 against its plain PyTorch version (autograd) on the card: the
+   loss and every gradient, at the training path's shapes (64 members,
+   inputs (3, N), 16 seasonal rows, F = 49, width 512, depth 2, N = 8192)
+   and at a ragged N with width 256, depths 1 and 3, and width 1024 (16-row
+   tiles); time both with CUDA events.
 4. Golden check: the committed artifact fitted by the JAX package, loaded
    onto the card, must predict what the JAX package predicted (the
    tolerances of `tests/test_torch_predict.py`).
-5. The main path at full width: an hourly table of 38,096 rows, a width-512
-   depth-2 MAP estimator with 64 members drawn by `init_params` from
-   `--seed`, saved, loaded onto the card and asked for means and three
+5. The serving path at full width: an hourly table of 38,096 rows, a
+   width-512 depth-2 MAP estimator with 64 members drawn by `init_params`
+   from `--seed`, saved, loaded onto the card and asked for means and three
    quantiles three times through the kernel and once through plain PyTorch.
-6. A JSON line of the kernels, then the last line,
+6. The training path at full width: `BayesianNeuralFieldMAP.fit` on the same
+   table, 64 members, full batch, lr 0.005, a few epochs on 'kernel' (one K1
+   call per epoch) and the same epochs from the same seed on 'torch'; the
+   loss trajectories must agree. Member-steps/s of both backends; then the
+   fitted estimator predicts through K2.
+7. A JSON line of the kernels, then the last line,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Any failed check raises, and the script exits non-zero with no result.
 """
 
 import argparse
+import concurrent.futures
 import json
 import math
 import os
@@ -40,7 +53,9 @@ import pandas as pd
 import torch
 
 import bayesnf_torch
+from bayesnf_torch.inference import map as map_lib
 from bayesnf_torch.models import field as field_lib
+from bayesnf_torch.models import likelihoods
 from bayesnf_torch.ops import _build
 from bayesnf_torch.ops import fused_mlp
 
@@ -63,6 +78,23 @@ QUANTILE_SCALE_TOL = 1e-4
 N_ROWS = 38_096
 MEMBERS = 64
 CHUNK = 4096
+# K1 against its plain version: losses to rtol 1e-4, and each gradient leaf
+# to 2e-4 (the JAX package's gradient rtol) of its largest magnitude. Both
+# sum fp32 products over up to 8192 rows (and fan-ins up to 1024) in
+# different orders; entries that are sums of terms of both signs can be far
+# below the terms, so the bound is relative to the leaf, not to each entry.
+# The largest such error seen on the card is 4.3e-5, in d(lsa), whose octave
+# chains multiply by up to 2^4.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_LEAF_TOL = 2e-4
+TRAIN_ROWS = 8192
+# The training path: epochs per backend, and the bound on their per-epoch
+# losses, which start from the same parameters and drift apart only by the
+# rounding of the two gradient computations (amplified by Adam's
+# normalisation of the first steps).
+FIT_EPOCHS = 4
+FIT_LOSS_RTOL = 1e-4
+TIMED_STEPS = 3
 
 
 def phase(name, **fields):
@@ -140,6 +172,98 @@ def check_kernel(seed):
   return worst, timing[0], timing[1]
 
 
+def train_kernel_inputs(members, n, width, depth, seed, degrees=(5, 5, 5),
+                        seasonal_rows=16):
+  """Random K1 arguments on the card, scaled like an initialized model: the
+  time row spans its input scale, as the data handler leaves it."""
+  rng = np.random.default_rng(seed)
+  d = len(degrees)
+  f = d + 2 * sum(degrees) + seasonal_rows
+  g = 1 + len(degrees) + (seasonal_rows > 0)
+  fan_ins = [f] + [width] * depth
+  fan_outs = [width] * depth + [1]
+
+  def cuda(a):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).cuda()
+
+  return dict(
+      distribution='NORMAL', depth=depth, lik_scale=1.0,
+      input_scales=(float(n), 1.0, 1.0), fourier_degrees=degrees,
+      interactions=(),
+      x_t=cuda(np.stack([np.arange(n), rng.normal(size=n),
+                         rng.normal(size=n)])),
+      seasonal_t=cuda(rng.uniform(-1, 1, (seasonal_rows, n))),
+      weights=[cuda(np.clip(rng.normal(size=(members, fi, fo)), -2, 2))
+               for fi, fo in zip(fan_ins, fan_outs)],
+      biases=[cuda(rng.normal(scale=0.1, size=(members, fo)))
+              for fo in fan_outs],
+      lsa=cuda(rng.normal(scale=0.1, size=(members, d))),
+      fs_raw=cuda(rng.normal(scale=0.1, size=(members, g))),
+      scales_raw=cuda(rng.normal(scale=0.1, size=(members, depth + 1))),
+      logit=cuda(rng.normal(scale=0.5, size=(members,))),
+      obs_raw=cuda(np.stack([1.0 + rng.normal(scale=0.1, size=members),
+                             rng.normal(size=members),
+                             rng.normal(size=members)], axis=-1)),
+      y=cuda(rng.normal(scale=5.0, size=n)),
+  )
+
+
+def train_outputs(outs, depth):
+  """K1's output tuple as (name, tensor) pairs."""
+  losses, dlsa, dfs, dws, dbs, dscales, dlogit, dobs = outs
+  return [('losses', losses), ('dlsa', dlsa), ('dfs', dfs),
+          *[(f'dw{l}', w) for l, w in enumerate(dws)],
+          *[(f'db{l}', b) for l, b in enumerate(dbs)],
+          ('dscales', dscales), ('dlogit', dlogit), ('dobs', dobs)]
+
+
+def check_train_kernel(seed):
+  """Phase 3t; returns (max abs error, kernel ms, plain ms) at the main shape."""
+  cases = [
+      ('main', TRAIN_ROWS, 512, 2),
+      ('ragged-width256', TRAIN_ROWS - 3, 256, 2),
+      ('depth1', 1000, 512, 1),
+      ('depth3', 1001, 512, 3),
+      ('width1024', 2048, 1024, 2),
+  ]
+  result = None
+  for name, n, width, depth in cases:
+    args = train_kernel_inputs(MEMBERS, n, width, depth, seed)
+    before = fused_mlp.fused_train.launches
+    got = fused_mlp.fused_train(**args)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_train.launches == before + 1
+    want = fused_mlp.fused_train_reference(**args)
+    max_abs, leaf_rel = 0.0, {}
+    for (leaf, g), (_, w) in zip(train_outputs(got, depth),
+                                 train_outputs(want, depth)):
+      assert g.shape == w.shape, (leaf, g.shape, w.shape)
+      assert bool(torch.isfinite(g).all()), leaf
+      err = (g - w).abs().max().item()
+      scale = w.abs().max().item()
+      max_abs = max(max_abs, err)
+      leaf_rel[leaf] = err / scale if scale > 0 else err
+      if leaf == 'losses':
+        torch.testing.assert_close(g, w, rtol=TRAIN_LOSS_RTOL, atol=0)
+      else:
+        assert err <= TRAIN_LEAF_TOL * scale, (name, leaf, err, scale)
+    # The unused observation scalars get exactly zero.
+    assert bool((got[-1][:, 1:] == 0).all())
+    ms = cuda_ms(lambda: fused_mlp.fused_train(**args), reps=5)
+    plain_ms = cuda_ms(lambda: fused_mlp.fused_train_reference(**args),
+                       reps=3)
+    worst = max(leaf_rel, key=leaf_rel.get)
+    phase('3t K1-vs-plain', case=name, members=MEMBERS, rows=n, width=width,
+          depth=depth, tile_rows=fused_mlp.pick_train_tile_rows(49, width),
+          max_abs_err=f'{max_abs:.3e}',
+          worst_leaf=f'{worst}:{leaf_rel[worst]:.3e}',
+          loss_rel_err=f'{leaf_rel["losses"]:.3e}',
+          kernel_ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}')
+    if name == 'main':
+      result = (max_abs, ms, plain_ms)
+  return result
+
+
 def quantile_atol(params):
   return QUANTILE_SCALE_TOL * (0.01 + math.exp(params[0].max().item()))
 
@@ -190,11 +314,7 @@ def mixture_cdf_residual(x, means, scales, q):
 def check_main_path(seed):
   """Phase 5; returns the kernel launches counted while it drove the path."""
   table = bench_table(seed)
-  est = bayesnf_torch.BayesianNeuralFieldMAP(
-      feature_cols=['datetime', 'lat', 'lon'], target_col='y', width=512,
-      depth=2, timetype='index', freq='h', seasonality_periods=[24, 168],
-      num_seasonal_harmonics=[4, 4], fourier_degrees=[5, 5, 5],
-      standardize=['lat', 'lon'])
+  est = bench_estimator()
   train = est.data_handler.get_train(table)
   config = est._field_config(train.shape)  # pylint: disable=protected-access
   assert config.encoded_dim == 49, config.encoded_dim
@@ -256,6 +376,87 @@ def check_main_path(seed):
   return launches
 
 
+def bench_estimator(est_cls=bayesnf_torch.BayesianNeuralFieldMAP):
+  return est_cls(
+      feature_cols=['datetime', 'lat', 'lon'], target_col='y', width=512,
+      depth=2, timetype='index', freq='h', seasonality_periods=[24, 168],
+      num_seasonal_harmonics=[4, 4], fourier_degrees=[5, 5, 5],
+      standardize=['lat', 'lon'])
+
+
+def timed_fit(table, seed, backend):
+  start = time.perf_counter()
+  est = bench_estimator().fit(table, seed, ensemble_size=MEMBERS,
+                              learning_rate=0.005, num_epochs=FIT_EPOCHS,
+                              backend=backend, device='cuda')
+  torch.cuda.synchronize()
+  return est, time.perf_counter() - start
+
+
+def member_steps_per_s(est, table, backend):
+  """Steady-state training rate: TIMED_STEPS full-batch steps from the
+  fitted parameters, host clock around a synchronized run."""
+  train = est.data_handler.get_train(table)
+  config = est._field_config(train.shape)  # pylint: disable=protected-access
+  aug_t = field_lib.aug_features(
+      config, torch.as_tensor(train, dtype=torch.float32, device='cuda')
+  ).T.contiguous()
+  y = torch.tensor(est.data_handler.get_target(table), dtype=torch.float32,
+                   device='cuda')
+  params = tuple(p[0] for p in est.params_)
+  torch.cuda.synchronize()
+  start = time.perf_counter()
+  map_lib.train(params, map_lib.init_opt_state(params), aug_t, y, config,
+                likelihoods.LikelihoodDist.NORMAL, 0.005, TIMED_STEPS,
+                backend=backend)
+  torch.cuda.synchronize()
+  return MEMBERS * TIMED_STEPS / (time.perf_counter() - start)
+
+
+def check_training_path(seed):
+  """Phase 6; returns the K1 launches counted while it drove the fit."""
+  table = bench_table(seed)
+  torch.cuda.synchronize()
+  fused_mlp.fused_train.launches = 0
+  est, kernel_s = timed_fit(table, seed, 'kernel')
+  launches = fused_mlp.fused_train.launches
+  assert launches == FIT_EPOCHS, (launches, FIT_EPOCHS)
+  plain, torch_s = timed_fit(table, seed, 'torch')
+  assert fused_mlp.fused_train.launches == launches
+  assert est.losses_.shape == (1, MEMBERS, FIT_EPOCHS), est.losses_.shape
+  assert np.isfinite(est.losses_).all() and np.isfinite(plain.losses_).all()
+  # Same seed, same initial parameters: the first epoch's losses differ only
+  # by the rounding of the two loss computations.
+  np.testing.assert_allclose(est.losses_, plain.losses_, rtol=FIT_LOSS_RTOL)
+  loss_rel = np.abs(est.losses_ - plain.losses_) / np.abs(plain.losses_)
+  mean_loss = est.losses_.mean(axis=(0, 1))
+  assert mean_loss[-1] < mean_loss[0], mean_loss
+
+  rates = [member_steps_per_s(est, table, b)
+           for b in ('kernel', 'torch', 'kernel', 'torch')]
+
+  fused_mlp.fused_field_mlp_t.launches = 0
+  means, quantiles = est.predict(table, quantiles=QUANTILES)
+  torch.cuda.synchronize()
+  chunks = -(-len(table) // CHUNK)
+  assert fused_mlp.fused_field_mlp_t.launches == chunks, (
+      fused_mlp.fused_field_mlp_t.launches, chunks)
+  assert tuple(means.shape) == (1, MEMBERS, len(table)), means.shape
+  assert bool(torch.isfinite(means).all())
+  assert all(bool(torch.isfinite(q).all()) for q in quantiles)
+  phase('6 training-path', rows=len(table), members=MEMBERS, width=512,
+        depth=2, epochs=FIT_EPOCHS, k1_launches=launches,
+        fit_s_kernel=f'{kernel_s:.2f}', fit_s_torch=f'{torch_s:.2f}',
+        member_steps_per_s_kernel='/'.join(f'{r:.2f}' for r in rates[::2]),
+        member_steps_per_s_torch='/'.join(f'{r:.2f}' for r in rates[1::2]),
+        mean_loss_kernel='/'.join(f'{v:.6g}' for v in mean_loss),
+        mean_loss_torch='/'.join(
+            f'{v:.6g}' for v in plain.losses_.mean(axis=(0, 1))),
+        loss_rel_diff_max=f'{loss_rel.max():.3e}',
+        k2_launches=chunks)
+  return launches
+
+
 def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -275,15 +476,20 @@ def main(argv=None):
   phase('1 device', kind=kind, count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda)
 
-  path, seconds, report = _build.build('fused_mlp_fwd')
-  ptxas = [line.split(':', 1)[-1].strip() for line in report.splitlines()
-           if 'registers' in line or 'spill' in line]
-  phase('2 build', library=os.path.relpath(path, REPO),
-        seconds=f'{seconds:.2f}', arch='sm_90a', ptxas=' | '.join(ptxas))
+  # One nvcc per source, started together.
+  with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    builds = list(pool.map(_build.build, ('fused_mlp_fwd', 'fused_train')))
+  for path, seconds, report in builds:
+    ptxas = [line.split(':', 1)[-1].strip() for line in report.splitlines()
+             if 'registers' in line or 'spill' in line or 'Compiling' in line]
+    phase('2 build', library=os.path.relpath(path, REPO),
+          seconds=f'{seconds:.2f}', arch='sm_90a', ptxas=' | '.join(ptxas))
 
   max_err, ms, plain_ms = check_kernel(args.seed)
+  train_err, train_ms, train_plain_ms = check_train_kernel(args.seed)
   check_golden()
   launches = check_main_path(args.seed)
+  train_launches = check_training_path(args.seed)
 
   print(json.dumps({'kernels': [{
       'name': 'fused_field_mlp_t',
@@ -294,6 +500,15 @@ def main(argv=None):
       'max_abs_err': max_err,
       'ms': ms,
       'plain_ms': plain_ms,
+  }, {
+      'name': 'fused_train',
+      'route': 'cuda',
+      'source': 'bayesnf_torch/ops/csrc/fused_train.cu',
+      'replaces': 'bayesnf_tpu/ops/fused_mlp.py:1412',
+      'launches': train_launches,
+      'max_abs_err': train_err,
+      'ms': train_ms,
+      'plain_ms': train_plain_ms,
   }]}), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}),

@@ -175,3 +175,26 @@ def test_init_params_shapes_and_draws():
       assert pa.item() == 0.25
     else:
       assert not pa.any()
+
+
+def test_blended_act_and_its_gradient_match_jax():
+  rng = np.random.default_rng(7)
+  z = rng.normal(scale=2.0, size=(3, 5, 11)).astype(np.float32)
+  w = rng.uniform(size=(3, 1, 1)).astype(np.float32)
+  ct = rng.normal(size=z.shape).astype(np.float32)
+
+  def j_loss(z, w):
+    return jnp.sum(j_field.blended_act(z, w) * ct)
+
+  want_val = j_field.blended_act(jnp.asarray(z), jnp.asarray(w))
+  want_dz, want_dw = jax.grad(j_loss, argnums=(0, 1))(jnp.asarray(z),
+                                                      jnp.asarray(w))
+  tz = torch.from_numpy(z).requires_grad_(True)
+  tw = torch.from_numpy(w).requires_grad_(True)
+  got = t_field.blended_act(tz, tw)
+  dz, dw = torch.autograd.grad((got * torch.from_numpy(ct)).sum(), (tz, tw))
+  np.testing.assert_allclose(got.detach().numpy(), np.asarray(want_val),
+                             **TOL)
+  np.testing.assert_allclose(dz.numpy(), np.asarray(want_dz), **TOL)
+  np.testing.assert_allclose(dw.numpy(), np.asarray(want_dw), **TOL)
+  assert dw.shape == tw.shape

@@ -1,0 +1,303 @@
+"""The port's K1 (`bayesnf_torch.ops.fused_mlp.fused_train`) against the JAX one.
+
+On the CPU the wrapper computes `fused_train_reference`, the plain PyTorch
+version, which must match both the JAX package's `fused_train` (Pallas
+interpret mode, 32-row tiles, so n = 70 leaves a ragged tail) and its
+autodiff oracle (`field.apply_field_t` + `likelihoods.log_likelihood`
+through `jax.grad`), at the JAX package's own bounds
+(`tests/test_fused_mlp.py`): losses rtol 2e-4, gradients rtol 2e-4 /
+atol 2e-5. The CUDA kernel is held against the plain version on the card by
+`tests/test_torch_gpu.py` and `chip_smoke.py`.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bayesnf_torch.models import field as t_field
+from bayesnf_torch.ops import fused_mlp as t_fused
+from bayesnf_tpu.models import field as j_field
+from bayesnf_tpu.models import likelihoods as j_likelihoods
+from bayesnf_tpu.ops import fused_mlp as j_fused
+
+torch.set_num_threads(1)
+
+TILE = 32
+LIK_SCALE = 1.75
+LOSS_RTOL = 2e-4
+GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
+N_ROWS = 70  # Ragged in 32-row tiles.
+
+CASES = {
+    'depth2-seasonal-interactions': dict(
+        depth=2, seasonal=True, interactions=((0, 1), (1, 2))),
+    'depth1-seasonal': dict(depth=1, seasonal=True, interactions=()),
+    'depth3-interactions': dict(depth=3, seasonal=False,
+                                interactions=((0, 2),)),
+    'depth2-no-seasonal-no-interactions': dict(
+        depth=2, seasonal=False, interactions=()),
+}
+
+
+def _setup(depth, seasonal, interactions, members=3, seed=3):
+  """(JAX config, numpy params, x_t (D, N), seasonal_t (2F, N), y (N,))."""
+  config = j_field.FieldConfig.create(
+      width=16, depth=depth, input_scales=[50.0, 1.0, 1.0],
+      fourier_degrees=[3, 2, 0], interactions=list(interactions),
+      seasonality_periods=[7.0] if seasonal else [],
+      num_seasonal_harmonics=[2] if seasonal else [])
+  rng = np.random.default_rng(seed)
+  params = []
+  for spec in j_field.param_specs(config):
+    shape = (members,) + spec.shape
+    draw = (np.clip(rng.normal(size=shape), -2, 2) if spec.is_matrix
+            else 0.1 * rng.normal(size=shape))
+    params.append(draw.astype(np.float32))
+  x = (rng.normal(size=(N_ROWS, 3)) * 5).astype(np.float32)
+  seasonal_t = np.asarray(
+      j_field.seasonal_features_for(config, jnp.asarray(x))).T
+  y = rng.normal(size=N_ROWS).astype(np.float32)
+  return (config, params, np.ascontiguousarray(x.T),
+          np.array(seasonal_t, dtype=np.float32, order='C'), y)
+
+
+def _k1_args(config, params, x_t, seasonal_t, y, convert):
+  """K1's arguments after `distribution`, without JAX's `tile`."""
+  num_w = config.depth + 1
+  return dict(
+      depth=config.depth, lik_scale=LIK_SCALE,
+      input_scales=config.input_scales,
+      fourier_degrees=config.fourier_degrees,
+      interactions=config.interactions,
+      x_t=convert(x_t), seasonal_t=convert(seasonal_t),
+      weights=tuple(convert(params[7 + 2 * l]) for l in range(num_w)),
+      biases=tuple(convert(params[8 + 2 * l]) for l in range(num_w)),
+      lsa=convert(params[j_field.IDX_LOG_SCALE_ADJ]),
+      fs_raw=convert(params[j_field.IDX_FEATURE_SCALES]),
+      scales_raw=convert(params[j_field.IDX_LAYER_SCALES]),
+      logit=convert(params[j_field.IDX_ACTIVATION_LOGIT]),
+      obs_raw=convert(np.stack(params[:3], axis=-1)),
+      y=convert(y),
+  )
+
+
+def _torch_args(case):
+  config, params, x_t, seasonal_t, y = _setup(**CASES[case])
+  return config, params, _k1_args(config, params, x_t, seasonal_t, y,
+                                   torch.as_tensor)
+
+
+def _by_slot(config, outs):
+  """K1's gradient outputs as {param slot: numpy array}."""
+  _, dlsa, dfs, dws, dbs, dscales, dlogit, dobs = outs
+  grads = j_field.scatter_fused_train_grads(
+      config, *[np.asarray(a) for a in (dlsa, dfs)],
+      [np.asarray(a) for a in dws], [np.asarray(a) for a in dbs],
+      *[np.asarray(a) for a in (dscales, dlogit, dobs)])
+  return dict(enumerate(grads))
+
+
+@pytest.mark.parametrize('case', sorted(CASES))
+def test_reference_matches_pallas_interpret(case):
+  config, params, args = _torch_args(case)
+  got = t_fused.fused_train_reference('NORMAL', **args)
+  j_args = _k1_args(config, params, *[np.asarray(a) for a in (
+      args['x_t'], args['seasonal_t'], args['y'])], jnp.asarray)
+  want = j_fused.fused_train('NORMAL', j_args.pop('depth'), TILE,
+                             **j_args)
+  np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                             rtol=LOSS_RTOL)
+  got_slots, want_slots = _by_slot(config, got), _by_slot(config, want)
+  for slot, w in want_slots.items():
+    np.testing.assert_allclose(got_slots[slot], w, **GRAD_TOL,
+                               err_msg=f'slot {slot}')
+
+
+@pytest.mark.parametrize('case', sorted(CASES))
+def test_reference_matches_jax_autodiff(case):
+  config, params, args = _torch_args(case)
+  got = t_fused.fused_train_reference('NORMAL', **args)
+  x_t, seasonal_t, y = (jnp.asarray(args[k].numpy())
+                        for k in ('x_t', 'seasonal_t', 'y'))
+
+  def member_loss(p):
+    pred = j_field.apply_field_t(config, p, x_t, seasonal_t)
+    return -LIK_SCALE * j_likelihoods.log_likelihood(
+        j_likelihoods.LikelihoodDist.NORMAL, p, pred, y)
+
+  j_params = tuple(jnp.asarray(p) for p in params)
+  want_losses = jax.vmap(member_loss)(j_params)
+  want_grads = jax.grad(lambda ps: jax.vmap(member_loss)(ps).sum())(j_params)
+  np.testing.assert_allclose(got[0].numpy(), np.asarray(want_losses),
+                             rtol=LOSS_RTOL)
+  got_slots = _by_slot(config, got)
+  for slot, w in enumerate(want_grads):
+    if slot in (j_field.IDX_NB_SHAPE_RAW, j_field.IDX_ZINB_LOGIT):
+      # NORMAL never reads them: exactly zero.
+      np.testing.assert_array_equal(got_slots[slot], np.zeros_like(w))
+      continue
+    np.testing.assert_allclose(got_slots[slot], np.asarray(w), **GRAD_TOL,
+                               err_msg=f'slot {slot}')
+
+
+def test_depth0_gives_a_zero_logit_gradient():
+  config = t_field.FieldConfig.create(
+      width=4, depth=0, input_scales=[1.0], fourier_degrees=[2],
+      interactions=[], seasonality_periods=[], num_seasonal_harmonics=[])
+  rng = np.random.default_rng(0)
+  f = config.encoded_dim
+  outs = t_fused.fused_train_reference(
+      'NORMAL', 0, 1.0, config.input_scales, config.fourier_degrees, (),
+      torch.as_tensor(rng.normal(size=(1, 9)).astype(np.float32)),
+      torch.zeros((0, 9)), (torch.ones((2, f, 1)),), (torch.zeros((2, 1)),),
+      torch.zeros((2, 1)), torch.zeros((2, 2)), torch.zeros((2, 1)),
+      torch.zeros((2,)), torch.zeros((2, 3)), torch.zeros((9,)))
+  assert torch.equal(outs[6], torch.zeros(2))
+  assert outs[3][0].shape == (2, f, 1)
+
+
+def test_wrapper_on_cpu_is_the_plain_version():
+  _, _, args = _torch_args('depth2-seasonal-interactions')
+  before = t_fused.fused_train.launches
+  got = t_fused.fused_train('NORMAL', **args)
+  assert t_fused.fused_train.launches == before
+  want = t_fused.fused_train_reference('NORMAL', **args)
+  for g, w in zip(got, want):
+    for a, b in zip(g if isinstance(g, tuple) else (g,),
+                    w if isinstance(w, tuple) else (w,)):
+      assert torch.equal(a, b)
+
+
+def test_wrapper_refuses_other_devices():
+  _, _, args = _torch_args('depth1-seasonal')
+  args = {k: (tuple(t.to('meta') for t in v) if isinstance(v, tuple)
+              and v and isinstance(v[0], torch.Tensor)
+              else v.to('meta') if isinstance(v, torch.Tensor) else v)
+          for k, v in args.items()}
+  with pytest.raises(ValueError, match='CUDA or CPU'):
+    t_fused.fused_train('NORMAL', **args)
+
+
+@pytest.mark.parametrize('change', [
+    dict(distribution='NB'),
+    dict(distribution='ZINB'),
+    dict(per_member_x=True),
+    dict(per_member_y=True),
+    dict(n_valid=50),
+    dict(precision='bf16'),
+], ids=['NB', 'ZINB', 'per-member-x', 'per-member-y', 'n_valid', 'bf16'])
+def test_unported_variants_raise(change):
+  _, _, args = _torch_args('depth1-seasonal')
+  change = dict(change)
+  distribution = change.pop('distribution', 'NORMAL')
+  if change.pop('per_member_x', False):
+    args['x_t'] = args['x_t'].expand(3, -1, -1).contiguous()
+  if change.pop('per_member_y', False):
+    args['y'] = args['y'].expand(3, -1).contiguous()
+  with pytest.raises(ValueError, match='ROADMAP'):
+    t_fused.fused_train(distribution, **args, **change)
+
+
+def _checked(args, **changes):
+  args = dict(args, **changes)
+  return t_fused._check_train_inputs(  # pylint: disable=protected-access
+      args['depth'], args['input_scales'], args['fourier_degrees'],
+      args['interactions'], args['x_t'], args['seasonal_t'], args['weights'],
+      args['biases'], args['lsa'], args['fs_raw'], args['scales_raw'],
+      args['logit'], args['obs_raw'], args['y'])
+
+
+def test_input_checks():
+  config, _, args = _torch_args('depth2-seasonal-interactions')
+  assert _checked(args) == (16, config.encoded_dim, config.num_feature_groups)
+  with pytest.raises(ValueError, match='shape'):
+    _checked(args, fs_raw=args['fs_raw'][:, :-1].contiguous())
+  with pytest.raises(ValueError, match='shape'):
+    _checked(args, y=args['y'][:-1].contiguous())
+  with pytest.raises(ValueError, match='float32'):
+    _checked(args, lsa=args['lsa'].double())
+  w0 = args['weights'][0]
+  with pytest.raises(ValueError, match='contiguous'):
+    _checked(args, weights=(w0.transpose(1, 2).contiguous().transpose(1, 2),
+                            *args['weights'][1:]))
+  with pytest.raises(ValueError, match='weights and biases'):
+    _checked(args, depth=1)
+  with pytest.raises(ValueError, match='inputs'):
+    _checked(args, input_scales=args['input_scales'][:2])
+  with pytest.raises(ValueError, match='interaction'):
+    _checked(args, interactions=((0, 3),))
+
+
+def test_scatter_matches_jax():
+  config, _, args = _torch_args('depth3-interactions')
+  outs = t_fused.fused_train_reference('NORMAL', **args)
+  got = t_field.scatter_fused_train_grads(
+      t_field.FieldConfig.create(
+          width=16, depth=3, input_scales=[50.0, 1.0, 1.0],
+          fourier_degrees=[3, 2, 0], interactions=[(0, 2)],
+          seasonality_periods=[], num_seasonal_harmonics=[]),
+      *outs[1:])
+  want = _by_slot(config, outs)
+  assert len(got) == len(want) == len(j_field.param_specs(config))
+  for slot, g in enumerate(got):
+    np.testing.assert_array_equal(g.numpy(), want[slot])
+
+
+class _FakeTrainLib:
+  """Stands in for the compiled K1 library on the CPU: the C side's
+  shared-memory and scratch formulas, and a launch that records its
+  arguments and returns `err`."""
+
+  def __init__(self, err=0):
+    self.err = err
+    self.calls = []
+
+  @staticmethod
+  def bnf_fused_train_smem_bytes(tile_rows, num_features, width):
+    return (2 * max(num_features, width) * (tile_rows + 4) + 8 * 516
+            + tile_rows + 8) * 4
+
+  @staticmethod
+  def bnf_fused_train_scratch_bytes(members, num_features, width, depth,
+                                    num_inputs, num_groups, chunk_rows,
+                                    n_rows, tile_rows):
+    tiles = -(-n_rows // tile_rows)
+    return (members * chunk_rows * (num_features + 3 * depth * width + 1)
+            + members * tiles * (3 + depth + num_inputs + num_groups)) * 4
+
+  def bnf_fused_train(self, *args):
+    self.calls.append(args)
+    return self.err
+
+  @staticmethod
+  def bnf_cuda_error_string(err):
+    return f'error {err}'.encode()
+
+
+def test_launch_plans_tiles_chunks_and_outputs(monkeypatch):
+  config, _, args = _torch_args('depth2-seasonal-interactions')
+  dims = _checked(args)
+  f = config.encoded_dim
+  launch = lambda lib: t_fused._launch_fused_train(  # pylint: disable=protected-access
+      lib, 'stream', dims, **args)
+  lib = _FakeTrainLib()
+  outs = launch(lib)
+  *_, tile_rows, chunk_rows, stream = lib.calls[-1]
+  # All 70 rows fit the default budget: one chunk of whole tiles.
+  assert (tile_rows, chunk_rows, stream) == (32, 96, 'stream')
+  np.testing.assert_allclose(list(lib.calls[-1][19]),
+                             [f ** -0.5, 0.25, 0.25], rtol=1e-7)
+  assert [o.shape for o in outs[3]] == [w.shape for w in args['weights']]
+  assert outs[2].shape == args['fs_raw'].shape
+  # A budget of 40 rows' scratch gives one 32-row tile per chunk.
+  per_row = lib.bnf_fused_train_scratch_bytes(3, f, 16, 2, 3, 6, 1, 0, 32)
+  monkeypatch.setattr(t_fused, 'TRAIN_SCRATCH_BYTES', 40 * per_row)
+  launch(lib)
+  assert lib.calls[-1][-2] == 32
+  with pytest.raises(RuntimeError, match='error 7'):
+    launch(_FakeTrainLib(err=7))
+  with pytest.raises(ValueError, match='shared memory'):
+    t_fused.pick_train_tile_rows(f, 4096, lib)
+  assert t_fused.pick_train_tile_rows(f, 1024, lib) == 16

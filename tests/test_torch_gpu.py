@@ -1,4 +1,4 @@
-"""The port's CUDA kernel and CUDA serving path, on a card.
+"""The port's CUDA kernels and CUDA serving and training paths, on a card.
 
 Every test here is marked `gpu` and skips without a CUDA device. The file
 imports no JAX, so it also runs on a machine that has only PyTorch:
@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import bayesnf_torch
+from bayesnf_torch.models import field
 from bayesnf_torch.ops import fused_mlp
 
 DATA = pathlib.Path(__file__).resolve().parent / 'test_data'
@@ -92,3 +93,97 @@ def test_served_predict_on_cuda_matches_torch_backend(cuda):
   noise = 0.01 + torch.exp(model.params_[0]).max().item()
   for got, want in zip(quantiles, t_quantiles):
     torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-3 * noise)
+
+
+def _train_inputs(depth, width, n, members, device, seasonal=True,
+                  interactions=((0, 1), (1, 2)), seed=0):
+  """K1 arguments from a small field config, scaled like an initialized
+  model."""
+  config = field.FieldConfig.create(
+      width=width, depth=depth, input_scales=[float(n), 1.0, 1.0],
+      fourier_degrees=[3, 2, 0], interactions=list(interactions),
+      seasonality_periods=[7.0] if seasonal else [],
+      num_seasonal_harmonics=[2] if seasonal else [])
+  rng = np.random.default_rng(seed)
+  x = np.stack([np.arange(n), rng.normal(size=n), rng.normal(size=n)], 1)
+  aug = field.aug_features(
+      config, torch.as_tensor(x.astype(np.float32), device=device)).T
+  params = [
+      torch.as_tensor(
+          (np.clip(rng.normal(size=(members,) + s.shape), -2, 2)
+           if s.is_matrix else 0.1 * rng.normal(size=(members,) + s.shape)
+           ).astype(np.float32), device=device)
+      for s in field.param_specs(config)]
+  weights, biases = field.dense_params(config, params)
+  d = config.num_inputs
+  return dict(
+      distribution='NORMAL', depth=depth, lik_scale=1.0,
+      input_scales=config.input_scales,
+      fourier_degrees=config.fourier_degrees,
+      interactions=config.interactions,
+      x_t=aug[:d].contiguous(), seasonal_t=aug[d:].contiguous(),
+      weights=weights, biases=biases, lsa=params[3], fs_raw=params[4],
+      scales_raw=params[6], logit=params[5],
+      obs_raw=torch.stack(params[:3], dim=-1).contiguous(),
+      y=torch.as_tensor(rng.normal(size=n).astype(np.float32),
+                        device=device))
+
+
+def _flat(outs):
+  losses, dlsa, dfs, dws, dbs, dscales, dlogit, dobs = outs
+  return [losses, dlsa, dfs, *dws, *dbs, dscales, dlogit, dobs]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('depth,width,n,seasonal,interactions', [
+    (2, 64, 333, True, ((0, 1), (1, 2))),
+    (1, 256, 70, True, ()),
+    (3, 32, 65, False, ((0, 2),)),
+    (0, 1, 40, True, ()),
+    (2, 1024, 17, False, ()),
+])
+def test_train_kernel_matches_plain(cuda, depth, width, n, seasonal,
+                                    interactions):
+  args = _train_inputs(depth, width, n, 3, cuda, seasonal, interactions)
+  before = fused_mlp.fused_train.launches
+  got = fused_mlp.fused_train(**args)
+  torch.cuda.synchronize()
+  assert fused_mlp.fused_train.launches == before + 1
+  want = fused_mlp.fused_train_reference(**args)
+  torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=0)
+  for g, w in zip(_flat(got)[1:], _flat(want)[1:]):
+    # 2e-4 of each leaf's largest magnitude (see chip_smoke.py).
+    assert (g - w).abs().max().item() <= 2e-4 * w.abs().max().item()
+  assert bool((got[-1][:, 1:] == 0).all())
+
+
+@pytest.mark.gpu
+def test_train_kernel_refuses_what_it_cannot_take(cuda):
+  args = _train_inputs(1, 4096, 8, 2, cuda)
+  with pytest.raises(ValueError, match='shared memory'):
+    fused_mlp.fused_train(**args)
+  args = _train_inputs(1, 16, 8, 2, cuda)
+  with pytest.raises(ValueError, match='must be on'):
+    fused_mlp.fused_train(**dict(args, logit=args['logit'].cpu()))
+
+
+@pytest.mark.gpu
+def test_fit_on_cuda_kernel_matches_torch_backend(cuda):
+  table = pd.read_csv(DATA / 'chickenpox.8.train.csv', index_col=0,
+                      parse_dates=['datetime'])
+  kwargs = dict(
+      feature_cols=['datetime', 'latitude', 'longitude'],
+      target_col='chickenpox', timetype='index', freq='W',
+      standardize=['latitude', 'longitude'], width=64, depth=2,
+      seasonality_periods=[4.0, 52.1775], num_seasonal_harmonics=[2, 10])
+  fused_mlp.fused_train.launches = 0
+  kernel = bayesnf_torch.BayesianNeuralFieldMAP(**kwargs).fit(
+      table, seed=0, ensemble_size=4, num_epochs=6, device=cuda)
+  assert fused_mlp.fused_train.launches == 6
+  plain = bayesnf_torch.BayesianNeuralFieldMAP(**kwargs).fit(
+      table, seed=0, ensemble_size=4, num_epochs=6, device=cuda,
+      backend='torch')
+  assert fused_mlp.fused_train.launches == 6
+  np.testing.assert_allclose(kernel.losses_, plain.losses_, rtol=1e-4)
+  means, _ = kernel.predict(table, quantiles=(0.5,))
+  assert means.device.type == 'cuda' and bool(torch.isfinite(means).all())

@@ -276,9 +276,11 @@ def test_unfitted_estimator_raises_value_error():
 
 
 def test_fit_and_likelihood_model_are_not_ported():
+  # `fit` trains full batch (tests/test_torch_map.py); minibatches are not
+  # ported yet.
   est = bayesnf_torch.BayesianNeuralFieldMLE(**_kwargs('MLE'))
   with pytest.raises(NotImplementedError, match='ROADMAP'):
-    est.fit(_table(), seed=0)
+    est.fit(_table(), seed=0, batch_size=10, device='cpu')
   with pytest.raises(NotImplementedError, match='ROADMAP'):
     est.likelihood_model(_table())
 
