@@ -1,26 +1,32 @@
-"""Ensemble MAP / MLE trainer, full batch, one device (counterpart of the
-full-batch part of `bayesnf_tpu/inference/map.py`).
+"""Ensemble MAP / MLE trainer, one device (counterpart of
+`bayesnf_tpu/inference/map.py`).
 
 - loss = -(loglik * N/B + prior_weight * prior_log_prob); MLE is
-  prior_weight == 0. Full batch means B == N.
+  prior_weight == 0.
 - init: every member from `field.init_params`, drawn by one CPU
   `torch.Generator` seeded with the int `seed` (so a seed starts the same
   ensemble on every device); the noise scale starts at log(nanstd(y) / 2),
   computed in numpy as the JAX package computes it.
 - Adam as optax computes it (`adam_update`), over leaves with a leading
-  member axis E. The recorded loss of an epoch is the loss before its
-  (single) update.
+  member axis E.
+- Full batch (B == N): one step per epoch, whose recorded loss is the loss
+  before its update. Minibatch (B < N): every epoch each member draws its
+  own permutation of the rows, drops the ragged tail and takes N // B
+  steps on its own batches; the epoch's loss is the mean of its steps'.
+  Permutations come from a generator on the fit's device seeded from
+  `seed` (`stream_seed`), so both backends see the same batches.
 - Each step's losses and gradients come from one of two backends
-  (`backends.py`): 'kernel' makes one `fused_mlp.fused_train` call over all
-  rows (K1 on CUDA) and adds the prior outside it; 'torch' runs autograd
-  through `field.apply_field_t` and `likelihoods.log_likelihood` in
-  `ROW_CHUNK`-row chunks, summed after the prior, as the JAX package's
-  chunked gradient accumulation does.
+  (`backends.py`): 'kernel' makes one `fused_mlp.fused_train` call over the
+  step's rows (K1 on CUDA; per-member batches are (E, ., B) inputs); 'torch'
+  runs autograd through `field.apply_field_t` and
+  `likelihoods.log_likelihood` in `ROW_CHUNK`-row chunks, summed, as the
+  JAX package's chunked gradient accumulation does. Both add the prior,
+  by autograd, after the likelihood.
 - `fit_map` keeps the `num_splits` host loop over ensemble chunks.
 
-Not ported yet, and raising NotImplementedError: minibatch training, NB and
-ZINB, checkpoints, host streaming, precision other than 'f32' and a device
-mesh (ROADMAP.md, queue 1).
+Not ported yet, and raising NotImplementedError: NB and ZINB, checkpoints,
+host streaming, precision other than 'f32' and a device mesh (ROADMAP.md,
+queue 1).
 """
 
 from typing import NamedTuple
@@ -86,9 +92,6 @@ def adam_update(grads, state: AdamState, learning_rate: float):
 
 def _prior_losses_and_grads(config, params, prior_weight):
   """-prior_weight * prior_log_prob per member, and its gradient."""
-  if prior_weight == 0.0:
-    return (torch.zeros_like(params[0]).reshape(-1),
-            [torch.zeros_like(p) for p in params])
   leaves = [p.detach().requires_grad_(True) for p in params]
   with torch.enable_grad():
     losses = -prior_weight * priors.prior_log_prob(config, leaves)
@@ -96,21 +99,25 @@ def _prior_losses_and_grads(config, params, prior_weight):
   return losses.detach(), list(grads)
 
 
-def make_losses_and_grads(config, distribution, prior_weight, backend):
-  """The per-step `(params, aug_t, target) -> (losses (E,), grads)` of a
-  full-batch fit on `backend` ('torch' or 'kernel', resolved)."""
-  d = config.num_inputs
-  lik_scale = 1.0  # data_size / batch_size, full batch.
+def make_nll_and_grads(config, distribution, lik_scale, backend):
+  """The `(params, x_t, seasonal_t, y) -> (losses (E,), grads)` of
+  `lik_scale * -loglik` on `backend` ('torch' or 'kernel', resolved).
 
-  def torch_losses_and_grads(params, aug_t, target):
-    losses, grads = _prior_losses_and_grads(config, params, prior_weight)
+  x_t (D, B), seasonal_t (2F, B) and y (B,) are shared by every member, or
+  grouped with a leading axis that divides E (`field.grouped`).
+  """
+
+  def torch_nll_and_grads(params, x_t, seasonal_t, y):
+    losses = torch.zeros_like(params[0]).reshape(-1)
+    grads = [torch.zeros_like(p) for p in params]
     leaves = [p.detach().requires_grad_(True) for p in params]
-    for lo in range(0, aug_t.shape[1], ROW_CHUNK):
-      chunk = aug_t[:, lo : lo + ROW_CHUNK]
+    for lo in range(0, y.shape[-1], ROW_CHUNK):
+      rows = slice(lo, lo + ROW_CHUNK)
       with torch.enable_grad():
-        pred = field_lib.apply_field_t(config, leaves, chunk[:d], chunk[d:])
+        pred = field_lib.apply_field_t(
+            config, leaves, x_t[..., rows], seasonal_t[..., rows])
         chunk_losses = -lik_scale * likelihoods.log_likelihood(
-            distribution, leaves, pred, target[lo : lo + ROW_CHUNK]
+            distribution, leaves, pred, y[..., rows]
         )
         # NORMAL leaves the NB/ZINB scalars out of the graph: zero grads.
         chunk_grads = torch.autograd.grad(
@@ -120,7 +127,7 @@ def make_losses_and_grads(config, distribution, prior_weight, backend):
       grads = [g + cg for g, cg in zip(grads, chunk_grads)]
     return losses, grads
 
-  def kernel_losses_and_grads(params, aug_t, target):
+  def kernel_nll_and_grads(params, x_t, seasonal_t, y):
     weights, biases = field_lib.dense_params(config, params)
     obs_raw = torch.stack(
         [params[field_lib.IDX_LOG_NOISE_SCALE],
@@ -128,14 +135,32 @@ def make_losses_and_grads(config, distribution, prior_weight, backend):
          params[field_lib.IDX_ZINB_LOGIT]], dim=-1)
     losses, dlsa, dfs, dws, dbs, dscales, dlogit, dobs = fused_mlp.fused_train(
         distribution.value, config.depth, lik_scale, config.input_scales,
-        config.fourier_degrees, config.interactions, aug_t[:d], aug_t[d:],
+        config.fourier_degrees, config.interactions, x_t, seasonal_t,
         weights, biases, params[field_lib.IDX_LOG_SCALE_ADJ],
         params[field_lib.IDX_FEATURE_SCALES],
         params[field_lib.IDX_LAYER_SCALES],
-        params[field_lib.IDX_ACTIVATION_LOGIT], obs_raw, target,
+        params[field_lib.IDX_ACTIVATION_LOGIT], obs_raw, y,
     )
-    grads = field_lib.scatter_fused_train_grads(
+    return losses, field_lib.scatter_fused_train_grads(
         config, dlsa, dfs, dws, dbs, dscales, dlogit, dobs)
+
+  if backend == 'kernel':
+    return kernel_nll_and_grads
+  if backend == 'torch':
+    return torch_nll_and_grads
+  raise ValueError(f'Unresolved backend: {backend!r}')
+
+
+def make_losses_and_grads(config, distribution, prior_weight, backend,
+                          lik_scale=1.0):
+  """The per-step `(params, x_t, seasonal_t, y) -> (losses (E,), grads)` of
+  a fit on `backend` ('torch' or 'kernel', resolved): `lik_scale` (N / B)
+  times the negative log-likelihood of the step's rows, shared (D, B) or
+  per member (E, D, B) (`make_nll_and_grads`), plus the prior."""
+  nll_and_grads = make_nll_and_grads(config, distribution, lik_scale, backend)
+
+  def losses_and_grads(params, x_t, seasonal_t, y):
+    losses, grads = nll_and_grads(params, x_t, seasonal_t, y)
     if prior_weight != 0.0:
       prior_losses, prior_grads = _prior_losses_and_grads(
           config, params, prior_weight)
@@ -143,11 +168,22 @@ def make_losses_and_grads(config, distribution, prior_weight, backend):
       grads = [g + pg for g, pg in zip(grads, prior_grads)]
     return losses, grads
 
-  if backend == 'kernel':
-    return kernel_losses_and_grads
-  if backend == 'torch':
-    return torch_losses_and_grads
-  raise ValueError(f'Unresolved backend: {backend!r}')
+  return losses_and_grads
+
+
+def gather_batch(x_t, seasonal_t, y, idx):
+  """Per-member batches of the rows `idx` (E, B): (E, D, B), (E, 2F, B) and
+  (E, B), contiguous, as K1 reads them."""
+  return (x_t[:, idx].transpose(0, 1).contiguous(),
+          seasonal_t[:, idx].transpose(0, 1).contiguous(), y[idx])
+
+
+def random_permutations(generator, members, n):
+  """(members, n): an independent permutation of range(n) per member, from
+  one draw of `generator` (one launch, not one `randperm` per member)."""
+  return torch.argsort(
+      torch.rand((members, n), generator=generator,
+                 device=generator.device), dim=1)
 
 
 def train(
@@ -161,8 +197,10 @@ def train(
     num_epochs: int,
     prior_weight: float = 1.0,
     backend: str = 'torch',
+    batch_size: int | None = None,
+    permutations=None,
 ):
-  """`num_epochs` full-batch Adam steps from `params` and `opt_state`.
+  """`num_epochs` Adam epochs from `params` and `opt_state`.
 
   Args:
     params: flat parameter tuple, each leaf with a leading member axis E.
@@ -172,23 +210,44 @@ def train(
     config: model config.
     distribution: observation model (NORMAL).
     learning_rate: Adam learning rate.
-    num_epochs: steps (one per epoch, full batch).
+    num_epochs: epochs.
     prior_weight: prior multiplier (0 == MLE).
     backend: 'torch' or 'kernel' (resolved).
+    batch_size: None or N (one full-batch step per epoch), or B < N.
+    permutations: with B < N, a function `epoch -> (E, N)` row permutation
+      per member (`random_permutations` from a seeded generator in a fit;
+      tests give the JAX package's).
 
   Returns:
     (params, opt_state, losses): losses (E, num_epochs) on the parameters'
-    device, each the loss before that epoch's update.
+    device: each epoch's loss before its update (full batch) or the mean of
+    its steps' losses (minibatch).
   """
+  d = config.num_inputs
+  n = target.shape[0]
+  batch_size = n if batch_size is None else min(int(batch_size), n)
   losses_and_grads = make_losses_and_grads(
-      config, distribution, prior_weight, backend)
+      config, distribution, prior_weight, backend, lik_scale=n / batch_size)
+  x_t, seasonal_t = aug_t[:d], aug_t[d:]
   params = tuple(params)
+  num_batches = n // batch_size
   history = []
-  for _ in range(int(num_epochs)):
-    losses, grads = losses_and_grads(params, aug_t, target)
-    updates, opt_state = adam_update(grads, opt_state, learning_rate)
-    params = tuple(p + u for p, u in zip(params, updates))
-    history.append(losses)
+  for epoch in range(int(num_epochs)):
+    if batch_size == n:
+      batches = [(x_t, seasonal_t, target)]
+    else:
+      keep = permutations(epoch)[:, : num_batches * batch_size]
+      batches = (gather_batch(x_t, seasonal_t, target,
+                              keep[:, j * batch_size : (j + 1) * batch_size])
+                 for j in range(num_batches))
+    step_losses = []
+    for batch in batches:
+      losses, grads = losses_and_grads(params, *batch)
+      updates, opt_state = adam_update(grads, opt_state, learning_rate)
+      params = tuple(p + u for p, u in zip(params, updates))
+      step_losses.append(losses)
+    history.append(step_losses[0] if len(step_losses) == 1 else
+                   torch.stack(step_losses).mean(dim=0))
   losses = (torch.stack(history, dim=1) if history else
             torch.zeros((params[0].shape[0], 0), device=params[0].device))
   return params, opt_state, losses
@@ -207,22 +266,15 @@ def init_ensemble(config, ensemble_size, seed: int, log_noise_init, device):
   )
 
 
-def check_supported(distribution, batch_size, data_size, mesh=None,
-                    checkpoint_dir=None, checkpoint_every=None,
-                    precision='f32', stream_chunk_steps=None,
-                    stream_member_remix=False):
+def check_supported(distribution, mesh=None, checkpoint_dir=None,
+                    checkpoint_every=None, precision='f32',
+                    stream_chunk_steps=None, stream_member_remix=False):
   """Raises NotImplementedError for what the port does not train yet."""
   if likelihoods.LikelihoodDist(distribution) != (
       likelihoods.LikelihoodDist.NORMAL):
     raise NotImplementedError(
         f'Training the {likelihoods.LikelihoodDist(distribution).value} '
         'model is not ported to PyTorch yet (ROADMAP.md, queue 1 item 10).'
-    )
-  if batch_size is not None and batch_size < data_size:
-    raise NotImplementedError(
-        f'Minibatch training (batch_size={batch_size} < {data_size} rows) is '
-        'not ported to PyTorch yet (ROADMAP.md, queue 1 item 7; its kernel '
-        'path needs per-member inputs, queue 2 K1 stage 3).'
     )
   if mesh is not None:
     raise NotImplementedError(
@@ -261,7 +313,7 @@ def ensemble_map(
     device='cuda',
     **unported,
 ):
-  """Train `ensemble_size` independent MAP/MLE members, full batch.
+  """Train `ensemble_size` independent MAP/MLE members.
 
   Args:
     aug_features: (N, D + 2F) training inputs with seasonal features
@@ -271,9 +323,10 @@ def ensemble_map(
     distribution: observation model.
     ensemble_size: members to train.
     learning_rate: Adam learning rate.
-    num_epochs: epochs (one full-batch step each).
-    seed: int seed of the initialization.
-    batch_size: None or N (full batch).
+    num_epochs: epochs (N // batch_size steps each).
+    seed: int seed of the initialization, and of the minibatch
+      permutations (`stream_seed(seed, PERMUTATION_STREAM)`).
+    batch_size: None or N (full batch), or B < N rows per step.
     prior_weight: prior multiplier (0 == MLE).
     backend: 'auto' | 'torch' | 'kernel' (`backends.resolve_backend`).
     device: where the fit runs.
@@ -285,8 +338,7 @@ def ensemble_map(
     on `device`; losses (ensemble_size, num_epochs) as numpy.
   """
   target_np = np.asarray(target)
-  data_size = int(target_np.shape[0])
-  check_supported(distribution, batch_size, data_size, **unported)
+  check_supported(distribution, **unported)
   device = torch.device(device)
   backend = backends.resolve_backend(backend, device)
   log_noise_init = np.log(np.nanstd(target_np) / 2.0)
@@ -295,12 +347,29 @@ def ensemble_map(
   aug_t = torch.as_tensor(
       aug_features, dtype=torch.float32, device=device).T.contiguous()
   y = torch.tensor(target_np, dtype=torch.float32, device=device)
+  generator = torch.Generator(device=device).manual_seed(
+      stream_seed(seed, PERMUTATION_STREAM))
   params, _, losses = train(
       params, init_opt_state(params), aug_t, y, config,
       likelihoods.LikelihoodDist(distribution), learning_rate, num_epochs,
-      prior_weight=prior_weight, backend=backend,
+      prior_weight=prior_weight, backend=backend, batch_size=batch_size,
+      permutations=lambda _: random_permutations(
+          generator, ensemble_size, y.shape[0]),
   )
   return params, losses.cpu().numpy()
+
+
+# Keys of the random streams a fit derives from its int seed (the
+# initialization uses the seed itself).
+PERMUTATION_STREAM = 1
+VI_STEP_STREAM = 2
+
+
+def stream_seed(seed: int, stream: int) -> int:
+  """A 63-bit seed for random stream `stream` of `seed`: the first word of
+  numpy's SeedSequence(seed, spawn_key=(stream,))."""
+  state = np.random.SeedSequence(int(seed), spawn_key=(int(stream),))
+  return int(state.generate_state(1, np.uint64)[0] >> np.uint64(1))
 
 
 def split_seed(seed: int, index: int, num_splits: int) -> int:

@@ -1,0 +1,252 @@
+"""Ensemble mean-field variational inference, one device (counterpart of
+`bayesnf_tpu/inference/vi.py`).
+
+- Surrogate: an independent Normal(loc, 1e-4 + softplus(raw_scale)) per
+  parameter entry, each leaf with a leading member axis E.
+- Init: matrix locs from TruncatedNormal(0, 1, -2, 2), every other loc 0
+  (the log-noise loc too: VI has no nanstd init), raw scales
+  softplus_inverse(0.3). The locs are drawn as `map.init_ensemble` draws
+  parameters: one CPU `torch.Generator` seeded with the int seed.
+- Per-step loss of one member: the mean over S reparameterised draws z of
+  log q(z) - prior(z) - loglik(z, batch) * (N/B) / kl_weight. The recorded
+  history is that loss times kl_weight. The minibatch is redrawn every step
+  from a per-member permutation prefix.
+- The S draws of every member are folded into one member axis of E * S
+  (member-major, draw-minor). The likelihood term comes from
+  `map.make_nll_and_grads` on that axis: on 'kernel' one K1 call, whose
+  per-member batches (E, ., B) feed each member's S draws as groups of
+  rep = S (no S-fold copy); on 'torch' autograd through
+  `field.apply_field_t` with the same grouped inputs. A full batch is the
+  shared (D, N) layout. `_NLL` wraps either as an autograd Function: its
+  forward keeps the gradients, its backward scales them by each member's
+  cotangent, and autograd composes the sampling, log q and the prior
+  around it.
+- Randomness: the standard-normal noise of each step's draws (leaves in
+  `param_specs` order), then its batch permutation, come from one generator
+  on the fit's device seeded from the seed (`map.stream_seed`), so the two
+  backends of one seed see the same noise and batches. The step function
+  takes the noise and the batches as arguments.
+- Adam (`map.adam_update`) over the locs and raw scales, one state.
+
+Not ported yet, and raising NotImplementedError: NB and ZINB, checkpoints,
+host streaming, precision other than 'f32' and a device mesh (ROADMAP.md,
+queue 1).
+"""
+
+import numpy as np
+import torch
+
+from bayesnf_torch.inference import backends
+from bayesnf_torch.inference import map as map_lib
+from bayesnf_torch.models import field as field_lib
+from bayesnf_torch.models import likelihoods
+from bayesnf_torch.models import priors
+from bayesnf_torch.ops import special
+
+# softplus_inverse(0.3), in double and rounded to float32 as the JAX package
+# takes it.
+RAW_SCALE_INIT = float(np.float32(
+    special.softplus_inverse(torch.tensor(0.3, dtype=torch.float64))))
+
+
+def init_surrogate(config, ensemble_size: int, seed: int, device):
+  """(locs, raw_scales) of `ensemble_size` members on `device`."""
+  locs = map_lib.init_ensemble(config, ensemble_size, seed, 0.0, device)
+  return locs, tuple(torch.full_like(loc, RAW_SCALE_INIT) for loc in locs)
+
+
+def surrogate_scales(raw_scales):
+  return tuple(1e-4 + special.softplus(r) for r in raw_scales)
+
+
+def draw_noise(config, members: int, samples: int, generator):
+  """Standard-normal noise (members, samples, *leaf shape) per leaf, in
+  `param_specs` order."""
+  return tuple(
+      torch.randn((members, samples) + spec.shape, generator=generator,
+                  device=generator.device)
+      for spec in field_lib.param_specs(config))
+
+
+def surrogate_sample(locs, scales, noise):
+  """Reparameterised draws loc + scale * noise, leaves (E, S, ...)."""
+  return tuple(loc[:, None] + scale[:, None] * eps
+               for loc, scale, eps in zip(locs, scales, noise))
+
+
+def surrogate_log_prob(locs, scales, z):
+  """(E, S) log q(z) of draws z with leaves (E, S, ...), summed leaf by
+  leaf in `param_specs` order."""
+  e, s = z[0].shape[:2]
+  total = torch.zeros((e, s), dtype=torch.float32, device=z[0].device)
+  for loc, scale, zi in zip(locs, scales, z):
+    lp = special.normal_log_prob(zi, loc[:, None], scale[:, None])
+    total = total + lp.reshape(e, s, -1).sum(dim=-1)
+  return total
+
+
+class _NLL(torch.autograd.Function):
+  """lik_scale * -loglik per member from `nll_and_grads`, which gives the
+  losses and their gradients in one pass (K1 on 'kernel'); the backward
+  scales those gradients by each member's cotangent."""
+
+  @staticmethod
+  def forward(ctx, nll_and_grads, x_b, seasonal_b, y_b, *params):
+    losses, grads = nll_and_grads(params, x_b, seasonal_b, y_b)
+    ctx.grads = grads
+    return losses
+
+  @staticmethod
+  def backward(ctx, g):
+    grads = ctx.grads
+    del ctx.grads
+    return (None, None, None, None,
+            *(gr * g.reshape((-1,) + (1,) * (gr.ndim - 1)) for gr in grads))
+
+
+def make_elbo_losses(config, distribution, lik_scale, backend):
+  """`(locs, raw_scales, noise, x_b, seasonal_b, y_b) -> (E,)` per-member
+  negative ELBO, differentiable in the locs and raw scales.
+
+  `lik_scale` is (N / B) / kl_weight; `noise` leaves are (E, S, ...);
+  x_b (D, N), seasonal_b (2F, N), y_b (N,) are the full batch, or
+  (E, D, B), (E, 2F, B), (E, B) per-member minibatches.
+  """
+  nll_and_grads = map_lib.make_nll_and_grads(
+      config, distribution, lik_scale, backend)
+
+  def elbo_losses(locs, raw_scales, noise, x_b, seasonal_b, y_b):
+    scales = surrogate_scales(raw_scales)
+    z = surrogate_sample(locs, scales, noise)
+    e, s = z[0].shape[:2]
+    z_f = tuple(p.reshape((e * s,) + p.shape[2:]) for p in z)
+    nll = _NLL.apply(nll_and_grads, x_b, seasonal_b, y_b, *z_f)
+    target = (priors.prior_log_prob(config, z_f) - nll).reshape(e, s)
+    return (surrogate_log_prob(locs, scales, z) - target).mean(dim=1)
+
+  return elbo_losses
+
+
+def make_step(config, distribution, lik_scale, learning_rate, backend):
+  """One Adam step of every surrogate: `(surrogate, opt_state, noise, x_b,
+  seasonal_b, y_b) -> (surrogate, opt_state, losses (E,))`, the losses
+  before the update (see `make_elbo_losses` for the arguments)."""
+  elbo_losses = make_elbo_losses(config, distribution, lik_scale, backend)
+
+  def step(surrogate, opt_state, noise, x_b, seasonal_b, y_b):
+    leaves = [p.detach().requires_grad_(True)
+              for p in (*surrogate[0], *surrogate[1])]
+    num = len(leaves) // 2
+    with torch.enable_grad():
+      losses = elbo_losses(leaves[:num], leaves[num:], noise, x_b,
+                           seasonal_b, y_b)
+      grads = torch.autograd.grad(losses.sum(), leaves)
+    updates, opt_state = map_lib.adam_update(grads, opt_state, learning_rate)
+    new = tuple(p.detach() + u for p, u in zip(leaves, updates))
+    return (new[:num], new[num:]), opt_state, losses.detach()
+
+  return step
+
+
+def train(surrogate, opt_state, aug_t, target, config, distribution,
+          learning_rate, num_steps, batch_size, sample_size, kl_weight,
+          generator, backend):
+  """`num_steps` VI steps; noise and batches from `generator`.
+
+  Returns:
+    (surrogate, opt_state, losses): losses (E, num_steps) on the device,
+    times kl_weight.
+  """
+  d = config.num_inputs
+  n = target.shape[0]
+  members = surrogate[0][0].shape[0]
+  step = make_step(config, distribution, (n / batch_size) / kl_weight,
+                   learning_rate, backend)
+  x_t, seasonal_t = aug_t[:d], aug_t[d:]
+  history = []
+  for _ in range(int(num_steps)):
+    noise = draw_noise(config, members, sample_size, generator)
+    if batch_size == n:
+      batch = (x_t, seasonal_t, target)
+    else:
+      idx = map_lib.random_permutations(generator, members, n)[:, :batch_size]
+      batch = map_lib.gather_batch(x_t, seasonal_t, target, idx)
+    surrogate, opt_state, losses = step(surrogate, opt_state, noise, *batch)
+    history.append(losses)
+  losses = (torch.stack(history, dim=1) if history else
+            torch.zeros((members, 0), device=target.device))
+  return surrogate, opt_state, losses * kl_weight
+
+
+def posterior_draws(config, surrogate, num_samples: int, generator):
+  """Parameter draws from each surrogate, leaves (E, num_samples, ...)."""
+  locs, raw_scales = surrogate
+  noise = draw_noise(config, locs[0].shape[0], num_samples, generator)
+  return surrogate_sample(locs, surrogate_scales(raw_scales), noise)
+
+
+def fit_vi(
+    aug_features,
+    target,
+    seed: int,
+    observation_model: str,
+    config: field_lib.FieldConfig,
+    ensemble_size: int,
+    learning_rate: float,
+    num_epochs: int,
+    sample_size_divergence: int = 5,
+    sample_size_posterior: int = 30,
+    kl_weight: float = 1.0,
+    batch_size: int | None = None,
+    backend: str = 'auto',
+    device='cuda',
+    **unported,
+):
+  """Fit an ensemble of mean-field surrogate posteriors.
+
+  Args:
+    aug_features: (N, D + 2F) inputs with seasonal features
+      (`field.aug_features`), numpy or a tensor.
+    target: (N,) targets (numpy).
+    seed: int seed of the init and of the per-step noise and batches.
+    observation_model: 'NORMAL'.
+    config: model config.
+    ensemble_size: surrogates to fit.
+    learning_rate: Adam learning rate.
+    num_epochs: total optimization steps (the estimator scales its epochs
+      by N // B, as the JAX package does).
+    sample_size_divergence: Monte-Carlo draws per ELBO estimate (S).
+    sample_size_posterior: posterior draws returned per surrogate.
+    kl_weight: weight of KL(q || prior) in the ELBO.
+    batch_size: rows per step; None (or at least N) is the full batch.
+    backend: 'auto' | 'torch' | 'kernel' (`backends.resolve_backend`).
+    device: where the fit runs.
+    **unported: the JAX package's mesh, checkpoint, precision and
+      streaming arguments; anything but their defaults raises.
+
+  Returns:
+    (surrogate, losses, draws): (locs, raw_scales) with leading member axis
+    E on `device`; losses (E, num_epochs) as numpy (times kl_weight);
+    draws, leaves (E, sample_size_posterior, ...) on `device`.
+  """
+  distribution = likelihoods.LikelihoodDist(observation_model)
+  map_lib.check_supported(distribution, **unported)
+  device = torch.device(device)
+  backend = backends.resolve_backend(backend, device)
+  target_np = np.asarray(target)
+  n = int(target_np.shape[0])
+  batch_size = n if batch_size is None else min(int(batch_size), n)
+  surrogate = init_surrogate(config, ensemble_size, seed, device)
+  opt_state = map_lib.init_opt_state((*surrogate[0], *surrogate[1]))
+  aug_t = torch.as_tensor(
+      aug_features, dtype=torch.float32, device=device).T.contiguous()
+  y = torch.tensor(target_np, dtype=torch.float32, device=device)
+  generator = torch.Generator(device=device).manual_seed(
+      map_lib.stream_seed(seed, map_lib.VI_STEP_STREAM))
+  surrogate, _, losses = train(
+      surrogate, opt_state, aug_t, y, config, distribution, learning_rate,
+      num_epochs, batch_size, int(sample_size_divergence), float(kl_weight),
+      generator, backend)
+  draws = posterior_draws(config, surrogate, int(sample_size_posterior),
+                          generator)
+  return surrogate, losses.cpu().numpy(), draws

@@ -6,6 +6,12 @@ other unchanged. Where the JAX package writes a function for one member and
 `vmap`s it, the functions here take the member axis written out: every
 parameter leaf carries one leading member axis E.
 
+Data inputs (raw inputs, seasonal rows, targets) are shared by every member,
+or stored once per group of E/G consecutive members with a leading axis G
+(G = E: one row set per member). Member e reads group e // (E/G), the order
+of the JAX package's fused trainer, so the Monte-Carlo draws of a VI member
+share its one minibatch without a copy per draw (:func:`grouped`).
+
 Model structure (per member):
 
   scaled_x = x / (input_scales * exp(log_scale_adjustment))
@@ -240,6 +246,32 @@ def aug_features(config: FieldConfig, x: torch.Tensor) -> torch.Tensor:
   return torch.cat([x, seasonal_features_for(config, x)], dim=-1)
 
 
+def grouped(t: torch.Tensor, members: int, ndim: int) -> torch.Tensor:
+  """A data input as a (G, 1, ...) view for `members` members in G groups.
+
+  Args:
+    t: shared (`ndim` dims) or grouped (G leading, G dividing `members`).
+    members: the member count E.
+    ndim: dims of one row set ((D, N): 2; (N,): 1).
+
+  Returns:
+    `t` viewed with two leading axes; a per-member tensor reshaped to
+    (G, E/G, ...) broadcasts against it.
+
+  Raises:
+    ValueError: if `t` has another rank, or G does not divide `members`.
+  """
+  if t.ndim == ndim:
+    return t[None, None]
+  if t.ndim != ndim + 1 or not t.shape[0] or members % t.shape[0]:
+    raise ValueError(
+        f'A data input of shape {tuple(t.shape)} must be one shared row set '
+        f'of {ndim} dims, or have a leading group count that divides the '
+        f'member count {members}.'
+    )
+  return t[:, None]
+
+
 def encode_raw_t(
     input_scales,
     fourier_degrees,
@@ -258,30 +290,38 @@ def encode_raw_t(
     interactions: ((i, j), ...) input-dim index pairs.
     lsa: (E, D) log scale adjustments.
     fs_raw: (E, G) pre-softplus feature-group scales.
-    x_t: (D, N) raw inputs, shared by every member.
-    seasonal_t: (2F, N) seasonal features of the time column (2F may be 0).
+    x_t: (D, N) raw inputs shared by every member, or (E/rep, D, N) grouped
+      (see :func:`grouped`).
+    seasonal_t: seasonal features of the time column, (2F, N) or
+      (E/rep', 2F, N) (2F may be 0).
 
   Returns:
     List of (E, f_g, N) tensors, one per non-empty feature group.
   """
+  e, d = lsa.shape
+  x4 = grouped(x_t, e, 2)  # (G, 1, D, N)
+  n = x4.shape[-1]
   scales = torch.tensor(
       tuple(input_scales), dtype=x_t.dtype, device=x_t.device
   )
-  scaled_x = x_t / (scales * torch.exp(lsa))[:, :, None]  # (E, D, N)
-  e = scaled_x.shape[0]
+  divisor = (scales * torch.exp(lsa)).reshape(x4.shape[0], -1, d, 1)
+  scaled_x = (x4 / divisor).reshape(e, d, n)
+  group_scales = special.softplus(fs_raw)  # (E, G)
 
   groups = [scaled_x]
   for i, degree in enumerate(fourier_degrees):
     if degree > 0:
       groups.append(feat_lib.fourier_features_t(scaled_x[:, i], degree))
-  if seasonal_t.shape[0]:
-    groups.append(seasonal_t.expand(e, -1, -1))
+  out = [g * group_scales[:, i, None, None] for i, g in enumerate(groups)]
+  if seasonal_t.shape[-2]:
+    s4 = grouped(seasonal_t, e, 2)  # (G', 1, 2F, N)
+    gs = group_scales[:, len(out)].reshape(s4.shape[0], -1, 1, 1)
+    out.append((s4 * gs).reshape(e, -1, n))
   if len(interactions):
     inter_idx = torch.tensor(tuple(interactions), device=x_t.device)
-    groups.append(torch.prod(scaled_x[:, inter_idx, :], dim=2))
-
-  group_scales = special.softplus(fs_raw)  # (E, G)
-  return [g * group_scales[:, i, None, None] for i, g in enumerate(groups)]
+    out.append(torch.prod(scaled_x[:, inter_idx, :], dim=2)
+               * group_scales[:, len(out), None, None])
+  return out
 
 
 def encode_t_groups(
@@ -295,8 +335,9 @@ def encode_t_groups(
   Args:
     config: model config.
     params: flat parameter tuple, each leaf with one leading member axis E.
-    x_t: (D, N) raw inputs, shared by every member.
-    seasonal_t: (2F, N) seasonal features of the time column.
+    x_t: (D, N) raw inputs shared by every member, or (E/rep, D, N).
+    seasonal_t: (2F, N) seasonal features of the time column, or
+      (E/rep, 2F, N).
 
   Returns:
     List of (E, f_g, N) tensors, one per feature group.
@@ -375,7 +416,8 @@ def apply_field_t(
     x_t: torch.Tensor,
     seasonal_t: torch.Tensor,
 ) -> torch.Tensor:
-  """Features-major forward, plain PyTorch: (D, N) inputs -> (E, N)."""
+  """Features-major forward, plain PyTorch: (D, N) shared or (E/rep, D, N)
+  grouped inputs -> (E, N)."""
   weights, biases = dense_params(config, params)
   return mlp_t(
       config.depth,

@@ -37,7 +37,8 @@ def log_likelihood(
     params: flat parameter tuple, each leaf with a leading member axis E;
       only the three leading scalars are read.
     pred: (E, B) field predictions.
-    y: (B,) observed targets, shared by every member.
+    y: (B,) observed targets shared by every member, or (E/rep, B) grouped
+      (`field.grouped`).
     weights: optional (B,) per-observation weights.
 
   Returns:
@@ -51,8 +52,19 @@ def log_likelihood(
         f'The {distribution.value} log-likelihood is not ported to PyTorch '
         'yet (ROADMAP.md, queue 1 item 10).'
     )
-  scale = 0.01 + torch.exp(params[field_lib.IDX_LOG_NOISE_SCALE])
-  lp = special.normal_log_prob(y, pred, scale[:, None])
+  return normal_log_likelihood(
+      params[field_lib.IDX_LOG_NOISE_SCALE], pred, y, weights)
+
+
+def normal_log_likelihood(log_noise_scale, pred, y, weights=None):
+  """(E,) NORMAL log-likelihood sums, scale 0.01 + exp(log_noise_scale (E,)),
+  for `log_likelihood`'s pred, y and weights."""
+  e, b = pred.shape
+  y3 = field_lib.grouped(y, e, 1)[:, 0, None]  # (G, 1, B)
+  scale = 0.01 + torch.exp(log_noise_scale)
+  lp = special.normal_log_prob(
+      y3, pred.reshape(y3.shape[0], -1, b),
+      scale.reshape(y3.shape[0], -1, 1)).reshape(e, b)
   if weights is not None:
     lp = lp * weights
   return lp.sum(dim=-1)

@@ -1,6 +1,6 @@
-// Fused training objective (NORMAL likelihood, shared inputs) for Hopper
-// (sm_90a): encode from raw inputs, MLP forward, loss, full backward, with
-// the loss and every gradient summed over all rows.
+// Fused training objective (NORMAL likelihood) for Hopper (sm_90a): encode
+// from raw inputs, MLP forward, loss, full backward, with the loss and every
+// gradient summed over all rows.
 //
 // Replaces the Pallas TPU kernel `fused_train` (body `_train_kernel_raw`,
 // helpers `_encode_in_kernel`, `_encode_backward_in_kernel`,
@@ -52,6 +52,14 @@
 // order and there are no atomics, so results are bitwise reproducible.
 // Padded rows of the ragged last tile read x = 0 and carry a zero loss
 // cotangent, so they add exactly zero to every sum.
+//
+// Inputs. x, seasonal and y are each shared by every member (a group stride
+// of 0), or stored once per group of `rep` consecutive members: member e
+// reads group e / rep, as the TPU kernel's index maps do. rep = 1 is one row
+// set per member (minibatch MAP); rep = S serves a member's one minibatch to
+// all S of its Monte-Carlo draws (VI), with no S-fold copy of the batch.
+// Only these reads depend on it; the scratch and every later kernel work per
+// member already.
 // Making it fast (wgmma, TMA, keeping z_l on chip, bf16 operands) is later
 // work.
 
@@ -89,9 +97,15 @@ constexpr int kPartLogit = 2;
 constexpr int kPartDzz = 3;
 
 struct TrainArgs {
-  const float* x;                  // (D, N)
-  const float* seasonal;           // (S2, N)
-  const float* y;                  // (N,)
+  const float* x;                  // (D, N) or (E / x_rep, D, N)
+  const float* seasonal;           // (S2, N) or (E / seasonal_rep, S2, N)
+  const float* y;                  // (N,) or (E / y_rep, N)
+  size_t x_group_stride;           // floats between groups; 0 when shared
+  size_t seasonal_group_stride;
+  size_t y_group_stride;
+  int x_rep;                       // members per group
+  int seasonal_rep;
+  int y_rep;
   const float* w[kMaxLayers];      // (E, fan_in_l, fan_out_l)
   const float* b[kMaxLayers];      // (E, fan_out_l)
   const float* lsa_eff;            // (E, D): lsa + log(input_scales)
@@ -263,13 +277,21 @@ __device__ __forceinline__ void block_matmul(const float* __restrict__ a,
   }
 }
 
+// Member e's rows of an input stored per group of `rep` members.
+__device__ __forceinline__ const float* group_rows(const float* base,
+                                                   size_t group_stride,
+                                                   int rep, int e) {
+  return base + (size_t)(e / rep) * group_stride;
+}
+
 // The scaled inputs sx of one row (zero past the last row).
 __device__ __forceinline__ void scaled_inputs(const TrainArgs& args, int e,
                                               int row, bool valid,
                                               float (&sx)[kMaxInputs]) {
   const float* lsa = args.lsa_eff + (size_t)e * args.num_inputs;
+  const float* x = group_rows(args.x, args.x_group_stride, args.x_rep, e);
   for (int d = 0; d < args.num_inputs; ++d) {
-    const float xd = valid ? args.x[(size_t)d * args.n_rows + row] : 0.f;
+    const float xd = valid ? x[(size_t)d * args.n_rows + row] : 0.f;
     sx[d] = xd * expf(-lsa[d]);
   }
 }
@@ -337,9 +359,11 @@ __device__ __forceinline__ void encode_row(const TrainArgs& args, int e,
     k += 2 * deg;
   }
   if (args.num_seasonal > 0) {
+    const float* seasonal = group_rows(
+        args.seasonal, args.seasonal_group_stride, args.seasonal_rep, e);
     fs = softplus(fsr[g++]);
     for (int q = 0; q < args.num_seasonal; ++q) {
-      const float v = valid ? args.seasonal[(size_t)q * n + row] : 0.f;
+      const float v = valid ? seasonal[(size_t)q * n + row] : 0.f;
       h0[(k + q) * ldh] = (v * fs) * rs;
     }
     k += args.num_seasonal;
@@ -450,7 +474,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float pred = s_out * v_out;
         const float sigma = 0.01f + expf(args.obs_raw[(size_t)e * 3]);
         const float inv_sigma2 = 1.f / (sigma * sigma);
-        const float res = row < n ? pred - args.y[row] : 0.f;
+        const float* y =
+            group_rows(args.y, args.y_group_stride, args.y_rep, e);
+        const float res = row < n ? pred - y[row] : 0.f;
         const float gg = args.lik_scale * inv_sigma2 * res;
         const float dvo = gg * s_out;
         dv_out[tid] = dvo;
@@ -576,9 +602,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         k += 2 * deg;
       }
       if (args.num_seasonal > 0) {
+        const float* seasonal = group_rows(
+            args.seasonal, args.seasonal_group_stride, args.seasonal_rep, e);
         acc = 0.f;
         for (int q = 0; q < args.num_seasonal; ++q) {
-          const float v = valid ? args.seasonal[(size_t)q * n + row] : 0.f;
+          const float v = valid ? seasonal[(size_t)q * n + row] : 0.f;
           acc += dh0[(k + q) * LDH] * v;
         }
         dfs[g++] = acc;
@@ -826,7 +854,9 @@ size_t bnf_fused_train_scratch_bytes(int members, int num_features, int width,
 // are device pointers to contiguous float32 tensors, except the host arrays
 // `weights`, `biases`, `dweights`, `dbiases` (depth + 1 device pointers),
 // `rsqrts` (depth + 1 floats), `fourier_degrees` (num_inputs ints) and
-// `pairs` (2 * num_pairs ints). `scratch` holds
+// `pairs` (2 * num_pairs ints). `x`, `seasonal` and `y` hold one row set
+// per group of `*_rep` members, `*_group_stride` floats apart (stride 0 and
+// rep 1 for a set shared by every member). `scratch` holds
 // bnf_fused_train_scratch_bytes(...) bytes. Returns the first launch's
 // cudaError_t that is not cudaSuccess, or 0.
 int bnf_fused_train(const void* x, const void* seasonal, const void* y,
@@ -837,13 +867,18 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
                     void* const* dweights, void* const* dbiases, void* dscales,
                     void* dlogit, void* dobs, void* scratch,
                     const float* rsqrts, const int* fourier_degrees,
-                    const int* pairs, float lik_scale, int depth, int members,
+                    const int* pairs, size_t x_group_stride, int x_rep,
+                    size_t seasonal_group_stride, int seasonal_rep,
+                    size_t y_group_stride, int y_rep, float lik_scale,
+                    int depth, int members,
                     int num_inputs, int num_seasonal, int num_pairs, int width,
                     int n_rows, int tile_rows, int chunk_rows, void* stream) {
   if (depth < 0 || depth + 1 > kMaxLayers || members < 1 || members > 65535 ||
       n_rows < 1 || num_inputs < 1 || num_inputs > kMaxInputs ||
       num_pairs < 0 || num_pairs > kMaxPairs || num_seasonal < 0 ||
-      chunk_rows < tile_rows || chunk_rows % tile_rows != 0) {
+      chunk_rows < tile_rows || chunk_rows % tile_rows != 0 || x_rep < 1 ||
+      members % x_rep != 0 || seasonal_rep < 1 || members % seasonal_rep != 0 ||
+      y_rep < 1 || members % y_rep != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   TrainArgs args = {};
@@ -871,6 +906,12 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
   args.x = static_cast<const float*>(x);
   args.seasonal = static_cast<const float*>(seasonal);
   args.y = static_cast<const float*>(y);
+  args.x_group_stride = x_group_stride;
+  args.seasonal_group_stride = seasonal_group_stride;
+  args.y_group_stride = y_group_stride;
+  args.x_rep = x_rep;
+  args.seasonal_rep = seasonal_rep;
+  args.y_rep = y_rep;
   for (int l = 0; l <= depth; ++l) {
     args.w[l] = static_cast<const float*>(weights[l]);
     args.b[l] = static_cast<const float*>(biases[l]);

@@ -13,7 +13,9 @@ with s_l = softplus(layer_scales_raw[l]) and w = sigmoid(activation_logit).
 
 K1 computes, from the raw inputs, the encode, the same MLP, the NORMAL
 negative log-likelihood summed over rows, and its gradient with respect to
-every learned input (see `fused_train`).
+every learned input (see `fused_train`). Its data inputs are shared by every
+member, or stored once per group of `rep` consecutive members (rep = 1: one
+minibatch per member; rep = S: a VI member's minibatch feeds its S draws).
 
 `fused_field_mlp_t` and `fused_train` launch the hand-written CUDA kernels
 (`csrc/fused_mlp_fwd.cu`, which replaces the Pallas kernel
@@ -31,8 +33,8 @@ import math
 import torch
 
 from bayesnf_torch.models import field as field_lib
+from bayesnf_torch.models import likelihoods
 from bayesnf_torch.ops import _build
-from bayesnf_torch.ops import special
 
 _LIB_NAME = 'fused_mlp_fwd'
 _TRAIN_LIB_NAME = 'fused_train'
@@ -212,23 +214,18 @@ fused_field_mlp_t.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K1: the fused training objective (NORMAL, inputs shared by every member).
+# K1: the fused training objective (NORMAL; shared, per-member or grouped
+# inputs).
 # ---------------------------------------------------------------------------
 
 
-def _check_ported(distribution, x_t, seasonal_t, y, precision, n_valid):
+def _check_ported(distribution, precision, n_valid):
   """Raises ValueError for the K1 variants not ported yet (ROADMAP.md,
-  queue 2, K1 stages 2-5)."""
+  queue 2, K1 stages 2, 4 and 5)."""
   if distribution != 'NORMAL':
     raise ValueError(
         f'fused_train: the {distribution} likelihood is not ported yet '
         '(ROADMAP.md, queue 2, K1 stage 2).'
-    )
-  if x_t.ndim != 2 or seasonal_t.ndim != 2 or y.ndim != 1:
-    raise ValueError(
-        'fused_train: per-member or grouped inputs are not ported yet '
-        '(ROADMAP.md, queue 2, K1 stage 3); x_t, seasonal_t and y must be '
-        '(D, N), (2F, N) and (N,).'
     )
   if n_valid is not None:
     raise ValueError(
@@ -257,8 +254,9 @@ def fused_train_reference(
 ):
   """Plain PyTorch K1: autograd through `field.encode_raw_t`, `field.mlp_t`
   and the NORMAL log-likelihood. Same arguments and outputs as
-  :func:`fused_train`."""
-  _check_ported(distribution, x_t, seasonal_t, y, precision, n_valid)
+  :func:`fused_train`; grouped inputs are read per group through
+  `field.grouped` views, never copied per member."""
+  _check_ported(distribution, precision, n_valid)
   num_w = depth + 1
   leaves = [
       t.detach().requires_grad_(True)
@@ -271,9 +269,8 @@ def fused_train_reference(
         x_t, seasonal_t,
     )
     pred = field_lib.mlp_t(depth, groups, ws, bs, *leaves[-3:-1])
-    scale = 0.01 + torch.exp(leaves[-1][:, 0])
-    losses = -lik_scale * special.normal_log_prob(
-        y, pred, scale[:, None]).sum(dim=-1)
+    losses = -lik_scale * likelihoods.normal_log_likelihood(
+        leaves[-1][:, 0], pred, y)
     # At depth 0 the activation logit is unused: its gradient is zero.
     grads = torch.autograd.grad(
         losses.sum(), leaves, allow_unused=True, materialize_grads=True)
@@ -297,6 +294,8 @@ def _train_lib() -> ctypes.CDLL:
       ptr,  # scratch
       ctypes.POINTER(ctypes.c_float),  # rsqrts
       ctypes.POINTER(i32), ctypes.POINTER(i32),  # fourier degrees, pairs
+      # x, seasonal and y: group stride (floats) and members per group.
+      ctypes.c_size_t, i32, ctypes.c_size_t, i32, ctypes.c_size_t, i32,
       ctypes.c_float,  # lik_scale
       i32, i32, i32, i32, i32, i32,  # depth, members, inputs, seasonal, pairs, width
       i32, i32, i32,  # n_rows, tile_rows, chunk_rows
@@ -312,6 +311,37 @@ def _train_lib() -> ctypes.CDLL:
   return lib
 
 
+def input_groups(t, members, ndim, name):
+  """(members per group, floats between groups) of a K1 data input: (1, 0)
+  for a row set shared by every member, (E / G, one set's size) for G
+  stored sets.
+
+  Raises:
+    ValueError: on another rank, or a group count that does not divide the
+      member count (as the TPU kernel's index maps require).
+  """
+  if t.ndim == ndim:
+    return 1, 0
+  if t.ndim != ndim + 1:
+    raise ValueError(
+        f'fused_train: {name} must have {ndim} or {ndim + 1} dims, got '
+        f'shape {tuple(t.shape)}.'
+    )
+  g = t.shape[0]
+  if g < 1 or members % g:
+    raise ValueError(
+        f'fused_train: per-member {name} leading dim {g} must divide the '
+        f'member count {members}.'
+    )
+  return members // g, t[0].numel()
+
+
+def _input_layout(members, x_t, seasonal_t, y):
+  """`input_groups` of x_t, seasonal_t and y, in the kernel's order."""
+  return [input_groups(t, members, ndim, name) for t, ndim, name in (
+      (x_t, 2, 'x_t'), (seasonal_t, 2, 'seasonal_t'), (y, 1, 'y'))]
+
+
 def _check_train_inputs(
     depth, input_scales, fourier_degrees, interactions, x_t, seasonal_t,
     weights, biases, lsa, fs_raw, scales_raw, logit, obs_raw, y,
@@ -321,7 +351,7 @@ def _check_train_inputs(
   Returns:
     (width, encoded features F, feature groups G).
   """
-  d, n = x_t.shape
+  d, n = x_t.shape[-2:]
   e = weights[0].shape[0] if weights else 0
   if not 0 <= depth <= MAX_DEPTH:
     raise ValueError(f'depth must be in [0, {MAX_DEPTH}], got {depth}.')
@@ -347,7 +377,8 @@ def _check_train_inputs(
     )
   if n < 1:
     raise ValueError('fused_train needs at least one row.')
-  f, g = _feature_layout(fourier_degrees, interactions, d, seasonal_t.shape[0])
+  _input_layout(e, x_t, seasonal_t, y)
+  f, g = _feature_layout(fourier_degrees, interactions, d, seasonal_t.shape[-2])
   if 3 + depth + d + g > MAX_PARTIALS:
     raise ValueError(
         f'depth {depth}, {d} inputs and {g} feature groups exceed the '
@@ -357,8 +388,8 @@ def _check_train_inputs(
   fan_ins = [f] + [width] * depth
   fan_outs = [width] * depth + [1]
   expected = [
-      (seasonal_t, (seasonal_t.shape[0], n)),
-      (y, (n,)),
+      (seasonal_t, seasonal_t.shape[:-1] + (n,)),
+      (y, y.shape[:-1] + (n,)),
       *[(w, (e, fi, fo)) for w, fi, fo in zip(weights, fan_ins, fan_outs)],
       *[(b, (e, fo)) for b, fo in zip(biases, fan_outs)],
       (lsa, (e, d)),
@@ -409,9 +440,10 @@ def _launch_fused_train(
   on `stream`; `dims` is what `_check_train_inputs` returned for these
   inputs."""
   width, f, g = dims
-  d, n = x_t.shape
+  d, n = x_t.shape[-2:]
   e = weights[0].shape[0]
-  s2 = seasonal_t.shape[0]
+  s2 = seasonal_t.shape[-2]
+  layout = _input_layout(e, x_t, seasonal_t, y)
   dev = x_t.device
   tile_rows = pick_train_tile_rows(f, width, lib)
   scratch_bytes = functools.partial(
@@ -456,6 +488,7 @@ def _launch_fused_train(
       (ctypes.c_float * (depth + 1))(*[1.0 / math.sqrt(fi) for fi in fan_ins]),
       (ctypes.c_int * d)(*[int(k) for k in fourier_degrees]),
       (ctypes.c_int * max(1, len(pairs)))(*pairs),
+      *[v for rep, stride in layout for v in (stride, rep)],
       float(lik_scale), depth, e, d, s2, len(interactions), width, n,
       tile_rows, chunk_rows, stream,
   )
@@ -492,8 +525,11 @@ def fused_train(
     input_scales: (D,) static input scale divisors.
     fourier_degrees: (D,) static octave counts.
     interactions: static ((a, b), ...) input-dim pairs.
-    x_t: (D, N) raw inputs shared by every member.
-    seasonal_t: (2F, N) seasonal rows (2F may be 0).
+    x_t: (D, N) raw inputs shared by every member, (E, D, N) per member,
+      or (E/rep, D, N) for groups of rep consecutive members (member m reads
+      group m // rep; no copy per member is made).
+    seasonal_t: (2F, N) seasonal rows (2F may be 0), or (E, 2F, N) /
+      (E/rep, 2F, N) as for `x_t`.
     weights: depth + 1 tensors (E, fan_in, fan_out).
     biases: depth + 1 tensors (E, fan_out).
     lsa: (E, D) log scale adjustments.
@@ -501,7 +537,8 @@ def fused_train(
     scales_raw: (E, depth + 1) pre-softplus layer scales.
     logit: (E,) activation logits.
     obs_raw: (E, 3) (log_noise_scale, nb_shape_raw, zinb_logit).
-    y: (N,) targets shared by every member.
+    y: (N,) targets shared by every member, or (E, N) / (E/rep, N); its
+      grouping is checked apart from that of `x_t`.
     precision: 'f32' only.
     n_valid: None only (every row counts).
 
@@ -510,13 +547,14 @@ def fused_train(
     dobs_raw), each gradient shaped like its input; dobs_raw[:, 1:] is 0.
 
   Raises:
-    ValueError: for an unported variant (NB/ZINB, per-member inputs,
-      n_valid, 'bf16'), and on CUDA for shapes, dtypes, devices or layouts
-      the kernel does not take, or a width whose tile does not fit in
-      shared memory.
+    ValueError: for an unported variant (NB/ZINB, n_valid, 'bf16'), a data
+      input whose leading dim does not divide the member count, and on CUDA
+      for shapes, dtypes, devices or layouts the kernel does not take, or a
+      width whose tile does not fit in shared memory.
     RuntimeError: if the kernel fails to build or to launch.
   """
-  _check_ported(distribution, x_t, seasonal_t, y, precision, n_valid)
+  _check_ported(distribution, precision, n_valid)
+  _input_layout(weights[0].shape[0], x_t, seasonal_t, y)
   tensors = (x_t, seasonal_t, *weights, *biases, lsa, fs_raw, scales_raw,
              logit, obs_raw, y)
   if all(t.device.type == 'cpu' for t in tensors):

@@ -1,5 +1,5 @@
-"""Special functions of the NORMAL serving and training paths (counterpart
-of `bayesnf_tpu/ops/special.py`).
+"""Special functions of the NORMAL serving and training paths, MAP and VI
+(counterpart of `bayesnf_tpu/ops/special.py`).
 
 The count-model functions (incomplete beta, Stirling series) arrive with the
 NB/ZINB slice.
@@ -17,6 +17,14 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
   this form has no threshold, so both packages round alike everywhere.
   """
   return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def softplus_inverse(y: torch.Tensor) -> torch.Tensor:
+  """Inverse of softplus: x such that log(1 + e^x) = y.
+
+  Stable form: x = y + log(1 - e^(-y)) = y + log(-expm1(-y)).
+  """
+  return y + torch.log(-torch.expm1(-y))
 
 
 def log_softplus(x: torch.Tensor) -> torch.Tensor:

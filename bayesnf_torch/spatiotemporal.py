@@ -1,22 +1,23 @@
-"""Public estimator API: BayesianNeuralField{MAP,MLE} (counterpart of
+"""Public estimator API: BayesianNeuralField{MAP,MLE,VI} (counterpart of
 `bayesnf_tpu/spatiotemporal.py`).
 
 Same constructor keywords and the same `bayesnf-tpu-estimator-v1` `.npz`
 artifact as the JAX package, in both directions: an estimator fitted and
 saved there loads here with `load(path, device)` and predicts on that
-device; one fitted or saved here loads there.
+device; one fitted or saved here loads there. A VI artifact carries its
+surrogate too, so a loaded VI estimator can `resample_posterior`.
 
 What the port does, and what it does not yet:
 
-- `fit` for MAP and MLE with the NORMAL observation model: full-batch Adam
-  on one device, on the 'kernel' (CUDA) or 'torch' backend
-  (`inference/map.py`). Minibatches, NB/ZINB, checkpoints, streaming,
+- `fit` for MAP, MLE and VI with the NORMAL observation model, full batch
+  or minibatch, on one device, on the 'kernel' (CUDA) or 'torch' backend
+  (`inference/map.py`, `inference/vi.py`). NB/ZINB, checkpoints, streaming,
   precision other than 'f32' and a mesh raise NotImplementedError.
 - `predict` for the NORMAL observation model, on the 'kernel' or 'torch'
   backend (`inference/backends.py`). It returns tensors on the parameters'
   device.
-- `likelihood_model` raises NotImplementedError, and so does loading a VI,
-  NB or ZINB artifact (ROADMAP.md, queue 1).
+- `likelihood_model` raises NotImplementedError, and so does loading an NB
+  or ZINB artifact (ROADMAP.md, queue 1).
 - The port runs on one device: the artifact's `fit_mesh` is read and
   ignored.
 """
@@ -31,6 +32,7 @@ from bayesnf_torch.calendar import seasonalities_to_array
 from bayesnf_torch.data import SpatiotemporalDataHandler
 from bayesnf_torch.inference import map as map_lib
 from bayesnf_torch.inference import predict as predict_lib
+from bayesnf_torch.inference import vi as vi_lib
 from bayesnf_torch.models import field as field_lib
 
 ARTIFACT_FORMAT = 'bayesnf-tpu-estimator-v1'
@@ -39,11 +41,13 @@ ARTIFACT_FORMAT = 'bayesnf-tpu-estimator-v1'
 class BayesianNeuralFieldEstimator:
   """Base class for the estimators.
 
-  Do not instantiate directly; use :class:`BayesianNeuralFieldMAP` or
-  :class:`BayesianNeuralFieldMLE`, or :meth:`load` a saved artifact.
+  Do not instantiate directly; use :class:`BayesianNeuralFieldMAP`,
+  :class:`BayesianNeuralFieldMLE` or :class:`BayesianNeuralFieldVI`, or
+  :meth:`load` a saved artifact.
   """
 
   _ensemble_dims: int
+  _scale_epochs_by_batch_size = False
 
   def __init__(
       self,
@@ -94,6 +98,7 @@ class BayesianNeuralFieldEstimator:
 
     self.losses_ = None
     self.params_ = None
+    self.surrogate_ = None
     self.data_handler = SpatiotemporalDataHandler(
         self.feature_cols,
         self.target_col,
@@ -171,6 +176,28 @@ class BayesianNeuralFieldEstimator:
         seasonality_periods=self._get_seasonality_periods(),
         num_seasonal_harmonics=self._get_num_seasonal_harmonics(),
     )
+
+  def _fit_inputs(self, table, batch_size, num_epochs, device):
+    """(config, aug features on `device`, target, batch_size, num_epochs)
+    of a fit: the batch is clamped to the table, and VI counts its epochs
+    in steps (times N // batch_size), as the JAX package does."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+      raise RuntimeError(
+          f"Cannot fit on {device}: CUDA is not available (pass device='cpu' "
+          'to fit on the CPU).'
+      )
+    train_data = self.data_handler.get_train(table)
+    train_target = self.data_handler.get_target(table)
+    n = train_data.shape[0]
+    batch_size = n if batch_size is None else min(batch_size, n)
+    if self._scale_epochs_by_batch_size:
+      num_epochs = num_epochs * (n // batch_size)
+    config = self._field_config((batch_size, train_data.shape[-1]))
+    aug = field_lib.aug_features(
+        config, torch.as_tensor(train_data, dtype=torch.float32,
+                                device=device))
+    return config, aug, train_target, batch_size, num_epochs
 
   def _require_fitted(self, action: str) -> None:
     if self.params_ is None:
@@ -273,6 +300,14 @@ class BayesianNeuralFieldEstimator:
     }
     if self.losses_ is not None:
       arrays['losses'] = np.asarray(self.losses_)
+    if self.surrogate_ is not None:
+      # VI: the fitted surrogate, so that a loaded estimator can draw a
+      # fresh posterior ensemble (`resample_posterior`).
+      locs, raw_scales = self.surrogate_
+      spec['num_surrogate_leaves'] = len(locs)
+      for i, (loc, rs) in enumerate(zip(locs, raw_scales)):
+        arrays[f'surrogate_loc_{i}'] = loc.detach().cpu().numpy()
+        arrays[f'surrogate_raw_scale_{i}'] = rs.detach().cpu().numpy()
     # Write through a file object: np.savez(path) would append '.npz'.
     with open(path, 'wb') as f:
       np.savez(f, spec=np.asarray(json.dumps(spec)), **arrays)
@@ -288,7 +323,7 @@ class BayesianNeuralFieldEstimator:
       RuntimeError: if `device` is CUDA and CUDA is not available.
       ValueError: if `path` is not an estimator artifact, holds another
         class than `cls`, or holds parameters of the wrong shapes.
-      NotImplementedError: for a VI, NB or ZINB artifact.
+      NotImplementedError: for an NB or ZINB artifact.
     """
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
@@ -301,11 +336,6 @@ class BayesianNeuralFieldEstimator:
       if spec.get('format') != ARTIFACT_FORMAT:
         raise ValueError(f'Not a bayesnf-tpu estimator artifact: {path}')
       kwargs = spec['kwargs']
-      if spec['class'] == 'BayesianNeuralFieldVI':
-        raise NotImplementedError(
-            'VI estimators are not ported to PyTorch yet (ROADMAP.md, queue '
-            '1 item 11).'
-        )
       if kwargs.get('observation_model', 'NORMAL') != 'NORMAL':
         raise NotImplementedError(
             f'The {kwargs["observation_model"]} observation model is not '
@@ -313,7 +343,8 @@ class BayesianNeuralFieldEstimator:
         )
       classes = {
           c.__name__: c
-          for c in (BayesianNeuralFieldMAP, BayesianNeuralFieldMLE)
+          for c in (BayesianNeuralFieldMAP, BayesianNeuralFieldMLE,
+                    BayesianNeuralFieldVI)
       }
       if spec['class'] not in classes:
         raise ValueError(f'Unknown estimator class {spec["class"]!r}.')
@@ -338,6 +369,13 @@ class BayesianNeuralFieldEstimator:
           device,
       )
       model.losses_ = data['losses'] if 'losses' in data else None
+      num_surrogate = spec.get('num_surrogate_leaves')
+      if num_surrogate:
+        model.surrogate_ = tuple(
+            field_lib.params_from_numpy(
+                config, [data[f'surrogate_{kind}_{i}']
+                         for i in range(num_surrogate)], 1, device)
+            for kind in ('loc', 'raw_scale'))
     return model
 
 
@@ -360,16 +398,18 @@ class BayesianNeuralFieldMAP(BayesianNeuralFieldEstimator):
       device='cuda',
       **unported,
   ) -> 'BayesianNeuralFieldMAP':
-    """Run stochastic ensemble MAP (or MLE) inference, full batch.
+    """Run stochastic ensemble MAP (or MLE) inference.
 
     Args:
       table: training DataFrame (feature and target columns).
-      seed: int seed of the initialization (split i of several uses
-        `map.split_seed(seed, i, num_splits)`).
+      seed: int seed of the initialization and of the minibatch
+        permutations (split i of several uses `map.split_seed(seed, i,
+        num_splits)`).
       ensemble_size: number of members.
       learning_rate: Adam learning rate.
-      num_epochs: full-batch steps.
-      batch_size: None or at least len(table) (full batch).
+      num_epochs: full passes over the table.
+      batch_size: rows per step; None is the full batch. Each epoch takes
+        `len(table) // batch_size` steps (the ragged tail is dropped).
       num_splits: sequential ensemble splits.
       backend: 'auto' (the CUDA kernel K1 on a CUDA device, plain PyTorch
         on the CPU) | 'torch' | 'kernel'.
@@ -383,24 +423,12 @@ class BayesianNeuralFieldMAP(BayesianNeuralFieldEstimator):
       `losses_` (1, ensemble_size, num_epochs) as numpy.
 
     Raises:
-      NotImplementedError: for minibatches (batch_size < len(table)), the
-        NB and ZINB models, and the unported arguments above.
+      NotImplementedError: for the NB and ZINB models, and the unported
+        arguments above.
       RuntimeError: if `device` is CUDA and CUDA is not available.
     """
-    device = torch.device(device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-      raise RuntimeError(
-          f"Cannot fit on {device}: CUDA is not available (pass device='cpu' "
-          'to fit on the CPU).'
-      )
-    train_data = self.data_handler.get_train(table)
-    train_target = self.data_handler.get_target(table)
-    n = train_data.shape[0]
-    batch_size = n if batch_size is None else min(batch_size, n)
-    config = self._field_config((batch_size, train_data.shape[-1]))
-    aug = field_lib.aug_features(
-        config, torch.as_tensor(train_data, dtype=torch.float32,
-                                device=device))
+    config, aug, train_target, batch_size, num_epochs = self._fit_inputs(
+        table, batch_size, num_epochs, device)
     params, losses = map_lib.fit_map(
         aug, train_target, seed=seed,
         observation_model=self.observation_model, config=config,
@@ -420,3 +448,102 @@ class BayesianNeuralFieldMLE(BayesianNeuralFieldMAP):
   """Stochastic ensembles of maximum likelihood estimates."""
 
   _prior_weight = 0.0
+
+
+def _posterior_params(draws, ensemble_size, num_samples):
+  """Draws (M, S, ...) in the public (1, S, M, ...) layout: the JAX
+  package's reshape to (groups, M, S) then swap of axes 1 and 2."""
+  return tuple(
+      p.reshape((1, ensemble_size, num_samples) + tuple(p.shape[2:]))
+      .transpose(1, 2).contiguous() for p in draws)
+
+
+class BayesianNeuralFieldVI(BayesianNeuralFieldEstimator):
+  """Ensembles of mean-field surrogate posteriors via VI."""
+
+  _ensemble_dims = 3
+  _scale_epochs_by_batch_size = True
+
+  def fit(
+      self,
+      table,
+      seed: int,
+      ensemble_size=16,
+      learning_rate=0.01,
+      num_epochs=1_000,
+      sample_size_posterior=30,
+      sample_size_divergence=5,
+      kl_weight=0.1,
+      batch_size=None,
+      backend='auto',
+      device='cuda',
+      **unported,
+  ) -> 'BayesianNeuralFieldVI':
+    """Run stochastic ensemble variational inference.
+
+    Args:
+      table: training DataFrame (feature and target columns).
+      seed: int seed of the surrogate init (drawn as MAP's members are) and
+        of the per-step draws and batches.
+      ensemble_size: number of surrogate posteriors.
+      learning_rate: Adam learning rate.
+      num_epochs: epochs; the fit takes num_epochs * (len(table) //
+        batch_size) steps, each on a freshly drawn batch per member.
+      sample_size_posterior: parameter draws per surrogate for `params_`.
+      sample_size_divergence: Monte-Carlo draws per ELBO estimate.
+      kl_weight: weight of KL(q || prior) in the ELBO.
+      batch_size: rows per step; None is the full batch.
+      backend: 'auto' (the CUDA kernel K1 on a CUDA device, plain PyTorch
+        on the CPU) | 'torch' | 'kernel'.
+      device: where the fit runs and `params_` live.
+      **unported: as for :meth:`BayesianNeuralFieldMAP.fit`.
+
+    Returns:
+      self, with `surrogate_` (locs, raw_scales) of leaves (ensemble_size,
+      ...), `params_` of leaves (1, sample_size_posterior, ensemble_size,
+      ...) on `device` and `losses_` (1, ensemble_size, steps) as numpy.
+
+    Raises:
+      NotImplementedError: for the NB and ZINB models, and the unported
+        arguments.
+      RuntimeError: if `device` is CUDA and CUDA is not available.
+    """
+    config, aug, train_target, batch_size, num_epochs = self._fit_inputs(
+        table, batch_size, num_epochs, device)
+    surrogate, losses, draws = vi_lib.fit_vi(
+        aug, train_target, seed=seed,
+        observation_model=self.observation_model, config=config,
+        ensemble_size=ensemble_size, learning_rate=learning_rate,
+        num_epochs=num_epochs, sample_size_divergence=sample_size_divergence,
+        sample_size_posterior=sample_size_posterior, kl_weight=kl_weight,
+        batch_size=batch_size, backend=backend, device=device, **unported,
+    )
+    self.surrogate_ = surrogate
+    self.params_ = _posterior_params(draws, ensemble_size,
+                                     int(sample_size_posterior))
+    self.losses_ = losses.reshape((1, ensemble_size) + losses.shape[1:])
+    return self
+
+  def resample_posterior(self, seed: int, sample_size_posterior: int = 30):
+    """Rebind `params_` to fresh draws from the fitted surrogate.
+
+    Works on a loaded estimator too (`save` keeps the surrogate). The
+    draws come from a generator on the surrogate's device seeded with
+    `seed`; `params_` keeps its (1, S, M, ...) layout.
+
+    Raises:
+      ValueError: if there is no fitted surrogate.
+    """
+    if self.surrogate_ is None:
+      raise ValueError(
+          'No fitted surrogate: call fit first (or load an artifact saved '
+          'from a fitted VI estimator).'
+      )
+    locs = self.surrogate_[0]
+    generator = torch.Generator(device=locs[0].device).manual_seed(int(seed))
+    config = self._field_config((1, len(self.feature_cols)))
+    draws = vi_lib.posterior_draws(
+        config, self.surrogate_, int(sample_size_posterior), generator)
+    self.params_ = _posterior_params(draws, int(locs[0].shape[0]),
+                                     int(sample_size_posterior))
+    return self

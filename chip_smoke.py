@@ -19,7 +19,10 @@ CUDA toolkit (nvcc). It imports nothing of JAX. Phases, one line each:
    loss and every gradient, at the training path's shapes (64 members,
    inputs (3, N), 16 seasonal rows, F = 49, width 512, depth 2, N = 8192)
    and at a ragged N with width 256, depths 1 and 3, and width 1024 (16-row
-   tiles); time both with CUDA events.
+   tiles); then with grouped inputs at the VI path's shape (80 kernel
+   members = 16 groups of 5, each group its own 3,500 rows) and per-member
+   inputs (64 members, a ragged 3,497 rows, width 256); time both with CUDA
+   events.
 4. Golden check: the committed artifact fitted by the JAX package, loaded
    onto the card, must predict what the JAX package predicted (the
    tolerances of `tests/test_torch_predict.py`).
@@ -31,8 +34,17 @@ CUDA toolkit (nvcc). It imports nothing of JAX. Phases, one line each:
    table, 64 members, full batch, lr 0.005, a few epochs on 'kernel' (one K1
    call per epoch) and the same epochs from the same seed on 'torch'; the
    loss trajectories must agree. Member-steps/s of both backends; then the
-   fitted estimator predicts through K2.
-7. A JSON line of the kernels, then the last line,
+   fitted estimator predicts through K2. Then one minibatch epoch
+   (batch_size 3,500: 10 steps, each one K1 call with per-member inputs) on
+   both backends, whose losses must agree.
+7. The VI path at full width: `BayesianNeuralFieldVI.fit` on the same table
+   with the published `air_quality` VI stanza (16 members, batch_size 3,500,
+   5 draws per ELBO, kl_weight 0.2, lr 0.01; one epoch is 10 steps, each one
+   K1 call over 80 kernel members with grouped inputs) on 'kernel' and from
+   the same seed on 'torch'; the losses must agree. Member-steps/s of both;
+   a 480-member predict (30 posterior draws) through K2 against the 'torch'
+   predict; save, load and `resample_posterior`.
+8. A JSON line of the kernels, then the last line,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Any failed check raises, and the script exits non-zero with no result.
@@ -54,6 +66,7 @@ import torch
 
 import bayesnf_torch
 from bayesnf_torch.inference import map as map_lib
+from bayesnf_torch.inference import vi as vi_lib
 from bayesnf_torch.models import field as field_lib
 from bayesnf_torch.models import likelihoods
 from bayesnf_torch.ops import _build
@@ -95,6 +108,14 @@ TRAIN_ROWS = 8192
 FIT_EPOCHS = 4
 FIT_LOSS_RTOL = 1e-4
 TIMED_STEPS = 3
+# Minibatch training and VI: the published `air_quality` VI stanza
+# (bayesnf_tpu/cli/registry.py:50-51); 38,096 // 3,500 = 10 steps an epoch.
+BATCH = 3_500
+VI_MEMBERS = 16
+VI_SAMPLES = 5
+VI_KL_WEIGHT = 0.2
+VI_LR = 0.01
+VI_POSTERIOR = 30
 
 
 def phase(name, **fields):
@@ -173,9 +194,11 @@ def check_kernel(seed):
 
 
 def train_kernel_inputs(members, n, width, depth, seed, degrees=(5, 5, 5),
-                        seasonal_rows=16):
+                        seasonal_rows=16, groups=None):
   """Random K1 arguments on the card, scaled like an initialized model: the
-  time row spans its input scale, as the data handler leaves it."""
+  time row spans its input scale, as the data handler leaves it. With
+  `groups`, x, seasonal rows and y are (groups, ., n), each group rows of
+  its own (a minibatch drawn from N_ROWS hours)."""
   rng = np.random.default_rng(seed)
   d = len(degrees)
   f = d + 2 * sum(degrees) + seasonal_rows
@@ -186,13 +209,24 @@ def train_kernel_inputs(members, n, width, depth, seed, degrees=(5, 5, 5),
   def cuda(a):
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).cuda()
 
+  if groups is None:
+    scale = float(n)
+    x = np.stack([np.arange(n), rng.normal(size=n), rng.normal(size=n)])
+    seasonal = rng.uniform(-1, 1, (seasonal_rows, n))
+    y = rng.normal(scale=5.0, size=n)
+  else:
+    scale = float(N_ROWS)
+    x = np.stack([np.stack([rng.choice(N_ROWS, n, replace=False),
+                            rng.normal(size=n), rng.normal(size=n)])
+                  for _ in range(groups)])
+    seasonal = rng.uniform(-1, 1, (groups, seasonal_rows, n))
+    y = rng.normal(scale=5.0, size=(groups, n))
   return dict(
       distribution='NORMAL', depth=depth, lik_scale=1.0,
-      input_scales=(float(n), 1.0, 1.0), fourier_degrees=degrees,
+      input_scales=(scale, 1.0, 1.0), fourier_degrees=degrees,
       interactions=(),
-      x_t=cuda(np.stack([np.arange(n), rng.normal(size=n),
-                         rng.normal(size=n)])),
-      seasonal_t=cuda(rng.uniform(-1, 1, (seasonal_rows, n))),
+      x_t=cuda(x),
+      seasonal_t=cuda(seasonal),
       weights=[cuda(np.clip(rng.normal(size=(members, fi, fo)), -2, 2))
                for fi, fo in zip(fan_ins, fan_outs)],
       biases=[cuda(rng.normal(scale=0.1, size=(members, fo)))
@@ -204,7 +238,7 @@ def train_kernel_inputs(members, n, width, depth, seed, degrees=(5, 5, 5),
       obs_raw=cuda(np.stack([1.0 + rng.normal(scale=0.1, size=members),
                              rng.normal(size=members),
                              rng.normal(size=members)], axis=-1)),
-      y=cuda(rng.normal(scale=5.0, size=n)),
+      y=cuda(y),
   )
 
 
@@ -218,17 +252,21 @@ def train_outputs(outs, depth):
 
 
 def check_train_kernel(seed):
-  """Phase 3t; returns (max abs error, kernel ms, plain ms) at the main shape."""
+  """Phase 3t; returns {case: (max abs error, kernel ms, plain ms)} of the
+  main and grouped cases."""
+  # (name, kernel members, rows, width, depth, input groups)
   cases = [
-      ('main', TRAIN_ROWS, 512, 2),
-      ('ragged-width256', TRAIN_ROWS - 3, 256, 2),
-      ('depth1', 1000, 512, 1),
-      ('depth3', 1001, 512, 3),
-      ('width1024', 2048, 1024, 2),
+      ('main', MEMBERS, TRAIN_ROWS, 512, 2, None),
+      ('ragged-width256', MEMBERS, TRAIN_ROWS - 3, 256, 2, None),
+      ('depth1', MEMBERS, 1000, 512, 1, None),
+      ('depth3', MEMBERS, 1001, 512, 3, None),
+      ('width1024', MEMBERS, 2048, 1024, 2, None),
+      ('grouped', VI_MEMBERS * VI_SAMPLES, BATCH, 512, 2, VI_MEMBERS),
+      ('per-member', MEMBERS, BATCH - 3, 256, 2, MEMBERS),
   ]
-  result = None
-  for name, n, width, depth in cases:
-    args = train_kernel_inputs(MEMBERS, n, width, depth, seed)
+  result = {}
+  for name, members, n, width, depth, groups in cases:
+    args = train_kernel_inputs(members, n, width, depth, seed, groups=groups)
     before = fused_mlp.fused_train.launches
     got = fused_mlp.fused_train(**args)
     torch.cuda.synchronize()
@@ -253,14 +291,16 @@ def check_train_kernel(seed):
     plain_ms = cuda_ms(lambda: fused_mlp.fused_train_reference(**args),
                        reps=3)
     worst = max(leaf_rel, key=leaf_rel.get)
-    phase('3t K1-vs-plain', case=name, members=MEMBERS, rows=n, width=width,
-          depth=depth, tile_rows=fused_mlp.pick_train_tile_rows(49, width),
+    phase('3t K1-vs-plain', case=name, members=members, rows=n, width=width,
+          depth=depth, input_groups=groups or 'shared',
+          rep=members // groups if groups else members,
+          tile_rows=fused_mlp.pick_train_tile_rows(49, width),
           max_abs_err=f'{max_abs:.3e}',
           worst_leaf=f'{worst}:{leaf_rel[worst]:.3e}',
           loss_rel_err=f'{leaf_rel["losses"]:.3e}',
           kernel_ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}')
-    if name == 'main':
-      result = (max_abs, ms, plain_ms)
+    if name in ('main', 'grouped'):
+      result[name] = (max_abs, ms, plain_ms)
   return result
 
 
@@ -413,8 +453,37 @@ def member_steps_per_s(est, table, backend):
   return MEMBERS * TIMED_STEPS / (time.perf_counter() - start)
 
 
+def check_minibatch_fit(table, seed):
+  """Phase 6's minibatch epoch on both backends; returns its K1 launches."""
+  steps = len(table) // BATCH
+  fits = {}
+  for backend in ('kernel', 'torch'):
+    torch.cuda.synchronize()
+    fused_mlp.fused_train.launches = 0
+    start = time.perf_counter()
+    fits[backend] = bench_estimator().fit(
+        table, seed, ensemble_size=MEMBERS, learning_rate=0.005,
+        num_epochs=1, batch_size=BATCH, backend=backend, device='cuda')
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = fused_mlp.fused_train.launches
+    assert launches == (steps if backend == 'kernel' else 0), (
+        backend, launches)
+    fits[backend] = (fits[backend].losses_, launches, seconds)
+  (losses, launches, kernel_s), (plain, _, torch_s) = fits.values()
+  assert losses.shape == (1, MEMBERS, 1) and np.isfinite(losses).all()
+  np.testing.assert_allclose(losses, plain, rtol=FIT_LOSS_RTOL)
+  phase('6 minibatch-fit', rows=len(table), members=MEMBERS,
+        batch_size=BATCH, steps=steps, k1_launches=launches,
+        fit_s_kernel=f'{kernel_s:.2f}', fit_s_torch=f'{torch_s:.2f}',
+        mean_loss_kernel=f'{losses.mean():.6g}',
+        mean_loss_torch=f'{plain.mean():.6g}',
+        loss_rel_diff_max=f'{(np.abs(losses - plain) / np.abs(plain)).max():.3e}')
+  return launches
+
+
 def check_training_path(seed):
-  """Phase 6; returns the K1 launches counted while it drove the fit."""
+  """Phase 6; returns the K1 launches counted while it drove the fits."""
   table = bench_table(seed)
   torch.cuda.synchronize()
   fused_mlp.fused_train.launches = 0
@@ -454,7 +523,124 @@ def check_training_path(seed):
             f'{v:.6g}' for v in plain.losses_.mean(axis=(0, 1))),
         loss_rel_diff_max=f'{loss_rel.max():.3e}',
         k2_launches=chunks)
-  return launches
+  return launches + check_minibatch_fit(table, seed)
+
+
+def vi_fit(table, seed, backend):
+  start = time.perf_counter()
+  est = bench_estimator(bayesnf_torch.BayesianNeuralFieldVI).fit(
+      table, seed, ensemble_size=VI_MEMBERS, learning_rate=VI_LR,
+      num_epochs=1, sample_size_posterior=VI_POSTERIOR,
+      sample_size_divergence=VI_SAMPLES, kl_weight=VI_KL_WEIGHT,
+      batch_size=BATCH, backend=backend, device='cuda')
+  torch.cuda.synchronize()
+  return est, time.perf_counter() - start
+
+
+def vi_member_steps_per_s(est, table, backend):
+  """Steady-state VI rate: TIMED_STEPS minibatch steps of the 16
+  surrogates from the fitted ones, host clock around a synchronized run."""
+  train = est.data_handler.get_train(table)
+  config = est._field_config(train.shape)  # pylint: disable=protected-access
+  aug_t = field_lib.aug_features(
+      config, torch.as_tensor(train, dtype=torch.float32, device='cuda')
+  ).T.contiguous()
+  y = torch.tensor(est.data_handler.get_target(table), dtype=torch.float32,
+                   device='cuda')
+  surrogate = est.surrogate_
+  state = map_lib.init_opt_state((*surrogate[0], *surrogate[1]))
+  generator = torch.Generator(device='cuda').manual_seed(1)
+  torch.cuda.synchronize()
+  start = time.perf_counter()
+  vi_lib.train(surrogate, state, aug_t, y, config,
+               likelihoods.LikelihoodDist.NORMAL, VI_LR, TIMED_STEPS, BATCH,
+               VI_SAMPLES, VI_KL_WEIGHT, generator, backend)
+  torch.cuda.synchronize()
+  return VI_MEMBERS * TIMED_STEPS / (time.perf_counter() - start)
+
+
+def check_vi_path(seed):
+  """Phase 7; returns the K1 and K2 launches counted while it drove the VI
+  fit and its predict."""
+  table = bench_table(seed)
+  steps = len(table) // BATCH
+  torch.cuda.synchronize()
+  fused_mlp.fused_train.launches = 0
+  est, kernel_s = vi_fit(table, seed, 'kernel')
+  k1_launches = fused_mlp.fused_train.launches
+  assert k1_launches == steps, (k1_launches, steps)
+  plain, torch_s = vi_fit(table, seed, 'torch')
+  assert fused_mlp.fused_train.launches == k1_launches
+  assert est.losses_.shape == (1, VI_MEMBERS, steps), est.losses_.shape
+  assert np.isfinite(est.losses_).all() and np.isfinite(plain.losses_).all()
+  # Same seed: the same init, noise and batches on both backends; the losses
+  # differ by the rounding of the two NLL gradients, carried through Adam.
+  np.testing.assert_allclose(est.losses_, plain.losses_, rtol=FIT_LOSS_RTOL)
+  loss_rel = np.abs(est.losses_ - plain.losses_) / np.abs(plain.losses_)
+  rates = [vi_member_steps_per_s(est, table, b)
+           for b in ('kernel', 'torch', 'kernel', 'torch')]
+
+  members = VI_POSTERIOR * VI_MEMBERS
+  assert tuple(est.params_[0].shape) == (1, VI_POSTERIOR, VI_MEMBERS)
+  chunks = -(-len(table) // CHUNK)
+  torch.cuda.synchronize()
+  fused_mlp.fused_field_mlp_t.launches = 0
+  start = time.perf_counter()
+  means, quantiles = est.predict(table, quantiles=QUANTILES)
+  torch.cuda.synchronize()
+  predict_ms = (time.perf_counter() - start) * 1e3
+  k2_launches = fused_mlp.fused_field_mlp_t.launches
+  assert k2_launches == chunks, (k2_launches, chunks)
+  assert tuple(means.shape) == (1, VI_POSTERIOR, VI_MEMBERS, len(table))
+  assert bool(torch.isfinite(means).all())
+  assert all(bool(torch.isfinite(q).all()) for q in quantiles)
+  start = time.perf_counter()
+  t_means, t_quantiles = est.predict(table, quantiles=QUANTILES,
+                                     backend='torch')
+  torch.cuda.synchronize()
+  torch_predict_ms = (time.perf_counter() - start) * 1e3
+  assert fused_mlp.fused_field_mlp_t.launches == k2_launches
+  torch.testing.assert_close(means, t_means, **KERNEL_TOL)
+  scales = 0.01 + torch.exp(est.params_[0])
+  residuals = []
+  for q, got, want in zip(QUANTILES, quantiles, t_quantiles):
+    z = (got.double() - t_means.double()) / scales.double()[..., None]
+    residuals.append(
+        (torch.special.ndtr(z).mean(dim=(0, 1, 2)) - q).abs().max().item())
+    assert residuals[-1] <= 2e-5, (q, residuals[-1])
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-3 * scales.max().item())
+
+  with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, 'vi.npz')
+    est.save(path)
+    back = bayesnf_torch.BayesianNeuralFieldEstimator.load(path,
+                                                           device='cuda')
+  assert type(back) is bayesnf_torch.BayesianNeuralFieldVI
+  for a, b in zip((*back.surrogate_[0], *back.surrogate_[1], *back.params_),
+                  (*est.surrogate_[0], *est.surrogate_[1], *est.params_)):
+    assert torch.equal(a, b)
+  before = [p.clone() for p in back.params_]
+  back.resample_posterior(seed + 1, VI_POSTERIOR)
+  assert all(a.shape == b.shape for a, b in zip(back.params_, before))
+  assert not torch.equal(back.params_[7], before[7])
+  phase('7 vi-path', rows=len(table), members=VI_MEMBERS,
+        batch_size=BATCH, draws_per_elbo=VI_SAMPLES,
+        kernel_members=VI_MEMBERS * VI_SAMPLES, kl_weight=VI_KL_WEIGHT,
+        steps=steps, k1_launches=k1_launches,
+        fit_s_kernel=f'{kernel_s:.2f}', fit_s_torch=f'{torch_s:.2f}',
+        member_steps_per_s_kernel='/'.join(f'{r:.2f}' for r in rates[::2]),
+        member_steps_per_s_torch='/'.join(f'{r:.2f}' for r in rates[1::2]),
+        mean_loss_kernel='/'.join(
+            f'{v:.6g}' for v in est.losses_.mean(axis=(0, 1))[[0, -1]]),
+        loss_rel_diff_max=f'{loss_rel.max():.3e}',
+        predict_members=members, k2_launches=k2_launches,
+        predict_ms_kernel=f'{predict_ms:.2f}',
+        predict_ms_torch=f'{torch_predict_ms:.2f}',
+        means_max_abs_diff=f'{(means - t_means).abs().max().item():.3e}',
+        quantile_cdf_residual_max=f'{max(residuals):.3e}',
+        roundtrip='bit-exact', resampled=True)
+  return k1_launches, k2_launches
 
 
 def main(argv=None):
@@ -486,17 +672,18 @@ def main(argv=None):
           seconds=f'{seconds:.2f}', arch='sm_90a', ptxas=' | '.join(ptxas))
 
   max_err, ms, plain_ms = check_kernel(args.seed)
-  train_err, train_ms, train_plain_ms = check_train_kernel(args.seed)
+  train_cases = check_train_kernel(args.seed)
   check_golden()
   launches = check_main_path(args.seed)
   train_launches = check_training_path(args.seed)
+  vi_k1_launches, vi_k2_launches = check_vi_path(args.seed)
 
   print(json.dumps({'kernels': [{
       'name': 'fused_field_mlp_t',
       'route': 'cuda',
       'source': 'bayesnf_torch/ops/csrc/fused_mlp_fwd.cu',
       'replaces': 'bayesnf_tpu/ops/fused_mlp.py:488',
-      'launches': launches,
+      'launches': launches + vi_k2_launches,
       'max_abs_err': max_err,
       'ms': ms,
       'plain_ms': plain_ms,
@@ -505,10 +692,12 @@ def main(argv=None):
       'route': 'cuda',
       'source': 'bayesnf_torch/ops/csrc/fused_train.cu',
       'replaces': 'bayesnf_tpu/ops/fused_mlp.py:1412',
-      'launches': train_launches,
-      'max_abs_err': train_err,
-      'ms': train_ms,
-      'plain_ms': train_plain_ms,
+      'launches': train_launches + vi_k1_launches,
+      'max_abs_err': max(train_cases['main'][0], train_cases['grouped'][0]),
+      'ms': train_cases['main'][1],
+      'plain_ms': train_cases['main'][2],
+      'grouped_ms': train_cases['grouped'][1],
+      'grouped_plain_ms': train_cases['grouped'][2],
   }]}), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}),

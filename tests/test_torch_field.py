@@ -198,3 +198,49 @@ def test_blended_act_and_its_gradient_match_jax():
   np.testing.assert_allclose(dz.numpy(), np.asarray(want_dz), **TOL)
   np.testing.assert_allclose(dw.numpy(), np.asarray(want_dw), **TOL)
   assert dw.shape == tw.shape
+
+
+def _grouped_aug_t(config, groups, n, seed):
+  """(G, D + 2F, N) inputs with seasonal rows: each group rows of its own."""
+  return np.stack([
+      np.asarray(j_field.aug_features(
+          config, jnp.asarray(_inputs(config, n, seed + i)))).T
+      for i in range(groups)])
+
+
+@pytest.mark.parametrize('groups', [4, 2], ids=['per-member', 'grouped-rep2'])
+@pytest.mark.parametrize('name', sorted(CONFIGS))
+def test_grouped_encode_and_forward_match_vmap(name, groups):
+  # Member m reads group m // rep: the JAX functions vmapped over members,
+  # each given its own group's rows.
+  j_cfg, t_cfg = _configs(name)
+  members = 4
+  arrays = _numpy_params(j_cfg, members=members, seed=8)
+  aug_t = _grouped_aug_t(j_cfg, groups, 29, seed=9)
+  member_aug = jnp.asarray(aug_t[np.arange(members) // (members // groups)])
+  d = j_cfg.num_inputs
+  j_params = tuple(jnp.asarray(a) for a in arrays)
+  want_groups = jax.vmap(lambda p, a: tuple(j_field.encode_t_groups(
+      j_cfg, p, a[:d], a[d:])))(j_params, member_aug)
+  want = jax.vmap(lambda p, a: j_field.apply_field_t(
+      j_cfg, p, a[:d], a[d:]))(j_params, member_aug)
+  t_params = t_field.params_from_numpy(t_cfg, arrays, 1, 'cpu')
+  x_t = torch.from_numpy(aug_t[:, :d].copy())
+  seasonal_t = torch.from_numpy(aug_t[:, d:].copy())
+  got_groups = t_field.encode_t_groups(t_cfg, t_params, x_t, seasonal_t)
+  assert len(got_groups) == len(want_groups)
+  for g, w in zip(got_groups, want_groups):
+    np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+  got = t_field.apply_field_t(t_cfg, t_params, x_t, seasonal_t)
+  assert got.shape == (members, 29)
+  np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_grouped_rejects_a_group_count_that_does_not_divide():
+  x = torch.zeros((3, 2, 5))
+  assert t_field.grouped(x, 6, 2).shape == (3, 1, 2, 5)
+  assert t_field.grouped(x[0], 6, 2).shape == (1, 1, 2, 5)
+  with pytest.raises(ValueError, match='divides the member count'):
+    t_field.grouped(x, 4, 2)
+  with pytest.raises(ValueError, match='divides the member count'):
+    t_field.grouped(x[None], 6, 2)

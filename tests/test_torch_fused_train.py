@@ -6,8 +6,10 @@ interpret mode, 32-row tiles, so n = 70 leaves a ragged tail) and its
 autodiff oracle (`field.apply_field_t` + `likelihoods.log_likelihood`
 through `jax.grad`), at the JAX package's own bounds
 (`tests/test_fused_mlp.py`): losses rtol 2e-4, gradients rtol 2e-4 /
-atol 2e-5. The CUDA kernel is held against the plain version on the card by
-`tests/test_torch_gpu.py` and `chip_smoke.py`.
+atol 2e-5. Stage 3's inputs are held to the same bounds: x, seasonal rows
+and y per member (rep 1) and per group of 2 members (rep 2), each group with
+rows of its own. The CUDA kernel is held against the plain version on the
+card by `tests/test_torch_gpu.py` and `chip_smoke.py`.
 """
 
 import jax
@@ -89,6 +91,37 @@ def _torch_args(case):
                                    torch.as_tensor)
 
 
+GROUPED_MEMBERS = 4
+# Layouts of x / seasonal / y: row sets per input (None: one shared set).
+LAYOUTS = {
+    'grouped-rep2': (2, 2, 2),
+    'per-member': (4, 4, 4),
+    'x-grouped-y-shared': (2, 2, None),
+    'x-shared-y-per-member': (None, None, 4),
+}
+
+
+def _grouped_args(layout, case='depth2-seasonal-interactions'):
+  """(JAX config, params, numpy K1 inputs) with `LAYOUTS[layout]` row sets:
+  every set has rows of its own (drawn with another seed)."""
+  config, params, *_ = _setup(**CASES[case], members=GROUPED_MEMBERS)
+  sets = [_setup(**CASES[case], members=1, seed=10 + i)[2:]
+          for i in range(GROUPED_MEMBERS)]
+  inputs = []
+  for k, count in enumerate(LAYOUTS[layout]):
+    inputs.append(sets[0][k] if count is None else
+                  np.stack([sets[i][k] for i in range(count)]))
+  return config, params, inputs
+
+
+def _member_rows(a, shared_ndim, members=GROUPED_MEMBERS):
+  """Member m's rows of a shared or grouped input (group m // rep)."""
+  if a.ndim == shared_ndim:
+    return [a] * members
+  rep = members // a.shape[0]
+  return [a[m // rep] for m in range(members)]
+
+
 def _by_slot(config, outs):
   """K1's gradient outputs as {param slot: numpy array}."""
   _, dlsa, dfs, dws, dbs, dscales, dlogit, dobs = outs
@@ -142,6 +175,73 @@ def test_reference_matches_jax_autodiff(case):
                                err_msg=f'slot {slot}')
 
 
+@pytest.mark.parametrize('layout', sorted(LAYOUTS))
+def test_grouped_inputs_match_pallas_interpret(layout):
+  config, params, inputs = _grouped_args(layout)
+  got = t_fused.fused_train_reference(
+      'NORMAL', **_k1_args(config, params, *inputs, torch.as_tensor))
+  j_args = _k1_args(config, params, *inputs, jnp.asarray)
+  want = j_fused.fused_train('NORMAL', j_args.pop('depth'), TILE, **j_args)
+  np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                             rtol=LOSS_RTOL)
+  got_slots, want_slots = _by_slot(config, got), _by_slot(config, want)
+  for slot, w in want_slots.items():
+    np.testing.assert_allclose(got_slots[slot], w, **GRAD_TOL,
+                               err_msg=f'slot {slot}')
+
+
+@pytest.mark.parametrize('layout', sorted(LAYOUTS))
+def test_grouped_inputs_match_jax_autodiff(layout):
+  config, params, (x_t, seasonal_t, y) = _grouped_args(layout)
+  got = t_fused.fused_train_reference(
+      'NORMAL', **_k1_args(config, params, x_t, seasonal_t, y,
+                           torch.as_tensor))
+  # Member m's own rows, stacked: the oracle vmaps over members.
+  rows = [jnp.asarray(np.stack(_member_rows(a, nd)))
+          for a, nd in ((x_t, 2), (seasonal_t, 2), (y, 1))]
+
+  def member_loss(p, xm, sm, ym):
+    pred = j_field.apply_field_t(config, p, xm, sm)
+    return -LIK_SCALE * j_likelihoods.log_likelihood(
+        j_likelihoods.LikelihoodDist.NORMAL, p, pred, ym)
+
+  j_params = tuple(jnp.asarray(p) for p in params)
+  want_losses = jax.vmap(member_loss)(j_params, *rows)
+  want_grads = jax.grad(
+      lambda ps: jax.vmap(member_loss)(ps, *rows).sum())(j_params)
+  np.testing.assert_allclose(got[0].numpy(), np.asarray(want_losses),
+                             rtol=LOSS_RTOL)
+  got_slots = _by_slot(config, got)
+  for slot, w in enumerate(want_grads):
+    np.testing.assert_allclose(got_slots[slot], np.asarray(w), **GRAD_TOL,
+                               err_msg=f'slot {slot}')
+
+
+def test_grouped_inputs_equal_their_per_member_copies():
+  # Reading group m // rep is the same as a per-member copy of each group.
+  config, params, inputs = _grouped_args('grouped-rep2')
+  copies = [np.stack(_member_rows(a, nd))
+            for a, nd in zip(inputs, (2, 2, 1))]
+  got = t_fused.fused_train_reference(
+      'NORMAL', **_k1_args(config, params, *inputs, torch.as_tensor))
+  want = t_fused.fused_train_reference(
+      'NORMAL', **_k1_args(config, params, *copies, torch.as_tensor))
+  for g, w in zip(_by_slot(config, got).values(),
+                  _by_slot(config, want).values()):
+    np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize('key', ['x_t', 'seasonal_t', 'y'])
+def test_group_count_must_divide_members(key):
+  config, params, inputs = _grouped_args('grouped-rep2')
+  args = _k1_args(config, params, *inputs, torch.as_tensor)
+  args[key] = torch.cat([args[key], args[key][:1]])  # 3 sets, 4 members
+  with pytest.raises(ValueError, match='must divide the member count'):
+    t_fused.fused_train('NORMAL', **args)
+  with pytest.raises(ValueError, match='divides the member count'):
+    t_fused.fused_train_reference('NORMAL', **args)
+
+
 def test_depth0_gives_a_zero_logit_gradient():
   config = t_field.FieldConfig.create(
       width=4, depth=0, input_scales=[1.0], fourier_degrees=[2],
@@ -183,19 +283,13 @@ def test_wrapper_refuses_other_devices():
 @pytest.mark.parametrize('change', [
     dict(distribution='NB'),
     dict(distribution='ZINB'),
-    dict(per_member_x=True),
-    dict(per_member_y=True),
     dict(n_valid=50),
     dict(precision='bf16'),
-], ids=['NB', 'ZINB', 'per-member-x', 'per-member-y', 'n_valid', 'bf16'])
+], ids=['NB', 'ZINB', 'n_valid', 'bf16'])
 def test_unported_variants_raise(change):
   _, _, args = _torch_args('depth1-seasonal')
   change = dict(change)
   distribution = change.pop('distribution', 'NORMAL')
-  if change.pop('per_member_x', False):
-    args['x_t'] = args['x_t'].expand(3, -1, -1).contiguous()
-  if change.pop('per_member_y', False):
-    args['y'] = args['y'].expand(3, -1).contiguous()
   with pytest.raises(ValueError, match='ROADMAP'):
     t_fused.fused_train(distribution, **args, **change)
 
@@ -228,6 +322,11 @@ def test_input_checks():
     _checked(args, input_scales=args['input_scales'][:2])
   with pytest.raises(ValueError, match='interaction'):
     _checked(args, interactions=((0, 3),))
+  with pytest.raises(ValueError, match='2 or 3 dims'):
+    _checked(args, x_t=args['x_t'][None, None])
+  with pytest.raises(ValueError, match='shape'):
+    # Per-member rows of another length than x_t's.
+    _checked(args, y=torch.zeros((3, N_ROWS - 1)))
 
 
 def test_scatter_matches_jax():
@@ -301,3 +400,18 @@ def test_launch_plans_tiles_chunks_and_outputs(monkeypatch):
   with pytest.raises(ValueError, match='shared memory'):
     t_fused.pick_train_tile_rows(f, 4096, lib)
   assert t_fused.pick_train_tile_rows(f, 1024, lib) == 16
+  # Shared inputs: group stride 0 and one member per group.
+  assert lib.calls[0][22:28] == (0, 1, 0, 1, 0, 1)
+
+
+@pytest.mark.parametrize('layout', sorted(LAYOUTS))
+def test_launch_passes_group_strides_and_reps(layout):
+  config, params, inputs = _grouped_args(layout)
+  args = _k1_args(config, params, *inputs, torch.as_tensor)
+  lib = _FakeTrainLib()
+  t_fused._launch_fused_train(  # pylint: disable=protected-access
+      lib, 'stream', _checked(args), **args)
+  want = []
+  for a, count in zip(inputs, LAYOUTS[layout]):
+    want += [0, 1] if count is None else [a[0].size, GROUPED_MEMBERS // count]
+  assert list(lib.calls[-1][22:28]) == want

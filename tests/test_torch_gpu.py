@@ -96,9 +96,10 @@ def test_served_predict_on_cuda_matches_torch_backend(cuda):
 
 
 def _train_inputs(depth, width, n, members, device, seasonal=True,
-                  interactions=((0, 1), (1, 2)), seed=0):
+                  interactions=((0, 1), (1, 2)), seed=0, groups=None):
   """K1 arguments from a small field config, scaled like an initialized
-  model."""
+  model; with `groups`, x, seasonal rows and y hold `groups` row sets of
+  their own (member m reads set m // (members // groups))."""
   config = field.FieldConfig.create(
       width=width, depth=depth, input_scales=[float(n), 1.0, 1.0],
       fourier_degrees=[3, 2, 0], interactions=list(interactions),
@@ -116,7 +117,7 @@ def _train_inputs(depth, width, n, members, device, seasonal=True,
       for s in field.param_specs(config)]
   weights, biases = field.dense_params(config, params)
   d = config.num_inputs
-  return dict(
+  args = dict(
       distribution='NORMAL', depth=depth, lik_scale=1.0,
       input_scales=config.input_scales,
       fourier_degrees=config.fourier_degrees,
@@ -127,6 +128,13 @@ def _train_inputs(depth, width, n, members, device, seasonal=True,
       obs_raw=torch.stack(params[:3], dim=-1).contiguous(),
       y=torch.as_tensor(rng.normal(size=n).astype(np.float32),
                         device=device))
+  if groups is not None:
+    sets = [_train_inputs(depth, width, n, members, device, seasonal,
+                          interactions, seed=seed + 1 + i)
+            for i in range(groups)]
+    args.update({k: torch.stack([a[k] for a in sets])
+                 for k in ('x_t', 'seasonal_t', 'y')})
+  return args
 
 
 def _flat(outs):
@@ -158,6 +166,26 @@ def test_train_kernel_matches_plain(cuda, depth, width, n, seasonal,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize('depth,width,n,members,groups', [
+    (2, 64, 333, 6, 2),  # grouped: rep 3
+    (1, 256, 70, 4, 4),  # per member: rep 1
+    (2, 32, 65, 5, 1),  # one group for every member
+], ids=['grouped-rep3', 'per-member', 'one-group'])
+def test_train_kernel_grouped_inputs_match_plain(cuda, depth, width, n,
+                                                 members, groups):
+  args = _train_inputs(depth, width, n, members, cuda, groups=groups)
+  assert args['x_t'].shape[0] == groups
+  before = fused_mlp.fused_train.launches
+  got = fused_mlp.fused_train(**args)
+  torch.cuda.synchronize()
+  assert fused_mlp.fused_train.launches == before + 1
+  want = fused_mlp.fused_train_reference(**args)
+  torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=0)
+  for g, w in zip(_flat(got)[1:], _flat(want)[1:]):
+    assert (g - w).abs().max().item() <= 2e-4 * w.abs().max().item()
+
+
+@pytest.mark.gpu
 def test_train_kernel_refuses_what_it_cannot_take(cuda):
   args = _train_inputs(1, 4096, 8, 2, cuda)
   with pytest.raises(ValueError, match='shared memory'):
@@ -165,6 +193,9 @@ def test_train_kernel_refuses_what_it_cannot_take(cuda):
   args = _train_inputs(1, 16, 8, 2, cuda)
   with pytest.raises(ValueError, match='must be on'):
     fused_mlp.fused_train(**dict(args, logit=args['logit'].cpu()))
+  args = _train_inputs(1, 16, 8, 4, cuda, groups=3)
+  with pytest.raises(ValueError, match='must divide the member count'):
+    fused_mlp.fused_train(**args)
 
 
 @pytest.mark.gpu
@@ -187,3 +218,51 @@ def test_fit_on_cuda_kernel_matches_torch_backend(cuda):
   np.testing.assert_allclose(kernel.losses_, plain.losses_, rtol=1e-4)
   means, _ = kernel.predict(table, quantiles=(0.5,))
   assert means.device.type == 'cuda' and bool(torch.isfinite(means).all())
+
+
+def _chickenpox_kwargs():
+  return dict(
+      feature_cols=['datetime', 'latitude', 'longitude'],
+      target_col='chickenpox', timetype='index', freq='W',
+      standardize=['latitude', 'longitude'], width=64, depth=2,
+      seasonality_periods=[4.0, 52.1775], num_seasonal_harmonics=[2, 10])
+
+
+@pytest.mark.gpu
+def test_minibatch_fit_on_cuda_kernel_matches_torch_backend(cuda):
+  table = pd.read_csv(DATA / 'chickenpox.8.train.csv', index_col=0,
+                      parse_dates=['datetime'])  # 100 rows: 3 steps of 30
+  fits = []
+  for backend in ('kernel', 'torch'):
+    fused_mlp.fused_train.launches = 0
+    fits.append(bayesnf_torch.BayesianNeuralFieldMAP(
+        **_chickenpox_kwargs()).fit(
+            table, seed=0, ensemble_size=4, num_epochs=2, batch_size=30,
+            device=cuda, backend=backend))
+    assert fused_mlp.fused_train.launches == (6 if backend == 'kernel' else 0)
+  np.testing.assert_allclose(fits[0].losses_, fits[1].losses_, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('batch_size', [None, 30], ids=['full', 'minibatch'])
+def test_vi_fit_on_cuda_kernel_matches_torch_backend(cuda, batch_size):
+  table = pd.read_csv(DATA / 'chickenpox.8.train.csv', index_col=0,
+                      parse_dates=['datetime'])
+  steps = 2 * (1 if batch_size is None else 3)
+  fits = []
+  for backend in ('kernel', 'torch'):
+    fused_mlp.fused_train.launches = 0
+    fits.append(bayesnf_torch.BayesianNeuralFieldVI(
+        **_chickenpox_kwargs()).fit(
+            table, seed=0, ensemble_size=3, num_epochs=2, batch_size=batch_size,
+            sample_size_divergence=4, sample_size_posterior=5, device=cuda,
+            backend=backend))
+    assert fused_mlp.fused_train.launches == (
+        steps if backend == 'kernel' else 0)
+  assert fits[0].losses_.shape == (1, 3, steps)
+  np.testing.assert_allclose(fits[0].losses_, fits[1].losses_, rtol=1e-4)
+  fused_mlp.fused_field_mlp_t.launches = 0
+  means, _ = fits[0].predict(table, quantiles=(0.5,))
+  assert fused_mlp.fused_field_mlp_t.launches == 1
+  assert means.shape == (1, 5, 3, len(table))
+  assert bool(torch.isfinite(means).all())

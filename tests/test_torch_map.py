@@ -11,7 +11,10 @@ against `bayesnf_tpu`.
   epochs. Per-epoch losses must agree to rtol 1e-5 and final parameters to
   1e-4 of each leaf's largest magnitude. (A scratch run of a plain torch
   trainer on this CPU stayed within 3.2e-7 and 1.5e-5 of those; a looser
-  bound would hide faults.)
+  bound would hide faults.) Minibatch epochs are held to the same bounds,
+  the port given the per-member permutations the JAX package draws from
+  its own member keys, on both step functions ('kernel' runs the plain K1
+  here, with per-member (E, ., B) inputs).
 - The estimator: `fit` on the CPU, predict, and an artifact that
   `bayesnf_tpu` loads and predicts like the port; the RNG-independent
   golden assertions of `test_golden_mini_parity.py` on chickenpox-8; and
@@ -73,14 +76,29 @@ def _data(n=70, seed=0):
   return j_config, t_config, aug, y
 
 
-def _jax_init(config, y, seed=0):
-  """The JAX package's initial ensemble, on one device."""
+def _jax_init(config, y, seed=0, with_keys=False):
+  """The JAX package's initial ensemble (and member keys), on one device."""
   mesh = mesh_lib.default_mesh(jax.devices()[:1])
   log_noise = np.log(np.nanstd(y) / 2.0)
-  params, _, _, _ = j_map._make_init_fn(  # pylint: disable=protected-access
+  params, _, keys, _ = j_map._make_init_fn(  # pylint: disable=protected-access
       config, LR, MEMBERS, mesh)(jax.random.PRNGKey(seed),
                                   np.float32(log_noise))
+  if with_keys:
+    return mesh, [np.array(p) for p in params], keys
   return mesh, [np.array(p) for p in params]
+
+
+def _jax_permutations(keys, n, epochs):
+  """The per-member, per-epoch row permutations of the JAX package's
+  minibatch trainer: each epoch splits every member's key and permutes
+  with the second half (`map._make_train_fn`)."""
+  perms = []
+  for _ in range(epochs):
+    split = jax.vmap(jax.random.split)(keys)
+    keys = split[:, 0]
+    perms.append(np.array(jax.vmap(
+        lambda k: jax.random.permutation(k, n))(split[:, 1])))
+  return perms
 
 
 def _leaf_close(got, want, tol, what):
@@ -191,7 +209,8 @@ def test_first_step_matches_value_and_grad(prior_weight, backend, row_chunk,
                                      backend)
   launches = t_fused.fused_train.launches
   losses, grads = step(tuple(torch.as_tensor(p) for p in params),
-                       torch.as_tensor(aug.T.copy()), torch.as_tensor(y))
+                       torch.as_tensor(aug.T[:d].copy()),
+                       torch.as_tensor(aug.T[d:].copy()), torch.as_tensor(y))
   assert t_fused.fused_train.launches == launches
   np.testing.assert_allclose(losses.numpy(), np.asarray(want_losses),
                              rtol=STEP_LOSS_RTOL)
@@ -220,6 +239,52 @@ def test_train_matches_ensemble_map(prior_weight):
                              rtol=TRAJ_LOSS_RTOL)
   _leaf_close([p.numpy() for p in got_params], want_params, TRAJ_PARAM_TOL,
               'params')
+
+
+@pytest.mark.parametrize('prior_weight', [1.0, 0.0], ids=['MAP', 'MLE'])
+@pytest.mark.parametrize('backend', ['torch', 'kernel'],
+                         ids=['torch', 'kernel-path'])
+def test_minibatch_train_matches_ensemble_map(prior_weight, backend):
+  j_config, t_config, aug, y = _data()
+  mesh, params0, keys = _jax_init(j_config, y, with_keys=True)
+  epochs, batch = 6, 20  # 3 steps per epoch; 10 rows dropped each epoch.
+  want_params, want_losses = j_map.ensemble_map(
+      aug, y, j_config, NORMAL_J, MEMBERS, LR, epochs,
+      jax.random.PRNGKey(0), batch_size=batch, prior_weight=prior_weight,
+      mesh=mesh, backend='xla')
+  perms = _jax_permutations(keys, y.shape[0], epochs)
+  t_params = tuple(torch.as_tensor(p) for p in params0)
+  launches = t_fused.fused_train.launches
+  got_params, state, got_losses = t_map.train(
+      t_params, t_map.init_opt_state(t_params),
+      torch.as_tensor(aug.T.copy()), torch.as_tensor(y), t_config, NORMAL_T,
+      LR, epochs, prior_weight=prior_weight, backend=backend,
+      batch_size=batch, permutations=lambda e: torch.as_tensor(perms[e]))
+  assert t_fused.fused_train.launches == launches  # CPU: no launches
+  assert state.count == 3 * epochs
+  assert got_losses.shape == (MEMBERS, epochs)
+  np.testing.assert_allclose(got_losses.numpy(), np.asarray(want_losses),
+                             rtol=TRAJ_LOSS_RTOL)
+  _leaf_close([p.numpy() for p in got_params], want_params, TRAJ_PARAM_TOL,
+              'params')
+
+
+def test_random_permutations_and_batches():
+  generator = torch.Generator().manual_seed(3)
+  perms = t_map.random_permutations(generator, 4, 9)
+  assert perms.shape == (4, 9)
+  assert all(sorted(p.tolist()) == list(range(9)) for p in perms)
+  assert len({tuple(p.tolist()) for p in perms}) > 1
+  x_t = torch.arange(18.0).reshape(2, 9)
+  s_t = -torch.arange(27.0).reshape(3, 9)
+  y = torch.arange(9.0) * 10
+  xb, sb, yb = t_map.gather_batch(x_t, s_t, y, perms[:, :5])
+  assert (xb.shape, sb.shape, yb.shape) == ((4, 2, 5), (4, 3, 5), (4, 5))
+  assert xb.is_contiguous() and sb.is_contiguous()
+  assert torch.equal(xb[1], x_t[:, perms[1, :5]])
+  assert torch.equal(yb[2], y[perms[2, :5]])
+  assert t_map.stream_seed(7, 1) != t_map.stream_seed(7, 2)
+  assert t_map.stream_seed(7, 1) == t_map.stream_seed(7, 1) < 2**63
 
 
 def _table(n_hours=24, seed=0):
@@ -321,15 +386,36 @@ def test_chickenpox_mini_golden(cls):
   assert np.abs(p50.numpy() - yhat).max() < 1.0
 
 
+@pytest.mark.parametrize('cls', ['BayesianNeuralFieldMAP',
+                                 'BayesianNeuralFieldMLE'])
+def test_minibatch_fit_takes_n_over_b_steps_per_epoch(cls):
+  table = _table()  # 96 rows: 3 steps of 30, 6 rows dropped, per epoch.
+  est = getattr(bayesnf_torch, cls)(**ESTIMATOR_KWARGS)
+  est.fit(table, seed=0, ensemble_size=3, num_epochs=8, batch_size=30,
+          device='cpu')
+  assert est.losses_.shape == (1, 3, 8)
+  assert np.isfinite(est.losses_).all()
+  assert (est.losses_[..., -3:].mean(-1) < est.losses_[..., :3].mean(-1)).all()
+  again = getattr(bayesnf_torch, cls)(**ESTIMATOR_KWARGS).fit(
+      table, seed=0, ensemble_size=3, num_epochs=8, batch_size=30,
+      device='cpu')
+  np.testing.assert_array_equal(est.losses_, again.losses_)
+  other = getattr(bayesnf_torch, cls)(**ESTIMATOR_KWARGS).fit(
+      table, seed=1, ensemble_size=3, num_epochs=8, batch_size=30,
+      device='cpu')
+  assert not np.array_equal(est.losses_, other.losses_)
+  means, _ = est.predict(table, quantiles=(0.5,))
+  assert means.shape == (1, 3, len(table))
+
+
 @pytest.mark.parametrize('change', [
-    dict(batch_size=50),
     dict(observation_model='NB'),
     dict(observation_model='ZINB'),
     dict(mesh=object()),
     dict(checkpoint_dir='ckpt'),
     dict(precision='bf16'),
     dict(stream_chunk_steps=4),
-], ids=['minibatch', 'NB', 'ZINB', 'mesh', 'checkpoint', 'bf16', 'stream'])
+], ids=['NB', 'ZINB', 'mesh', 'checkpoint', 'bf16', 'stream'])
 def test_fit_refuses_what_is_not_ported(change):
   change = dict(change)
   model = change.pop('observation_model', 'NORMAL')

@@ -276,11 +276,12 @@ def test_unfitted_estimator_raises_value_error():
 
 
 def test_fit_and_likelihood_model_are_not_ported():
-  # `fit` trains full batch (tests/test_torch_map.py); minibatches are not
-  # ported yet.
+  # `fit` trains full batch and minibatch (tests/test_torch_map.py);
+  # `likelihood_model` is not ported yet.
   est = bayesnf_torch.BayesianNeuralFieldMLE(**_kwargs('MLE'))
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    est.fit(_table(), seed=0, batch_size=10, device='cpu')
+  est.fit(_table(), seed=0, ensemble_size=2, num_epochs=1, batch_size=10,
+          device='cpu')
+  assert est.losses_.shape == (1, 2, 1)
   with pytest.raises(NotImplementedError, match='ROADMAP'):
     est.likelihood_model(_table())
 
@@ -300,7 +301,8 @@ def _rewrite_spec(tmp_path, **changes):
 
 
 @pytest.mark.parametrize('changes', [
-    dict(cls='BayesianNeuralFieldVI'),
+    # VI artifacts load (tests/test_torch_vi.py); a count-model one does not.
+    dict(cls='BayesianNeuralFieldVI', kwargs=dict(observation_model='NB')),
     dict(kwargs=dict(observation_model='NB')),
     dict(kwargs=dict(observation_model='ZINB')),
 ], ids=['VI', 'NB', 'ZINB'])
