@@ -21,11 +21,12 @@
   runs autograd through `field.apply_field_t` and
   `likelihoods.log_likelihood` in `ROW_CHUNK`-row chunks, summed, as the
   JAX package's chunked gradient accumulation does. Both add the prior,
-  by autograd, after the likelihood.
+  by autograd, after the likelihood. The observation model is NORMAL, NB
+  or ZINB on both.
 - `fit_map` keeps the `num_splits` host loop over ensemble chunks.
 
-Not ported yet, and raising NotImplementedError: NB and ZINB, checkpoints,
-host streaming, precision other than 'f32' and a device mesh (ROADMAP.md,
+Not ported yet, and raising NotImplementedError: checkpoints, host
+streaming, precision other than 'f32' and a device mesh (ROADMAP.md,
 queue 1).
 """
 
@@ -208,7 +209,7 @@ def train(
     aug_t: (D + 2F, N) inputs with seasonal features, features-major.
     target: (N,) targets.
     config: model config.
-    distribution: observation model (NORMAL).
+    distribution: observation model.
     learning_rate: Adam learning rate.
     num_epochs: epochs.
     prior_weight: prior multiplier (0 == MLE).
@@ -266,16 +267,10 @@ def init_ensemble(config, ensemble_size, seed: int, log_noise_init, device):
   )
 
 
-def check_supported(distribution, mesh=None, checkpoint_dir=None,
-                    checkpoint_every=None, precision='f32',
-                    stream_chunk_steps=None, stream_member_remix=False):
+def check_supported(mesh=None, checkpoint_dir=None, checkpoint_every=None,
+                    precision='f32', stream_chunk_steps=None,
+                    stream_member_remix=False):
   """Raises NotImplementedError for what the port does not train yet."""
-  if likelihoods.LikelihoodDist(distribution) != (
-      likelihoods.LikelihoodDist.NORMAL):
-    raise NotImplementedError(
-        f'Training the {likelihoods.LikelihoodDist(distribution).value} '
-        'model is not ported to PyTorch yet (ROADMAP.md, queue 1 item 10).'
-    )
   if mesh is not None:
     raise NotImplementedError(
         'A device mesh is not ported to PyTorch yet (ROADMAP.md, queue 1 '
@@ -338,7 +333,7 @@ def ensemble_map(
     on `device`; losses (ensemble_size, num_epochs) as numpy.
   """
   target_np = np.asarray(target)
-  check_supported(distribution, **unported)
+  check_supported(**unported)
   device = torch.device(device)
   backend = backends.resolve_backend(backend, device)
   log_noise_init = np.log(np.nanstd(target_np) / 2.0)

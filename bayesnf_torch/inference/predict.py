@@ -9,8 +9,9 @@ axes are flattened to one member axis for compute and restored on the way
 out. The JAX package's silent fallback from the kernel to the portable
 program is not carried over: see `backends.py`.
 
-Only the NORMAL observation model predicts here; the count models' mixture
-quantiles arrive with their slice (ROADMAP.md, queue 1 item 10).
+NORMAL predicts Normal-mixture quantiles; NB and ZINB build the count
+distribution of every member (`distributions.count_obs_dist`) and root-find
+the count-mixture quantiles (`quantiles.count_mixture_quantile_root`).
 """
 
 import numpy as np
@@ -18,6 +19,7 @@ import torch
 
 from bayesnf_torch.inference import backends
 from bayesnf_torch.inference import quantiles as quantiles_lib
+from bayesnf_torch.models import distributions as dist_lib
 from bayesnf_torch.models import field as field_lib
 from bayesnf_torch.models import likelihoods
 from bayesnf_torch.ops import fused_mlp
@@ -122,13 +124,15 @@ def predict_bnf(
 
   Args:
     features: (N, D) raw feature matrix (post data-handler scaling), numpy.
-    observation_model: 'NORMAL' (the count models arrive later).
+    observation_model: 'NORMAL' | 'NB' | 'ZINB'.
     params: flat parameter tuple of tensors on one device, each leaf with
       `ensemble_dims` leading ensemble axes ((G, M, ...) for MAP).
     config: model config.
     quantiles: sequence of quantiles in (0, 1).
     ensemble_dims: number of leading ensemble axes on each leaf.
-    approximate_quantiles: moment-matched Normal instead of root-finding.
+    approximate_quantiles: moment-matched Normal instead of root-finding
+      (NORMAL only; the count models always root-find, as in the JAX
+      package).
     chunk_size: rows per forward chunk.
     backend: 'auto' | 'torch' | 'kernel' (see `backends.py`).
 
@@ -137,16 +141,20 @@ def predict_bnf(
     `ensemble_shape + (N,)`, each quantile (N,).
   """
   distribution = likelihoods.LikelihoodDist(observation_model)
-  if distribution != likelihoods.LikelihoodDist.NORMAL:
-    raise NotImplementedError(
-        f'Predicting the {distribution.value} model is not ported yet (count '
-        'mixture quantiles: ROADMAP.md, queue 1 item 10).'
-    )
-  means, scales = forecast_params_bnf(
+  fp = forecast_params_bnf(
       features, observation_model, params, config,
       ensemble_dims=ensemble_dims, chunk_size=chunk_size, backend=backend,
   )
-  return means, quantiles_lib.normal_mixture_quantiles(
-      means, scales, tuple(float(q) for q in quantiles),
-      axis=tuple(range(ensemble_dims)), approximate=approximate_quantiles,
-  )
+  quantiles = tuple(float(q) for q in quantiles)
+  axis = tuple(range(ensemble_dims))
+  if distribution == likelihoods.LikelihoodDist.NORMAL:
+    means, scales = fp
+    return means, quantiles_lib.normal_mixture_quantiles(
+        means, scales, quantiles, axis=axis,
+        approximate=approximate_quantiles,
+    )
+  obs_d = dist_lib.count_obs_dist(*fp)
+  return obs_d.mean(), [
+      quantiles_lib.count_mixture_quantile_root(obs_d, q, ensemble_axes=axis)
+      for q in quantiles
+  ]

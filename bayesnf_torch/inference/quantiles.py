@@ -1,14 +1,15 @@
-"""Ensemble-mixture quantiles of the NORMAL model (counterpart of
+"""Ensemble-mixture quantiles (counterpart of
 `bayesnf_tpu/inference/quantiles.py`).
 
-- Exact quantiles: root of `mean_ensemble CDF(x) - q` on the bracket
+- NORMAL, exact: root of `mean_ensemble CDF(x) - q` on the bracket
   [min(mu) - 5 max(sigma), max(mu) + 5 max(sigma)], value tolerance 1e-5,
   by a vectorized Chandrupatla search with a fixed 60 iterations and no
   data-dependent branches (converged lanes are frozen), as in the JAX
   package.
-- Approximate quantiles: a moment-matched single Normal.
-
-The count-mixture quantiles (NB/ZINB) arrive with that slice.
+- NORMAL, approximate: a moment-matched single Normal.
+- NB and ZINB: the same search on the mixture's continuous CDF over
+  [0, max mean + 1.1 max stddev / sqrt(1 - q)], then the ceiling, and 0
+  where the mixture's P(0) already exceeds q.
 """
 
 import torch
@@ -157,3 +158,34 @@ def normal_mixture_quantiles(
       else normal_mixture_quantile_root
   )
   return [fn(means, scales[..., None], q, axis) for q in quantiles]
+
+
+def count_mixture_quantile_root(dist, q, ensemble_axes=(0, 1), stats=None):
+  """Quantile of an ensemble mixture of (zero-inflated) NB distributions.
+
+  Args:
+    dist: a `NegativeBinomial` or `ZeroInflatedNegativeBinomial` of
+      `models/distributions.py` whose parameters carry the ensemble axes
+      and a trailing row axis.
+    q: scalar quantile in (0, 1).
+    ensemble_axes: the axes the mixture averages over.
+    stats: optional (max_mean, max_stddev) over all rows, so that chunks of
+      one table's rows searched apart share one bracket.
+
+  Returns:
+    (N,) integer-valued float tensor of mixture quantiles.
+  """
+  q = torch.tensor(q, dtype=torch.float32)
+
+  def f(x):
+    return torch.mean(dist.cdf(x), dim=ensemble_axes) - q.to(x.device)
+
+  if stats is None:
+    stats = (torch.amax(dist.mean()), torch.amax(dist.stddev()))
+  max_mean, max_std = stats
+  high = max_mean + 1.1 * torch.rsqrt(1.0 - q).to(max_mean.device) * max_std
+  root = find_root_chandrupatla(
+      f, 0.0, high, value_tolerance=1e-5, max_iterations=60)
+  prob_zero = torch.mean(dist.prob(0.0), dim=ensemble_axes)
+  return torch.ceil(torch.where(prob_zero > q.to(root.device),
+                                torch.zeros_like(root), root))

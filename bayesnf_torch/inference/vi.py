@@ -28,9 +28,9 @@
   takes the noise and the batches as arguments.
 - Adam (`map.adam_update`) over the locs and raw scales, one state.
 
-Not ported yet, and raising NotImplementedError: NB and ZINB, checkpoints,
-host streaming, precision other than 'f32' and a device mesh (ROADMAP.md,
-queue 1).
+The observation model is NORMAL, NB or ZINB. Not ported yet, and raising
+NotImplementedError: checkpoints, host streaming, precision other than
+'f32' and a device mesh (ROADMAP.md, queue 1).
 """
 
 import numpy as np
@@ -209,7 +209,7 @@ def fit_vi(
       (`field.aug_features`), numpy or a tensor.
     target: (N,) targets (numpy).
     seed: int seed of the init and of the per-step noise and batches.
-    observation_model: 'NORMAL'.
+    observation_model: 'NORMAL' | 'NB' | 'ZINB'.
     config: model config.
     ensemble_size: surrogates to fit.
     learning_rate: Adam learning rate.
@@ -230,7 +230,7 @@ def fit_vi(
     draws, leaves (E, sample_size_posterior, ...) on `device`.
   """
   distribution = likelihoods.LikelihoodDist(observation_model)
-  map_lib.check_supported(distribution, **unported)
+  map_lib.check_supported(**unported)
   device = torch.device(device)
   backend = backends.resolve_backend(backend, device)
   target_np = np.asarray(target)

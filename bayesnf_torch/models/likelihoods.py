@@ -5,8 +5,9 @@
   total_count = 1/shape, logits = -log(shape) - log(mean).
 - ZINB: NB plus inflated-zero probability sigmoid(zinb_logit).
 
-The log-likelihood is ported for NORMAL (what full-batch training needs);
-the count models' log-likelihoods arrive with their slice.
+The log-likelihood of a batch is the sum over its rows. Every function here
+takes targets shared by every member, or grouped (`field.grouped`), and
+never copies them per member.
 """
 
 import enum
@@ -35,7 +36,8 @@ def log_likelihood(
   Args:
     distribution: observation model.
     params: flat parameter tuple, each leaf with a leading member axis E;
-      only the three leading scalars are read.
+      only the three leading scalars (log_noise_scale, nb_shape_raw,
+      zinb_logit) are read.
     pred: (E, B) field predictions.
     y: (B,) observed targets shared by every member, or (E/rep, B) grouped
       (`field.grouped`).
@@ -43,17 +45,40 @@ def log_likelihood(
 
   Returns:
     (E,) sums over the rows of the (weighted) elementwise log-probs.
-
-  Raises:
-    NotImplementedError: for NB and ZINB.
   """
-  if distribution != LikelihoodDist.NORMAL:
-    raise NotImplementedError(
-        f'The {distribution.value} log-likelihood is not ported to PyTorch '
-        'yet (ROADMAP.md, queue 1 item 10).'
-    )
-  return normal_log_likelihood(
-      params[field_lib.IDX_LOG_NOISE_SCALE], pred, y, weights)
+  if distribution == LikelihoodDist.NORMAL:
+    return normal_log_likelihood(
+        params[field_lib.IDX_LOG_NOISE_SCALE], pred, y, weights)
+  e, b = pred.shape
+  y3 = field_lib.grouped(y, e, 1)[:, 0, None]  # (G, 1, B)
+  groups = y3.shape[0]
+
+  def per_group(t):  # (E,) -> (G, E/G, 1)
+    return t.reshape(groups, -1, 1)
+
+  shape = special.softplus(params[field_lib.IDX_NB_SHAPE_RAW])
+  # log(softplus(pred)) computed stably (no -inf or NaN for very negative
+  # pred).
+  logits = -torch.log(per_group(shape)) - special.log_softplus(
+      pred.reshape(groups, -1, b))
+  lp = special.nb_log_prob(y3, per_group(1.0 / shape), logits)
+  if distribution == LikelihoodDist.ZINB:
+    zinb_logit = per_group(params[field_lib.IDX_ZINB_LOGIT])
+    nonzero_lp = special.log_sigmoid(-zinb_logit) + lp
+    # At y == 0 the density is pi + (1 - pi) NB(0); elsewhere (1 - pi) NB(y).
+    lp = torch.where(
+        y3 == 0,
+        torch.logaddexp(special.log_sigmoid(zinb_logit), nonzero_lp),
+        nonzero_lp)
+  elif distribution != LikelihoodDist.NB:
+    raise AssertionError(f'Unknown likelihood distribution: {distribution}')
+  return _weighted_sum(lp.reshape(e, b), weights)
+
+
+def _weighted_sum(lp, weights):
+  if weights is not None:
+    lp = lp * weights
+  return lp.sum(dim=-1)
 
 
 def normal_log_likelihood(log_noise_scale, pred, y, weights=None):
@@ -65,9 +90,7 @@ def normal_log_likelihood(log_noise_scale, pred, y, weights=None):
   lp = special.normal_log_prob(
       y3, pred.reshape(y3.shape[0], -1, b),
       scale.reshape(y3.shape[0], -1, 1)).reshape(e, b)
-  if weights is not None:
-    lp = lp * weights
-  return lp.sum(dim=-1)
+  return _weighted_sum(lp, weights)
 
 
 def forecast_params(

@@ -1,6 +1,6 @@
-// Fused training objective (NORMAL likelihood) for Hopper (sm_90a): encode
-// from raw inputs, MLP forward, loss, full backward, with the loss and every
-// gradient summed over all rows.
+// Fused training objective (NORMAL, NB or ZINB likelihood) for Hopper
+// (sm_90a): encode from raw inputs, MLP forward, loss, full backward, with the
+// loss and every gradient summed over all rows.
 //
 // Replaces the Pallas TPU kernel `fused_train` (body `_train_kernel_raw`,
 // helpers `_encode_in_kernel`, `_encode_backward_in_kernel`,
@@ -10,11 +10,18 @@
 //   h_0  = [sx, octave Fourier(sx_i), seasonal, sx_a * sx_b] * softplus(fs)
 //   z_l  = s_l * (W_l^T (h_l / sqrt(fan_in_l)) + b_l),  h_{l+1} = act(z_l)
 //   pred = s_out * (W_out^T (h_depth / sqrt(width)) + b_out)
-//   loss = lik_scale * sum_rows [ (pred - y)^2 / (2 sigma^2) + log sigma
-//                                 + log(2 pi) / 2 ],  sigma = 0.01 + e^obs0
+//   loss = lik_scale * sum_rows -log p(y | pred), with
+//     NORMAL: y ~ Normal(pred, sigma), sigma = 0.01 + e^obs0;
+//     NB:     y ~ NegativeBinomial(total_count r = 1/s, logits
+//             l = -log s - log softplus(pred)), s = softplus(obs1);
+//     ZINB:   y = 0 with probability sigmoid(obs2), else NB as above;
 //
 // and d loss / d (lsa, fs, W_l, b_l, scales_raw, logit, obs), hand-derived as
 // in the TPU kernel. fp32 throughout (FMA, no TF32, no fast-math intrinsics).
+// The count likelihoods use the TPU kernel's math (`_likelihood_tile`):
+// log Gamma and digamma by shift-by-6 Stirling series, log softplus(pred)
+// clamped at -15. The likelihood is a template parameter of the tile kernel,
+// so the NORMAL instantiation is the same code as before the count models.
 //
 // What bounds it: at the training path's shapes (64 members x 38,096 rows,
 // width 512, depth 2, 49 encoded features) one call is ~4.2 TFLOP of fp32
@@ -51,7 +58,9 @@
 // order and applies the scalar chain rules. Every reduction has a fixed
 // order and there are no atomics, so results are bitwise reproducible.
 // Padded rows of the ragged last tile read x = 0 and carry a zero loss
-// cotangent, so they add exactly zero to every sum.
+// cotangent, so they add exactly zero to every sum. (A count likelihood
+// evaluated on a padded row could give inf or NaN, and 0 * NaN is NaN, so the
+// count epilogue selects with the row's validity instead of multiplying.)
 //
 // Inputs. x, seasonal and y are each shared by every member (a group stride
 // of 0), or stored once per group of `rep` consecutive members: member e
@@ -84,13 +93,19 @@ constexpr int kNarrowRows = 128;
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kHalfLog2Pi = 0.9189385332046727f;
 
+// The observation models, as the wrapper codes them.
+enum Lik : int { kNormal = 0, kNB = 1, kZINB = 2 };
+
 // Partial sums per (member, row tile), in this order:
-//   kPartRR      sum (pred - y)^2 over valid rows
+//   kPartRR      NORMAL: sum (pred - y)^2 over valid rows;
+//                NB, ZINB: sum of the rows' log-probs
 //   kPartGV      sum g * v_out (g = d loss / d pred, v_out = pred / s_out)
 //   kPartLogit   sum dh * d act / d w over every hidden layer
 //   kPartDzz+l   sum dz_l * z_l, l < depth
 //   then num_inputs sums of d loss / d lsa, then num_groups sums
-//   <dh0_g, raw_g> (before the sigmoid(fs_raw) factor).
+//   <dh0_g, raw_g> (before the sigmoid(fs_raw) factor);
+//   NB and ZINB add two last ones: sum d lp / d r (the shape gradient's
+//   rows) and sum d lp / d obs2 (the zero-inflation gradient's rows).
 constexpr int kPartRR = 0;
 constexpr int kPartGV = 1;
 constexpr int kPartLogit = 2;
@@ -144,6 +159,91 @@ __device__ __forceinline__ float softplus(float x) {
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
+}
+
+// log Gamma(x), x > 0, as `gammaln_stirling` in bayesnf_tpu/ops/special.py:
+// the shift-by-6 recurrence evaluated at min(x, 1e6) (its products never
+// overflow), and above 1e6 the unshifted series.
+__device__ __forceinline__ float gammaln_stirling(float x) {
+  const float xs = fminf(x, 1e6f);
+  const float p0 = xs * (xs + 1.f);
+  const float p1 = (xs + 2.f) * (xs + 3.f);
+  const float p2 = (xs + 4.f) * (xs + 5.f);
+  const float z = xs + 6.f;
+  const float zi = 1.f / z;
+  const float zi2 = zi * zi;
+  const float series =
+      zi * (0.08333333333333333f +
+            zi2 * (-0.002777777777777778f + zi2 * 0.0007936507936507937f));
+  const float stirling =
+      (z - 0.5f) * logf(z) - z + 0.9189385332046727f + series;
+  if (x > 1e6f) {
+    return (x - 0.5f) * logf(x) - x + 0.9189385332046727f + 1.f / (12.f * x);
+  }
+  return stirling - logf(p0) - logf(p1) - logf(p2);
+}
+
+// digamma(x), x > 0, as `digamma_stirling` in bayesnf_tpu/ops/special.py.
+__device__ __forceinline__ float digamma_stirling(float x) {
+  const float corr = 1.f / x + 1.f / (x + 1.f) + 1.f / (x + 2.f) +
+                     1.f / (x + 3.f) + 1.f / (x + 4.f) + 1.f / (x + 5.f);
+  const float z = x + 6.f;
+  const float zi = 1.f / z;
+  const float zi2 = zi * zi;
+  const float series =
+      zi2 * (0.08333333333333333f +
+             zi2 * (-0.008333333333333333f + zi2 * 0.003968253968253968f));
+  return logf(z) - 0.5f * zi - series - corr;
+}
+
+// One row of the NB or ZINB likelihood (`_likelihood_tile`): its log-prob
+// `lp`, d lp / d pred before lik_scale (`g`), d lp / d r (`dr`, r the total
+// count) and d lp / d obs2 (`dp2`, 0 under NB).
+template <int kLik>
+__device__ __forceinline__ void count_likelihood_row(float pred, float y,
+                                                     float obs1, float obs2,
+                                                     float* lp, float* g,
+                                                     float* dr, float* dp2) {
+  const float s = softplus(obs1);
+  const float r = 1.f / s;
+  // log softplus(pred), and its derivative sigmoid / softplus, which tends to
+  // 1 as pred -> -inf.
+  const float safe = fmaxf(pred, -15.f);
+  const float sp = softplus(safe);
+  const float lsp = pred < -15.f ? pred : logf(sp);
+  const float ratio = pred < -15.f ? 1.f : sigmoid(safe) / sp;
+  const float l = -logf(s) - lsp;
+  const float sp_l = softplus(l);    // -log sigmoid(-l)
+  const float sp_nl = softplus(-l);  // -log sigmoid(l)
+  const float nb_lp = gammaln_stirling(r + y) - gammaln_stirling(1.f + y) -
+                      gammaln_stirling(r) - r * sp_l - y * sp_nl;
+  const float dlp_dl = -r * sigmoid(l) + y * sigmoid(-l);
+  // d nb_lp / d r: the explicit r terms plus l's log(r) dependence.
+  const float dlp_dr = digamma_stirling(r + y) - digamma_stirling(r) - sp_l +
+                       dlp_dl / r;
+  float dlp_dnb = 1.f;
+  if constexpr (kLik == kZINB) {
+    const float log_pi = -softplus(-obs2);
+    const float log1m = -softplus(obs2);
+    const float b = log1m + nb_lp;
+    const float m = fmaxf(log_pi, b);
+    const float zero_lp = m + logf(expf(log_pi - m) + expf(b - m));
+    const float w_b = sigmoid(b - log_pi);  // d zero_lp / d b
+    if (y == 0.f) {
+      *lp = zero_lp;
+      dlp_dnb = w_b;
+      *dp2 = (1.f - w_b) * sigmoid(-obs2) - w_b * sigmoid(obs2);
+    } else {
+      *lp = b;
+      *dp2 = -sigmoid(obs2);
+    }
+  } else {
+    *lp = nb_lp;
+    *dp2 = 0.f;
+  }
+  // d lp / d pred flows only through l, and d l / d pred = -ratio.
+  *g = dlp_dnb * dlp_dl * ratio;
+  *dr = dlp_dnb * dlp_dr;
 }
 
 __device__ __forceinline__ float blended_act(float z, float w) {
@@ -376,7 +476,7 @@ __device__ __forceinline__ void encode_row(const TrainArgs& args, int e,
   }
 }
 
-template <int TR>
+template <int TR, int kLik>
 __global__ void __launch_bounds__(kThreads, 1)
     train_tile_kernel(const TrainArgs args) {
   constexpr int RT = TR / kRowGroups;  // rows per thread, a multiple of 4
@@ -464,6 +564,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
     if (tid < 32) {
       float rr = 0.f, gv = 0.f;
+      [[maybe_unused]] float dr = 0.f, dp2 = 0.f;
       if (tid < TR) {
         float acc = 0.f;
 #pragma unroll
@@ -472,23 +573,47 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float v_out = acc + args.b[depth][e];
         const float s_out = softplus(scales_raw[depth]);
         const float pred = s_out * v_out;
-        const float sigma = 0.01f + expf(args.obs_raw[(size_t)e * 3]);
-        const float inv_sigma2 = 1.f / (sigma * sigma);
-        const float* y =
-            group_rows(args.y, args.y_group_stride, args.y_rep, e);
-        const float res = row < n ? pred - y[row] : 0.f;
-        const float gg = args.lik_scale * inv_sigma2 * res;
+        float gg;
+        if constexpr (kLik == kNormal) {
+          const float sigma = 0.01f + expf(args.obs_raw[(size_t)e * 3]);
+          const float inv_sigma2 = 1.f / (sigma * sigma);
+          const float* y =
+              group_rows(args.y, args.y_group_stride, args.y_rep, e);
+          const float res = row < n ? pred - y[row] : 0.f;
+          gg = args.lik_scale * inv_sigma2 * res;
+          rr = res * res;
+        } else {
+          const bool valid = row < n;
+          const float* y =
+              group_rows(args.y, args.y_group_stride, args.y_rep, e);
+          const float* obs = args.obs_raw + (size_t)e * 3;
+          float lp, g, dlp_dr, dlp_dp2;
+          count_likelihood_row<kLik>(pred, valid ? y[row] : 0.f, obs[1],
+                                     obs[2], &lp, &g, &dlp_dr, &dlp_dp2);
+          // Selected, not multiplied by the row mask: see the header.
+          gg = valid ? args.lik_scale * g : 0.f;
+          rr = valid ? lp : 0.f;
+          dr = valid ? dlp_dr : 0.f;
+          dp2 = valid ? dlp_dp2 : 0.f;
+        }
         const float dvo = gg * s_out;
         dv_out[tid] = dvo;
         args.dv[depth][(size_t)e * ld + col0 + tid] = dvo;
-        rr = res * res;
         gv = gg * v_out;
       }
       rr = warp_sum(rr);
       gv = warp_sum(gv);
+      if constexpr (kLik != kNormal) {
+        dr = warp_sum(dr);
+        dp2 = warp_sum(dp2);
+      }
       if (tid == 0) {
         partials[kPartRR] = rr;
         partials[kPartGV] = gv;
+        if constexpr (kLik != kNormal) {
+          partials[args.num_partials - 2] = dr;
+          partials[args.num_partials - 1] = dp2;
+        }
       }
     }
   }
@@ -753,6 +878,7 @@ struct FinalArgs {
   float* dlogit;           // (E,)
   float* dobs;             // (E, 3)
   float lik_scale;
+  int likelihood;          // Lik
   int n_rows;
   int depth;
   int num_inputs;
@@ -777,17 +903,27 @@ __global__ void finalize_kernel(const FinalArgs args) {
   if (p != 0) return;
   const int depth = args.depth, d_in = args.num_inputs;
   const int num_w = depth + 1;
-  const float sigma = 0.01f + expf(args.obs_raw[(size_t)e * 3]);
-  const float inv_sigma2 = 1.f / (sigma * sigma);
-  const float rr = sums[kPartRR];
-  const float nf = (float)args.n_rows;
-  args.losses[e] = args.lik_scale *
-                   (0.5f * inv_sigma2 * rr + nf * (logf(sigma) + kHalfLog2Pi));
+  const float* obs = args.obs_raw + (size_t)e * 3;
   float* dobs = args.dobs + (size_t)e * 3;
-  dobs[0] = args.lik_scale * (sigma - 0.01f) *
-            (nf / sigma - rr * inv_sigma2 / sigma);
-  dobs[1] = 0.f;
-  dobs[2] = 0.f;
+  if (args.likelihood == kNormal) {
+    const float sigma = 0.01f + expf(obs[0]);
+    const float inv_sigma2 = 1.f / (sigma * sigma);
+    const float rr = sums[kPartRR];
+    const float nf = (float)args.n_rows;
+    args.losses[e] = args.lik_scale * (0.5f * inv_sigma2 * rr +
+                                       nf * (logf(sigma) + kHalfLog2Pi));
+    dobs[0] = args.lik_scale * (sigma - 0.01f) *
+              (nf / sigma - rr * inv_sigma2 / sigma);
+    dobs[1] = 0.f;
+    dobs[2] = 0.f;
+  } else {
+    // r = 1 / softplus(obs1): d r / d obs1 = -sigmoid(obs1) / softplus^2.
+    const float s = softplus(obs[1]);
+    args.losses[e] = -args.lik_scale * sums[kPartRR];
+    dobs[0] = 0.f;
+    dobs[1] = -args.lik_scale * sums[np - 2] * (-sigmoid(obs[1]) / (s * s));
+    dobs[2] = args.likelihood == kZINB ? -args.lik_scale * sums[np - 1] : 0.f;
+  }
   const float* raw = args.scales_raw + (size_t)e * num_w;
   float* dscales = args.dscales + (size_t)e * num_w;
   for (int l = 0; l < depth; ++l) {
@@ -804,8 +940,9 @@ __global__ void finalize_kernel(const FinalArgs args) {
   }
 }
 
-int num_partials(int depth, int num_inputs, int num_groups) {
-  return kPartDzz + depth + num_inputs + num_groups;
+int num_partials(int depth, int num_inputs, int num_groups, int likelihood) {
+  return kPartDzz + depth + num_inputs + num_groups +
+         (likelihood == kNormal ? 0 : 2);
 }
 
 // Scratch floats per chunk row and member: lhs_l (F + depth * width), z_l
@@ -814,15 +951,30 @@ size_t floats_per_row(int num_features, int width, int depth) {
   return (size_t)num_features + 3 * (size_t)depth * width + 1;
 }
 
-template <int TR>
+template <int TR, int kLik>
 cudaError_t launch_tile(const TrainArgs& args, int tiles, int members,
                         size_t smem_bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      train_tile_kernel<TR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      train_tile_kernel<TR, kLik>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_bytes));
   if (err != cudaSuccess) return err;
-  train_tile_kernel<TR><<<dim3(tiles, members), kThreads, smem_bytes, stream>>>(args);
+  train_tile_kernel<TR, kLik>
+      <<<dim3(tiles, members), kThreads, smem_bytes, stream>>>(args);
   return cudaGetLastError();
+}
+
+template <int kLik>
+cudaError_t launch_tile_rows(const TrainArgs& args, int tile_rows, int tiles,
+                             int members, size_t smem_bytes,
+                             cudaStream_t stream) {
+  switch (tile_rows) {
+    case 32:
+      return launch_tile<32, kLik>(args, tiles, members, smem_bytes, stream);
+    case 16:
+      return launch_tile<16, kLik>(args, tiles, members, smem_bytes, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -841,16 +993,18 @@ size_t bnf_fused_train_smem_bytes(int tile_rows, int num_features, int width) {
 // Global scratch (bytes) for chunks of `chunk_rows` rows over `n_rows` rows.
 size_t bnf_fused_train_scratch_bytes(int members, int num_features, int width,
                                      int depth, int num_inputs, int num_groups,
-                                     int chunk_rows, int n_rows,
-                                     int tile_rows) {
+                                     int chunk_rows, int n_rows, int tile_rows,
+                                     int likelihood) {
   const size_t tiles = (n_rows + tile_rows - 1) / tile_rows;
   return ((size_t)members * chunk_rows *
               floats_per_row(num_features, width, depth) +
-          (size_t)members * tiles * num_partials(depth, num_inputs, num_groups)) *
+          (size_t)members * tiles *
+              num_partials(depth, num_inputs, num_groups, likelihood)) *
          sizeof(float);
 }
 
-// Loss and gradients of the NORMAL training objective on `stream`. Pointers
+// Loss and gradients of the training objective under `likelihood` (Lik:
+// 0 NORMAL, 1 NB, 2 ZINB) on `stream`. Pointers
 // are device pointers to contiguous float32 tensors, except the host arrays
 // `weights`, `biases`, `dweights`, `dbiases` (depth + 1 device pointers),
 // `rsqrts` (depth + 1 floats), `fourier_degrees` (num_inputs ints) and
@@ -870,7 +1024,7 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
                     const int* pairs, size_t x_group_stride, int x_rep,
                     size_t seasonal_group_stride, int seasonal_rep,
                     size_t y_group_stride, int y_rep, float lik_scale,
-                    int depth, int members,
+                    int likelihood, int depth, int members,
                     int num_inputs, int num_seasonal, int num_pairs, int width,
                     int n_rows, int tile_rows, int chunk_rows, void* stream) {
   if (depth < 0 || depth + 1 > kMaxLayers || members < 1 || members > 65535 ||
@@ -878,7 +1032,8 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
       num_pairs < 0 || num_pairs > kMaxPairs || num_seasonal < 0 ||
       chunk_rows < tile_rows || chunk_rows % tile_rows != 0 || x_rep < 1 ||
       members % x_rep != 0 || seasonal_rep < 1 || members % seasonal_rep != 0 ||
-      y_rep < 1 || members % y_rep != 0) {
+      y_rep < 1 || members % y_rep != 0 || likelihood < kNormal ||
+      likelihood > kZINB) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   TrainArgs args = {};
@@ -900,7 +1055,7 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
     }
   }
   if (depth == 0) width = num_features;
-  const int np = num_partials(depth, num_inputs, num_groups);
+  const int np = num_partials(depth, num_inputs, num_groups, likelihood);
   if (np > 32) return static_cast<int>(cudaErrorInvalidValue);
 
   args.x = static_cast<const float*>(x);
@@ -963,15 +1118,16 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
     const int acc = row0 > 0;
     args.row0 = row0;
     args.tile0 = row0 / tile_rows;
-    switch (tile_rows) {
-      case 32:
-        err = launch_tile<32>(args, tiles, members, smem, s);
+    switch (likelihood) {
+      case kNormal:
+        err = launch_tile_rows<kNormal>(args, tile_rows, tiles, members, smem, s);
         break;
-      case 16:
-        err = launch_tile<16>(args, tiles, members, smem, s);
+      case kNB:
+        err = launch_tile_rows<kNB>(args, tile_rows, tiles, members, smem, s);
         break;
       default:
-        return static_cast<int>(cudaErrorInvalidValue);
+        err = launch_tile_rows<kZINB>(args, tile_rows, tiles, members, smem, s);
+        break;
     }
     if (err != cudaSuccess) return static_cast<int>(err);
     int fan_in = num_features;
@@ -1014,6 +1170,7 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
   fin.dlogit = static_cast<float*>(dlogit);
   fin.dobs = static_cast<float*>(dobs);
   fin.lik_scale = lik_scale;
+  fin.likelihood = likelihood;
   fin.n_rows = n_rows;
   fin.depth = depth;
   fin.num_inputs = num_inputs;

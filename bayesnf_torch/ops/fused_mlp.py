@@ -11,9 +11,9 @@ K2, per ensemble member e:
 
 with s_l = softplus(layer_scales_raw[l]) and w = sigmoid(activation_logit).
 
-K1 computes, from the raw inputs, the encode, the same MLP, the NORMAL
-negative log-likelihood summed over rows, and its gradient with respect to
-every learned input (see `fused_train`). Its data inputs are shared by every
+K1 computes, from the raw inputs, the encode, the same MLP, the negative
+log-likelihood (NORMAL, NB or ZINB) summed over rows, and its gradient with
+respect to every learned input (see `fused_train`). Its data inputs are shared by every
 member, or stored once per group of `rep` consecutive members (rep = 1: one
 minibatch per member; rep = S: a VI member's minibatch feeds its S draws).
 
@@ -45,7 +45,11 @@ MAX_SHARED_BYTES = 232448
 TILE_ROWS = (32, 16)  # The kernels' instantiations, largest first.
 MAX_INPUTS = 8  # kMaxInputs in csrc/fused_train.cu.
 MAX_PAIRS = 32  # kMaxPairs.
-MAX_PARTIALS = 32  # Per-tile partial sums: 3 + depth + inputs + groups.
+# Per-tile partial sums: 3 + depth + inputs + groups, and for NB and ZINB
+# two more (`num_partials`).
+MAX_PARTIALS = 32
+# The kernel's likelihood codes (`Lik` in csrc/fused_train.cu).
+LIKELIHOOD_CODES = {'NORMAL': 0, 'NB': 1, 'ZINB': 2}
 # Global scratch one `fused_train` call may hold; rows are processed in
 # chunks that fit it.
 TRAIN_SCRATCH_BYTES = 2 << 30
@@ -214,18 +218,18 @@ fused_field_mlp_t.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K1: the fused training objective (NORMAL; shared, per-member or grouped
-# inputs).
+# K1: the fused training objective (NORMAL, NB, ZINB; shared, per-member or
+# grouped inputs).
 # ---------------------------------------------------------------------------
 
 
 def _check_ported(distribution, precision, n_valid):
-  """Raises ValueError for the K1 variants not ported yet (ROADMAP.md,
-  queue 2, K1 stages 2, 4 and 5)."""
-  if distribution != 'NORMAL':
+  """Raises ValueError for an unknown likelihood, and for the K1 variants not
+  ported yet (ROADMAP.md, queue 2, K1 stages 4 and 5)."""
+  if distribution not in LIKELIHOOD_CODES:
     raise ValueError(
-        f'fused_train: the {distribution} likelihood is not ported yet '
-        '(ROADMAP.md, queue 2, K1 stage 2).'
+        f'fused_train: unknown likelihood {distribution!r}; expected one of '
+        f'{sorted(LIKELIHOOD_CODES)}.'
     )
   if n_valid is not None:
     raise ValueError(
@@ -237,6 +241,12 @@ def _check_ported(distribution, precision, n_valid):
         f'fused_train: precision {precision!r} is not ported yet (ROADMAP.md, '
         "queue 2, K1 stage 5); only 'f32' runs."
     )
+
+
+def num_partials(depth, num_inputs, num_groups, distribution) -> int:
+  """Per-tile partial sums of a K1 call: the NORMAL ones, and for NB and
+  ZINB the sums behind the shape and zero-inflation gradients."""
+  return 3 + depth + num_inputs + num_groups + (distribution != 'NORMAL') * 2
 
 
 def _feature_layout(fourier_degrees, interactions, num_inputs, num_seasonal):
@@ -253,9 +263,14 @@ def fused_train_reference(
     logit, obs_raw, y, precision='f32', n_valid=None,
 ):
   """Plain PyTorch K1: autograd through `field.encode_raw_t`, `field.mlp_t`
-  and the NORMAL log-likelihood. Same arguments and outputs as
+  and `likelihoods.log_likelihood`. Same arguments and outputs as
   :func:`fused_train`; grouped inputs are read per group through
-  `field.grouped` views, never copied per member."""
+  `field.grouped` views, never copied per member.
+
+  Its count-model math is the exact one (`torch.lgamma`, log-softplus
+  clamped at -20), as the JAX package's autodiff oracle; the kernel follows
+  the TPU kernel (Stirling series, clamp at -15). The two differ by up to
+  ~3e-4 relative."""
   _check_ported(distribution, precision, n_valid)
   num_w = depth + 1
   leaves = [
@@ -269,9 +284,12 @@ def fused_train_reference(
         x_t, seasonal_t,
     )
     pred = field_lib.mlp_t(depth, groups, ws, bs, *leaves[-3:-1])
-    losses = -lik_scale * likelihoods.normal_log_likelihood(
-        leaves[-1][:, 0], pred, y)
-    # At depth 0 the activation logit is unused: its gradient is zero.
+    # The observation scalars as the three leading parameter leaves.
+    losses = -lik_scale * likelihoods.log_likelihood(
+        likelihoods.LikelihoodDist(distribution), leaves[-1].unbind(-1),
+        pred, y)
+    # At depth 0 the activation logit is unused, and each likelihood leaves
+    # out some observation scalars: their gradients are zero.
     grads = torch.autograd.grad(
         losses.sum(), leaves, allow_unused=True, materialize_grads=True)
   return (
@@ -297,6 +315,7 @@ def _train_lib() -> ctypes.CDLL:
       # x, seasonal and y: group stride (floats) and members per group.
       ctypes.c_size_t, i32, ctypes.c_size_t, i32, ctypes.c_size_t, i32,
       ctypes.c_float,  # lik_scale
+      i32,  # likelihood code
       i32, i32, i32, i32, i32, i32,  # depth, members, inputs, seasonal, pairs, width
       i32, i32, i32,  # n_rows, tile_rows, chunk_rows
       ptr,  # stream
@@ -304,7 +323,7 @@ def _train_lib() -> ctypes.CDLL:
   lib.bnf_fused_train.restype = ctypes.c_int
   lib.bnf_fused_train_smem_bytes.argtypes = [i32] * 3
   lib.bnf_fused_train_smem_bytes.restype = ctypes.c_size_t
-  lib.bnf_fused_train_scratch_bytes.argtypes = [i32] * 9
+  lib.bnf_fused_train_scratch_bytes.argtypes = [i32] * 10
   lib.bnf_fused_train_scratch_bytes.restype = ctypes.c_size_t
   lib.bnf_cuda_error_string.argtypes = [ctypes.c_int]
   lib.bnf_cuda_error_string.restype = ctypes.c_char_p
@@ -345,6 +364,7 @@ def _input_layout(members, x_t, seasonal_t, y):
 def _check_train_inputs(
     depth, input_scales, fourier_degrees, interactions, x_t, seasonal_t,
     weights, biases, lsa, fs_raw, scales_raw, logit, obs_raw, y,
+    distribution,
 ):
   """Raises ValueError on anything the K1 kernel does not take.
 
@@ -379,10 +399,11 @@ def _check_train_inputs(
     raise ValueError('fused_train needs at least one row.')
   _input_layout(e, x_t, seasonal_t, y)
   f, g = _feature_layout(fourier_degrees, interactions, d, seasonal_t.shape[-2])
-  if 3 + depth + d + g > MAX_PARTIALS:
+  if num_partials(depth, d, g, distribution) > MAX_PARTIALS:
     raise ValueError(
         f'depth {depth}, {d} inputs and {g} feature groups exceed the '
-        f"kernel's {MAX_PARTIALS} per-tile partial sums."
+        f"kernel's {MAX_PARTIALS} per-tile partial sums under the "
+        f'{distribution} likelihood.'
     )
   width = weights[0].shape[-1] if depth else f
   fan_ins = [f] + [width] * depth
@@ -434,7 +455,7 @@ def pick_train_tile_rows(num_features: int, width: int, lib=None) -> int:
 def _launch_fused_train(
     lib, stream, dims, depth, lik_scale, input_scales, fourier_degrees,
     interactions, x_t, seasonal_t, weights, biases, lsa, fs_raw, scales_raw,
-    logit, obs_raw, y,
+    logit, obs_raw, y, distribution,
 ):
   """Allocates the outputs and the scratch, and runs one K1 call of `lib`
   on `stream`; `dims` is what `_check_train_inputs` returned for these
@@ -446,14 +467,16 @@ def _launch_fused_train(
   layout = _input_layout(e, x_t, seasonal_t, y)
   dev = x_t.device
   tile_rows = pick_train_tile_rows(f, width, lib)
+  likelihood = LIKELIHOOD_CODES[distribution]
   scratch_bytes = functools.partial(
       lib.bnf_fused_train_scratch_bytes, e, f, width, depth, d, g)
   # Rows per chunk: as many whole tiles as the scratch budget holds.
-  per_row = scratch_bytes(1, 0, tile_rows)
+  per_row = scratch_bytes(1, 0, tile_rows, likelihood)
   chunk_rows = max(1, TRAIN_SCRATCH_BYTES // per_row // tile_rows) * tile_rows
   chunk_rows = min(chunk_rows, -(-n // tile_rows) * tile_rows)
   scratch = torch.empty(
-      scratch_bytes(chunk_rows, n, tile_rows) // 4, dtype=torch.float32,
+      scratch_bytes(chunk_rows, n, tile_rows, likelihood) // 4,
+      dtype=torch.float32,
       device=dev)
   # The input scales fold into the learned log scale (as the TPU kernel
   # does): x / (s * e^lsa) = x * e^-(lsa + log s).
@@ -489,8 +512,8 @@ def _launch_fused_train(
       (ctypes.c_int * d)(*[int(k) for k in fourier_degrees]),
       (ctypes.c_int * max(1, len(pairs)))(*pairs),
       *[v for rep, stride in layout for v in (stride, rep)],
-      float(lik_scale), depth, e, d, s2, len(interactions), width, n,
-      tile_rows, chunk_rows, stream,
+      float(lik_scale), likelihood, depth, e, d, s2, len(interactions),
+      width, n, tile_rows, chunk_rows, stream,
   )
   if err != 0:
     raise RuntimeError(
@@ -508,10 +531,15 @@ def fused_train(
 ):
   """Fused training objective from raw inputs: loss and gradients (K1).
 
-  Per ensemble member e, loss_e = lik_scale * sum_rows -log p(y | pred_e)
-  under the NORMAL model with scale 0.01 + exp(obs_raw[e, 0]), pred_e the
-  field MLP applied to the encode of the raw inputs; with the gradient with
-  respect to every learned input. The caller adds the prior.
+  Per ensemble member e, loss_e = lik_scale * sum_rows -log p(y | pred_e),
+  pred_e the field MLP applied to the encode of the raw inputs, under the
+  NORMAL model (scale 0.01 + exp(obs_raw[e, 0])), NB (mean softplus(pred),
+  shape softplus(obs_raw[e, 1])) or ZINB (NB with zero-inflation
+  probability sigmoid(obs_raw[e, 2])); with the gradient with respect to
+  every learned input. The caller adds the prior. The kernel evaluates the
+  count likelihoods as the TPU kernel does (Stirling gammaln and digamma,
+  log-softplus clamped at -15), its plain version exactly; they differ by
+  up to ~3e-4 relative.
 
   Takes the JAX package's arguments, without its TPU-only `tile` and
   `subtiles`. On CPU tensors it returns :func:`fused_train_reference`; on
@@ -519,7 +547,7 @@ def fused_train(
   current stream and counts the call in `fused_train.launches`.
 
   Args:
-    distribution: 'NORMAL' (NB and ZINB are not ported yet).
+    distribution: 'NORMAL' | 'NB' | 'ZINB'.
     depth: hidden layers.
     lik_scale: multiplier of the negative log-likelihood.
     input_scales: (D,) static input scale divisors.
@@ -544,10 +572,13 @@ def fused_train(
 
   Returns:
     (losses (E,), dlsa, dfs_raw, dweights, dbiases, dscales_raw, dlogit,
-    dobs_raw), each gradient shaped like its input; dobs_raw[:, 1:] is 0.
+    dobs_raw), each gradient shaped like its input; the columns of dobs_raw
+    that the likelihood does not read are exactly 0 (NORMAL: 1 and 2; NB: 0
+    and 2; ZINB: 0).
 
   Raises:
-    ValueError: for an unported variant (NB/ZINB, n_valid, 'bf16'), a data
+    ValueError: for an unknown likelihood or an unported variant (n_valid,
+      'bf16'), a data
       input whose leading dim does not divide the member count, and on CUDA
       for shapes, dtypes, devices or layouts the kernel does not take, or a
       width whose tile does not fit in shared memory.
@@ -570,6 +601,7 @@ def fused_train(
   dims = _check_train_inputs(
       depth, input_scales, fourier_degrees, interactions, x_t, seasonal_t,
       weights, biases, lsa, fs_raw, scales_raw, logit, obs_raw, y,
+      distribution,
   )
   lib = _train_lib()
   with torch.cuda.device(x_t.device):
@@ -577,6 +609,7 @@ def fused_train(
         lib, torch.cuda.current_stream().cuda_stream, dims, depth, lik_scale,
         input_scales, fourier_degrees, interactions, x_t, seasonal_t,
         weights, biases, lsa, fs_raw, scales_raw, logit, obs_raw, y,
+        distribution,
     )
   fused_train.launches += 1
   return outs

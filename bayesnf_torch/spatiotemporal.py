@@ -9,15 +9,14 @@ surrogate too, so a loaded VI estimator can `resample_posterior`.
 
 What the port does, and what it does not yet:
 
-- `fit` for MAP, MLE and VI with the NORMAL observation model, full batch
-  or minibatch, on one device, on the 'kernel' (CUDA) or 'torch' backend
-  (`inference/map.py`, `inference/vi.py`). NB/ZINB, checkpoints, streaming,
+- `fit` for MAP, MLE and VI with the NORMAL, NB or ZINB observation model,
+  full batch or minibatch, on one device, on the 'kernel' (CUDA) or 'torch'
+  backend (`inference/map.py`, `inference/vi.py`). Checkpoints, streaming,
   precision other than 'f32' and a mesh raise NotImplementedError.
-- `predict` for the NORMAL observation model, on the 'kernel' or 'torch'
-  backend (`inference/backends.py`). It returns tensors on the parameters'
-  device.
-- `likelihood_model` raises NotImplementedError, and so does loading an NB
-  or ZINB artifact (ROADMAP.md, queue 1).
+- `predict` (means and exact mixture quantiles) and `likelihood_model` (the
+  predictive distribution object of `models/distributions.py`), on the
+  'kernel' or 'torch' backend (`inference/backends.py`). They return tensors
+  on the parameters' device.
 - The port runs on one device: the artifact's `fit_mesh` is read and
   ignored.
 """
@@ -33,7 +32,9 @@ from bayesnf_torch.data import SpatiotemporalDataHandler
 from bayesnf_torch.inference import map as map_lib
 from bayesnf_torch.inference import predict as predict_lib
 from bayesnf_torch.inference import vi as vi_lib
+from bayesnf_torch.models import distributions as dist_lib
 from bayesnf_torch.models import field as field_lib
+from bayesnf_torch.models import likelihoods
 
 ARTIFACT_FORMAT = 'bayesnf-tpu-estimator-v1'
 
@@ -241,10 +242,38 @@ class BayesianNeuralFieldEstimator:
     )
 
   def likelihood_model(self, table, backend='auto'):
-    raise NotImplementedError(
-        'likelihood_model is not ported to PyTorch yet (ROADMAP.md, queue 1 '
-        'items 4 and 8).'
+    """Predictive distribution object over the target at new points.
+
+    Args:
+      table: DataFrame of new field locations (target column optional).
+      backend: 'auto' | 'torch' | 'kernel', as for :meth:`predict`.
+
+    Returns:
+      An `Independent` (`models/distributions.py`) over the rows, wrapping
+      a `Normal` or the count distribution of `count_obs_dist`, whose
+      parameters carry the ensemble axes of `params_` and live on their
+      device.
+
+    Raises:
+      ValueError: if the estimator is unfitted.
+    """
+    self._require_fitted('build the likelihood model of')
+    test_data = self.data_handler.get_test(table)
+    fp = predict_lib.forecast_params_bnf(
+        test_data,
+        self.observation_model,
+        self.params_,
+        self._field_config(test_data.shape),
+        ensemble_dims=self._ensemble_dims,
+        backend=backend,
     )
+    if likelihoods.LikelihoodDist(self.observation_model) == (
+        likelihoods.LikelihoodDist.NORMAL):
+      loc, scale = fp
+      base = dist_lib.Normal(loc, scale[..., None])
+    else:
+      base = dist_lib.count_obs_dist(*fp)
+    return dist_lib.Independent(base, 1)
 
   # -- Fitted-model persistence (serving) ------------------------------------
 
@@ -323,7 +352,6 @@ class BayesianNeuralFieldEstimator:
       RuntimeError: if `device` is CUDA and CUDA is not available.
       ValueError: if `path` is not an estimator artifact, holds another
         class than `cls`, or holds parameters of the wrong shapes.
-      NotImplementedError: for an NB or ZINB artifact.
     """
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
@@ -336,11 +364,6 @@ class BayesianNeuralFieldEstimator:
       if spec.get('format') != ARTIFACT_FORMAT:
         raise ValueError(f'Not a bayesnf-tpu estimator artifact: {path}')
       kwargs = spec['kwargs']
-      if kwargs.get('observation_model', 'NORMAL') != 'NORMAL':
-        raise NotImplementedError(
-            f'The {kwargs["observation_model"]} observation model is not '
-            'ported to PyTorch yet (ROADMAP.md, queue 1 item 10).'
-        )
       classes = {
           c.__name__: c
           for c in (BayesianNeuralFieldMAP, BayesianNeuralFieldMLE,
@@ -423,8 +446,7 @@ class BayesianNeuralFieldMAP(BayesianNeuralFieldEstimator):
       `losses_` (1, ensemble_size, num_epochs) as numpy.
 
     Raises:
-      NotImplementedError: for the NB and ZINB models, and the unported
-        arguments above.
+      NotImplementedError: for the unported arguments above.
       RuntimeError: if `device` is CUDA and CUDA is not available.
     """
     config, aug, train_target, batch_size, num_epochs = self._fit_inputs(
@@ -504,8 +526,7 @@ class BayesianNeuralFieldVI(BayesianNeuralFieldEstimator):
       ...) on `device` and `losses_` (1, ensemble_size, steps) as numpy.
 
     Raises:
-      NotImplementedError: for the NB and ZINB models, and the unported
-        arguments.
+      NotImplementedError: for the unported arguments.
       RuntimeError: if `device` is CUDA and CUDA is not available.
     """
     config, aug, train_target, batch_size, num_epochs = self._fit_inputs(

@@ -21,8 +21,9 @@ CUDA toolkit (nvcc). It imports nothing of JAX. Phases, one line each:
    and at a ragged N with width 256, depths 1 and 3, and width 1024 (16-row
    tiles); then with grouped inputs at the VI path's shape (80 kernel
    members = 16 groups of 5, each group its own 3,500 rows) and per-member
-   inputs (64 members, a ragged 3,497 rows, width 256); time both with CUDA
-   events.
+   inputs (64 members, a ragged 3,497 rows, width 256); then the NB and
+   ZINB likelihoods (count targets) at the main and the grouped shape, held
+   to the JAX package's count bounds; time both with CUDA events.
 4. Golden check: the committed artifact fitted by the JAX package, loaded
    onto the card, must predict what the JAX package predicted (the
    tolerances of `tests/test_torch_predict.py`).
@@ -44,7 +45,20 @@ CUDA toolkit (nvcc). It imports nothing of JAX. Phases, one line each:
    the same seed on 'torch'; the losses must agree. Member-steps/s of both;
    a 480-member predict (30 posterior draws) through K2 against the 'torch'
    predict; save, load and `resample_posterior`.
-8. A JSON line of the kernels, then the last line,
+8. The count path at full width, `bench.py`'s NB leg: the same table with
+   targets poisson(exp(y / 8) + 1) drawn from `--seed`, an NB
+   `BayesianNeuralFieldMAP` of 64 members fitted full batch at lr 0.005 for
+   a few epochs on 'kernel' and on 'torch' (losses agree to rtol 1e-3: the
+   kernel's Stirling series against the exact log-gamma); member-steps/s of
+   both; then means and three count quantiles through K2 and through plain
+   PyTorch, whose integer quantiles agree within one count on all but
+   max(1, 1%) of the rows.
+9. A ZINB VI epoch of the `air_quality` stanza on both backends (losses to
+   rtol 1e-3), then a predict of its posterior draws through K2.
+10. A JSON line of the kernels, with each one's time, its plain version's,
+   the least time the card could take for the same products and bytes
+   (`bound_ms`) and the PyTorch call that computes the same function, if
+   any (`library_ms`); then the last line,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Any failed check raises, and the script exits non-zero with no result.
@@ -116,6 +130,20 @@ VI_SAMPLES = 5
 VI_KL_WEIGHT = 0.2
 VI_LR = 0.01
 VI_POSTERIOR = 30
+# The count models (NB, ZINB): K1's Stirling series against the plain
+# version's exact log-gamma differ by up to ~3e-4 relative, so losses agree
+# to rtol 1e-3 and gradient leaves to 2e-3 of their largest magnitude (the
+# JAX package's count bounds, tests/test_fused_mlp.py).
+COUNT_LOSS_RTOL = 1e-3
+COUNT_LEAF_TOL = 2e-3
+COUNT_EPOCHS = 3
+# Posterior draws of the ZINB VI predict: 16 x 4 = 64 members, as the MAP
+# predicts (the count root-find's cost grows with members x rows).
+COUNT_VI_POSTERIOR = 4
+# H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): fp32 outside
+# the tensor cores, and HBM3.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def phase(name, **fields):
@@ -157,8 +185,52 @@ def kernel_inputs(members, groups, n, width, depth, seed):
   )
 
 
+def bound_ms(flops, nbytes):
+  """(least ms the card could take, 'operations' or 'bytes'): the larger of
+  the fp32 products at the SIMT peak and the bytes at the HBM rate."""
+  ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+  bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+  return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms, 'bytes')
+
+
+def mlp_flops_per_row(f, width, depth):
+  """Multiply-adds x 2 of one row and member through the field MLP."""
+  return 2 * (f * width + (depth - 1) * width * width + width) if depth else (
+      2 * f)
+
+
+def k2_bound(args, depth):
+  """K2's bound at `args`: its products, and each input read once and the
+  output written once."""
+  e, _, n = args['h0_groups'][0].shape
+  f = sum(g.shape[1] for g in args['h0_groups'])
+  width = args['weights'][0].shape[-1]
+  nbytes = 4 * (sum(t.numel() for t in (*args['h0_groups'], *args['weights'],
+                                        *args['biases'], args['scales_raw'],
+                                        args['logit'])) + e * n)
+  return bound_ms(e * n * mlp_flops_per_row(f, width, depth), nbytes)
+
+
+def k1_bound(args):
+  """K1's bound at `args`: three products per row and member as large as
+  the forward's (the forward, the backward's W dv, and the weight
+  gradients' contraction over rows); the inputs read once and every
+  gradient written once."""
+  weights = args['weights']
+  e, f, width = weights[0].shape
+  n = args['x_t'].shape[-1]
+  ins = [args[k] for k in ('x_t', 'seasonal_t', 'y', 'lsa', 'fs_raw',
+                           'scales_raw', 'logit', 'obs_raw')]
+  params = [*weights, *args['biases'], *ins[3:]]
+  nbytes = 4 * (sum(t.numel() for t in ins + params)
+                + sum(t.numel() for t in params) + e)
+  return bound_ms(
+      3 * e * n * mlp_flops_per_row(f, width, len(weights) - 1), nbytes)
+
+
 def check_kernel(seed):
-  """Phase 3; returns (max abs error, kernel ms, plain ms) at the main shape."""
+  """Phase 3; returns (max abs error, kernel ms, plain ms, bound) at the
+  main shape."""
   main_groups = (3, 10, 10, 10, 16)  # x, 3 Fourier inputs, seasonal: F = 49.
   cases = [
       ('main', main_groups, CHUNK, 512, 2),
@@ -189,16 +261,18 @@ def check_kernel(seed):
           max_rel_err=f'{rel:.3e}',
           kernel_ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}')
     if name == 'main':
-      timing = (ms, plain_ms)
-  return worst, timing[0], timing[1]
+      timing = (ms, plain_ms, k2_bound(args, depth))
+  return (worst, *timing)
 
 
 def train_kernel_inputs(members, n, width, depth, seed, degrees=(5, 5, 5),
-                        seasonal_rows=16, groups=None):
+                        seasonal_rows=16, groups=None,
+                        distribution='NORMAL'):
   """Random K1 arguments on the card, scaled like an initialized model: the
   time row spans its input scale, as the data handler leaves it. With
   `groups`, x, seasonal rows and y are (groups, ., n), each group rows of
-  its own (a minibatch drawn from N_ROWS hours)."""
+  its own (a minibatch drawn from N_ROWS hours). NB and ZINB get count
+  targets with a few zeros."""
   rng = np.random.default_rng(seed)
   d = len(degrees)
   f = d + 2 * sum(degrees) + seasonal_rows
@@ -221,8 +295,11 @@ def train_kernel_inputs(members, n, width, depth, seed, degrees=(5, 5, 5),
                   for _ in range(groups)])
     seasonal = rng.uniform(-1, 1, (groups, seasonal_rows, n))
     y = rng.normal(scale=5.0, size=(groups, n))
+  if distribution != 'NORMAL':
+    y = rng.poisson(np.exp(y / 8.0) + 1.0)
+    y.reshape(-1)[::7] = 0
   return dict(
-      distribution='NORMAL', depth=depth, lik_scale=1.0,
+      distribution=distribution, depth=depth, lik_scale=1.0,
       input_scales=(scale, 1.0, 1.0), fourier_degrees=degrees,
       interactions=(),
       x_t=cuda(x),
@@ -252,21 +329,32 @@ def train_outputs(outs, depth):
 
 
 def check_train_kernel(seed):
-  """Phase 3t; returns {case: (max abs error, kernel ms, plain ms)} of the
-  main and grouped cases."""
-  # (name, kernel members, rows, width, depth, input groups)
+  """Phase 3t; returns {case: (max abs error, kernel ms, plain ms, bound)}
+  of the main and grouped cases of each likelihood."""
+  # (name, kernel members, rows, width, depth, input groups, likelihood)
   cases = [
-      ('main', MEMBERS, TRAIN_ROWS, 512, 2, None),
-      ('ragged-width256', MEMBERS, TRAIN_ROWS - 3, 256, 2, None),
-      ('depth1', MEMBERS, 1000, 512, 1, None),
-      ('depth3', MEMBERS, 1001, 512, 3, None),
-      ('width1024', MEMBERS, 2048, 1024, 2, None),
-      ('grouped', VI_MEMBERS * VI_SAMPLES, BATCH, 512, 2, VI_MEMBERS),
-      ('per-member', MEMBERS, BATCH - 3, 256, 2, MEMBERS),
+      ('main', MEMBERS, TRAIN_ROWS, 512, 2, None, 'NORMAL'),
+      ('ragged-width256', MEMBERS, TRAIN_ROWS - 3, 256, 2, None, 'NORMAL'),
+      ('depth1', MEMBERS, 1000, 512, 1, None, 'NORMAL'),
+      ('depth3', MEMBERS, 1001, 512, 3, None, 'NORMAL'),
+      ('width1024', MEMBERS, 2048, 1024, 2, None, 'NORMAL'),
+      ('grouped', VI_MEMBERS * VI_SAMPLES, BATCH, 512, 2, VI_MEMBERS,
+       'NORMAL'),
+      ('per-member', MEMBERS, BATCH - 3, 256, 2, MEMBERS, 'NORMAL'),
+      ('main-NB', MEMBERS, TRAIN_ROWS, 512, 2, None, 'NB'),
+      ('main-ZINB', MEMBERS, TRAIN_ROWS, 512, 2, None, 'ZINB'),
+      ('grouped-NB', VI_MEMBERS * VI_SAMPLES, BATCH, 512, 2, VI_MEMBERS,
+       'NB'),
+      ('grouped-ZINB', VI_MEMBERS * VI_SAMPLES, BATCH, 512, 2, VI_MEMBERS,
+       'ZINB'),
   ]
   result = {}
-  for name, members, n, width, depth, groups in cases:
-    args = train_kernel_inputs(members, n, width, depth, seed, groups=groups)
+  for name, members, n, width, depth, groups, distribution in cases:
+    args = train_kernel_inputs(members, n, width, depth, seed, groups=groups,
+                               distribution=distribution)
+    count = distribution != 'NORMAL'
+    loss_rtol = COUNT_LOSS_RTOL if count else TRAIN_LOSS_RTOL
+    leaf_tol = COUNT_LEAF_TOL if count else TRAIN_LEAF_TOL
     before = fused_mlp.fused_train.launches
     got = fused_mlp.fused_train(**args)
     torch.cuda.synchronize()
@@ -282,16 +370,18 @@ def check_train_kernel(seed):
       max_abs = max(max_abs, err)
       leaf_rel[leaf] = err / scale if scale > 0 else err
       if leaf == 'losses':
-        torch.testing.assert_close(g, w, rtol=TRAIN_LOSS_RTOL, atol=0)
+        torch.testing.assert_close(g, w, rtol=loss_rtol, atol=0)
       else:
-        assert err <= TRAIN_LEAF_TOL * scale, (name, leaf, err, scale)
-    # The unused observation scalars get exactly zero.
-    assert bool((got[-1][:, 1:] == 0).all())
+        assert err <= leaf_tol * scale, (name, leaf, err, scale)
+    # The observation scalars the likelihood does not read get exactly zero.
+    unused = {'NORMAL': [1, 2], 'NB': [0, 2], 'ZINB': [0]}[distribution]
+    assert bool((got[-1][:, unused] == 0).all()), name
     ms = cuda_ms(lambda: fused_mlp.fused_train(**args), reps=5)
     plain_ms = cuda_ms(lambda: fused_mlp.fused_train_reference(**args),
                        reps=3)
     worst = max(leaf_rel, key=leaf_rel.get)
-    phase('3t K1-vs-plain', case=name, members=members, rows=n, width=width,
+    phase('3t K1-vs-plain', case=name, likelihood=distribution,
+          members=members, rows=n, width=width,
           depth=depth, input_groups=groups or 'shared',
           rep=members // groups if groups else members,
           tile_rows=fused_mlp.pick_train_tile_rows(49, width),
@@ -299,8 +389,8 @@ def check_train_kernel(seed):
           worst_leaf=f'{worst}:{leaf_rel[worst]:.3e}',
           loss_rel_err=f'{leaf_rel["losses"]:.3e}',
           kernel_ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}')
-    if name in ('main', 'grouped'):
-      result[name] = (max_abs, ms, plain_ms)
+    if name.startswith(('main', 'grouped')):
+      result[name] = (max_abs, ms, plain_ms, k1_bound(args))
   return result
 
 
@@ -416,12 +506,13 @@ def check_main_path(seed):
   return launches
 
 
-def bench_estimator(est_cls=bayesnf_torch.BayesianNeuralFieldMAP):
+def bench_estimator(est_cls=bayesnf_torch.BayesianNeuralFieldMAP,
+                    observation_model='NORMAL'):
   return est_cls(
       feature_cols=['datetime', 'lat', 'lon'], target_col='y', width=512,
       depth=2, timetype='index', freq='h', seasonality_periods=[24, 168],
       num_seasonal_harmonics=[4, 4], fourier_degrees=[5, 5, 5],
-      standardize=['lat', 'lon'])
+      standardize=['lat', 'lon'], observation_model=observation_model)
 
 
 def timed_fit(table, seed, backend):
@@ -433,7 +524,8 @@ def timed_fit(table, seed, backend):
   return est, time.perf_counter() - start
 
 
-def member_steps_per_s(est, table, backend):
+def member_steps_per_s(est, table, backend,
+                       distribution=likelihoods.LikelihoodDist.NORMAL):
   """Steady-state training rate: TIMED_STEPS full-batch steps from the
   fitted parameters, host clock around a synchronized run."""
   train = est.data_handler.get_train(table)
@@ -447,8 +539,7 @@ def member_steps_per_s(est, table, backend):
   torch.cuda.synchronize()
   start = time.perf_counter()
   map_lib.train(params, map_lib.init_opt_state(params), aug_t, y, config,
-                likelihoods.LikelihoodDist.NORMAL, 0.005, TIMED_STEPS,
-                backend=backend)
+                distribution, 0.005, TIMED_STEPS, backend=backend)
   torch.cuda.synchronize()
   return MEMBERS * TIMED_STEPS / (time.perf_counter() - start)
 
@@ -643,6 +734,141 @@ def check_vi_path(seed):
   return k1_launches, k2_launches
 
 
+def count_table(seed):
+  """`bench_table` with bench.py's NB targets, poisson(exp(y / 8) + 1)."""
+  table = bench_table(seed)
+  rng = np.random.default_rng(seed + 1)
+  table['y'] = rng.poisson(np.exp(table['y'].to_numpy() / 8.0) + 1.0).astype(
+      np.float32)
+  return table
+
+
+def assert_counts_agree(got, want):
+  """Integer quantiles within one count, off on at most max(1, 1%) rows;
+  returns the number of rows off."""
+  assert torch.equal(got, torch.round(got)) and bool((got >= 0).all())
+  off = (got - want).abs()
+  rows_off = int((off > 0).sum().item())
+  assert off.max().item() <= 1.0, off.max().item()
+  assert rows_off <= max(1, got.numel() // 100), rows_off
+  return rows_off
+
+
+def timed_predict(est, table, backend, quantiles=QUANTILES):
+  torch.cuda.synchronize()
+  start = time.perf_counter()
+  means, quantiles = est.predict(table, quantiles=quantiles, backend=backend)
+  torch.cuda.synchronize()
+  return means, quantiles, (time.perf_counter() - start) * 1e3
+
+
+def check_count_path(seed):
+  """Phase 8; returns (K1 launches, K2 launches) counted while it drove the
+  NB fits and predicts."""
+  table = count_table(seed)
+  nb = likelihoods.LikelihoodDist.NB
+  fits = {}
+  torch.cuda.synchronize()
+  fused_mlp.fused_train.launches = 0
+  for backend in ('kernel', 'torch'):
+    start = time.perf_counter()
+    fits[backend] = bench_estimator(observation_model='NB').fit(
+        table, seed, ensemble_size=MEMBERS, learning_rate=0.005,
+        num_epochs=COUNT_EPOCHS, backend=backend, device='cuda')
+    torch.cuda.synchronize()
+    fits[backend] = (fits[backend], time.perf_counter() - start)
+  k1_launches = fused_mlp.fused_train.launches
+  assert k1_launches == COUNT_EPOCHS, k1_launches
+  (est, kernel_s), (plain, torch_s) = fits['kernel'], fits['torch']
+  assert np.isfinite(est.losses_).all() and np.isfinite(plain.losses_).all()
+  np.testing.assert_allclose(est.losses_, plain.losses_, rtol=COUNT_LOSS_RTOL)
+  loss_rel = np.abs(est.losses_ - plain.losses_) / np.abs(plain.losses_)
+  mean_loss = est.losses_.mean(axis=(0, 1))
+  assert mean_loss[-1] < mean_loss[0], mean_loss
+  rates = [member_steps_per_s(est, table, b, nb)
+           for b in ('kernel', 'torch', 'kernel', 'torch')]
+
+  chunks = -(-len(table) // CHUNK)
+  fused_mlp.fused_field_mlp_t.launches = 0
+  means, quantiles, kernel_ms = timed_predict(est, table, 'kernel')
+  k2_launches = fused_mlp.fused_field_mlp_t.launches
+  assert k2_launches == chunks, (k2_launches, chunks)
+  t_means, t_quantiles, torch_ms = timed_predict(est, table, 'torch')
+  assert fused_mlp.fused_field_mlp_t.launches == k2_launches
+  # The same predict without quantiles: what the count root-find adds is
+  # the difference.
+  _, _, means_only_ms = timed_predict(est, table, 'kernel', quantiles=())
+  assert tuple(means.shape) == (1, MEMBERS, len(table))
+  assert bool(torch.isfinite(means).all())
+  torch.testing.assert_close(means, t_means, **KERNEL_TOL)
+  rows_off = [assert_counts_agree(g, w) for g, w in zip(quantiles,
+                                                       t_quantiles)]
+  phase('8 count-path', likelihood='NB', rows=len(table), members=MEMBERS,
+        width=512, depth=2, epochs=COUNT_EPOCHS, k1_launches=k1_launches,
+        fit_s_kernel=f'{kernel_s:.2f}', fit_s_torch=f'{torch_s:.2f}',
+        member_steps_per_s_kernel='/'.join(f'{r:.2f}' for r in rates[::2]),
+        member_steps_per_s_torch='/'.join(f'{r:.2f}' for r in rates[1::2]),
+        mean_loss_kernel='/'.join(f'{v:.6g}' for v in mean_loss),
+        loss_rel_diff_max=f'{loss_rel.max():.3e}', k2_launches=k2_launches,
+        predict_ms_kernel=f'{kernel_ms:.2f}',
+        predict_ms_torch=f'{torch_ms:.2f}',
+        means_only_predict_ms_kernel=f'{means_only_ms:.2f}',
+        means_max_abs_diff=f'{(means - t_means).abs().max().item():.3e}',
+        quantile_rows_off='/'.join(str(r) for r in rows_off),
+        quantile_medians='/'.join(
+            f'{q.median().item():g}' for q in quantiles))
+  return k1_launches, k2_launches
+
+
+def check_count_vi_path(seed):
+  """Phase 9; returns (K1 launches, K2 launches) of the ZINB VI epoch and its
+  predict."""
+  table = count_table(seed)
+  steps = len(table) // BATCH
+  fits = {}
+  torch.cuda.synchronize()
+  fused_mlp.fused_train.launches = 0
+  for backend in ('kernel', 'torch'):
+    start = time.perf_counter()
+    fits[backend] = bench_estimator(
+        bayesnf_torch.BayesianNeuralFieldVI, observation_model='ZINB').fit(
+            table, seed, ensemble_size=VI_MEMBERS, learning_rate=VI_LR,
+            num_epochs=1, sample_size_posterior=COUNT_VI_POSTERIOR,
+            sample_size_divergence=VI_SAMPLES, kl_weight=VI_KL_WEIGHT,
+            batch_size=BATCH, backend=backend, device='cuda')
+    torch.cuda.synchronize()
+    fits[backend] = (fits[backend], time.perf_counter() - start)
+  k1_launches = fused_mlp.fused_train.launches
+  assert k1_launches == steps, (k1_launches, steps)
+  (est, kernel_s), (plain, torch_s) = fits['kernel'], fits['torch']
+  assert est.losses_.shape == (1, VI_MEMBERS, steps), est.losses_.shape
+  assert np.isfinite(est.losses_).all() and np.isfinite(plain.losses_).all()
+  np.testing.assert_allclose(est.losses_, plain.losses_, rtol=COUNT_LOSS_RTOL)
+  loss_rel = np.abs(est.losses_ - plain.losses_) / np.abs(plain.losses_)
+  fused_mlp.fused_field_mlp_t.launches = 0
+  means, quantiles, predict_ms = timed_predict(est, table, 'kernel')
+  k2_launches = fused_mlp.fused_field_mlp_t.launches
+  assert k2_launches == -(-len(table) // CHUNK), k2_launches
+  assert tuple(means.shape) == (1, COUNT_VI_POSTERIOR, VI_MEMBERS,
+                                len(table))
+  assert bool(torch.isfinite(means).all())
+  assert all(torch.equal(q, torch.round(q)) and bool((q >= 0).all())
+             for q in quantiles)
+  phase('9 count-vi-path', likelihood='ZINB', rows=len(table),
+        members=VI_MEMBERS, batch_size=BATCH, draws_per_elbo=VI_SAMPLES,
+        kernel_members=VI_MEMBERS * VI_SAMPLES, steps=steps,
+        k1_launches=k1_launches, fit_s_kernel=f'{kernel_s:.2f}',
+        fit_s_torch=f'{torch_s:.2f}',
+        mean_loss_kernel='/'.join(
+            f'{v:.6g}' for v in est.losses_.mean(axis=(0, 1))[[0, -1]]),
+        loss_rel_diff_max=f'{loss_rel.max():.3e}',
+        predict_members=COUNT_VI_POSTERIOR * VI_MEMBERS,
+        k2_launches=k2_launches, predict_ms_kernel=f'{predict_ms:.2f}',
+        quantile_medians='/'.join(
+            f'{q.median().item():g}' for q in quantiles))
+  return k1_launches, k2_launches
+
+
 def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -671,33 +897,50 @@ def main(argv=None):
     phase('2 build', library=os.path.relpath(path, REPO),
           seconds=f'{seconds:.2f}', arch='sm_90a', ptxas=' | '.join(ptxas))
 
-  max_err, ms, plain_ms = check_kernel(args.seed)
+  max_err, ms, plain_ms, (k2_bound_ms, k2_bound_by) = check_kernel(args.seed)
   train_cases = check_train_kernel(args.seed)
   check_golden()
   launches = check_main_path(args.seed)
   train_launches = check_training_path(args.seed)
   vi_k1_launches, vi_k2_launches = check_vi_path(args.seed)
+  count_k1_launches, count_k2_launches = check_count_path(args.seed)
+  count_vi_k1_launches, count_vi_k2_launches = check_count_vi_path(args.seed)
 
+  k1_bound_ms, k1_bound_by = train_cases['main'][3]
   print(json.dumps({'kernels': [{
       'name': 'fused_field_mlp_t',
       'route': 'cuda',
       'source': 'bayesnf_torch/ops/csrc/fused_mlp_fwd.cu',
       'replaces': 'bayesnf_tpu/ops/fused_mlp.py:488',
-      'launches': launches + vi_k2_launches,
+      'launches': (launches + vi_k2_launches + count_k2_launches
+                   + count_vi_k2_launches),
       'max_abs_err': max_err,
       'ms': ms,
       'plain_ms': plain_ms,
+      'bound_ms': k2_bound_ms,
+      'bound_by': k2_bound_by,
+      'library_ms': None,
   }, {
       'name': 'fused_train',
       'route': 'cuda',
       'source': 'bayesnf_torch/ops/csrc/fused_train.cu',
       'replaces': 'bayesnf_tpu/ops/fused_mlp.py:1412',
-      'launches': train_launches + vi_k1_launches,
+      'launches': (train_launches + vi_k1_launches + count_k1_launches
+                   + count_vi_k1_launches),
       'max_abs_err': max(train_cases['main'][0], train_cases['grouped'][0]),
       'ms': train_cases['main'][1],
       'plain_ms': train_cases['main'][2],
-      'grouped_ms': train_cases['grouped'][1],
-      'grouped_plain_ms': train_cases['grouped'][2],
+      'bound_ms': k1_bound_ms,
+      'bound_by': k1_bound_by,
+      'library_ms': None,
+      # The other shapes and likelihoods of phase 3t: (kernel ms, plain ms,
+      # bound ms, max abs error against the plain version).
+      'cases': {name: {'ms': case[1], 'plain_ms': case[2],
+                       'bound_ms': case[3][0], 'max_abs_err': case[0]}
+                for name, case in train_cases.items() if name != 'main'},
+      'launches_by_likelihood': {
+          'NORMAL': train_launches + vi_k1_launches,
+          'NB': count_k1_launches, 'ZINB': count_vi_k1_launches},
   }]}), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}),

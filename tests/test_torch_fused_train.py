@@ -10,6 +10,13 @@ atol 2e-5. Stage 3's inputs are held to the same bounds: x, seasonal rows
 and y per member (rep 1) and per group of 2 members (rep 2), each group with
 rows of its own. The CUDA kernel is held against the plain version on the
 card by `tests/test_torch_gpu.py` and `chip_smoke.py`.
+
+The count models (NB, ZINB) are held to the JAX package's own count bounds
+(`tests/test_fused_mlp.py`): against its Pallas kernel, whose Stirling
+log-gamma differs from the exact one by up to ~3e-4 relative, losses rtol
+1e-3 and gradients rtol 2e-3 / atol 2e-4; against its autodiff oracle (the
+same exact math as the plain version) the NORMAL bounds above. The
+observation scalars a likelihood does not read get exactly zero.
 """
 
 import jax
@@ -41,6 +48,15 @@ CASES = {
     'depth2-no-seasonal-no-interactions': dict(
         depth=2, seasonal=False, interactions=()),
 }
+
+
+def _counts(shape, rng):
+  """Count targets with a few zeros (the ZINB zero branch) and a heavy tail
+  (log-gamma at larger arguments), as `tests/test_fused_mlp.py` draws
+  them."""
+  y = rng.poisson(rng.gamma(2.0, 4.0, size=shape)).astype(np.float32)
+  y.reshape(-1)[::7] = 0.0
+  return y
 
 
 def _setup(depth, seasonal, interactions, members=3, seed=3):
@@ -281,26 +297,106 @@ def test_wrapper_refuses_other_devices():
 
 
 @pytest.mark.parametrize('change', [
-    dict(distribution='NB'),
-    dict(distribution='ZINB'),
     dict(n_valid=50),
     dict(precision='bf16'),
-], ids=['NB', 'ZINB', 'n_valid', 'bf16'])
+], ids=['n_valid', 'bf16'])
 def test_unported_variants_raise(change):
   _, _, args = _torch_args('depth1-seasonal')
-  change = dict(change)
-  distribution = change.pop('distribution', 'NORMAL')
   with pytest.raises(ValueError, match='ROADMAP'):
-    t_fused.fused_train(distribution, **args, **change)
+    t_fused.fused_train('NORMAL', **args, **change)
 
 
-def _checked(args, **changes):
+def test_unknown_likelihood_raises():
+  _, _, args = _torch_args('depth1-seasonal')
+  with pytest.raises(ValueError, match='unknown likelihood'):
+    t_fused.fused_train('POISSON', **args)
+
+
+COUNT_LOSS_RTOL = 1e-3
+COUNT_GRAD_TOL = dict(rtol=2e-3, atol=2e-4)
+# Observation-scalar columns of dobs each likelihood does not read.
+UNUSED_OBS = {'NB': (0, 2), 'ZINB': (0,)}
+# (case, input layout or None for shared inputs)
+COUNT_CASES = {
+    'shared': ('depth2-seasonal-interactions', None),
+    'shared-depth1': ('depth1-seasonal', None),
+    'per-member': ('depth2-seasonal-interactions', 'per-member'),
+    'grouped-rep2': ('depth2-seasonal-interactions', 'grouped-rep2'),
+}
+
+
+def _count_args(name):
+  """(JAX config, params, numpy x_t, seasonal_t, count y) of a count case;
+  y is shared or grouped as the layout's y."""
+  case, layout = COUNT_CASES[name]
+  if layout is None:
+    config, params, x_t, seasonal_t, y = _setup(**CASES[case])
+  else:
+    config, params, (x_t, seasonal_t, y) = _grouped_args(layout, case)
+  return config, params, x_t, seasonal_t, _counts(
+      y.shape, np.random.default_rng(7))
+
+
+def _assert_unused_obs_zero(distribution, got):
+  dobs = got[-1].numpy()
+  for col in UNUSED_OBS[distribution]:
+    np.testing.assert_array_equal(dobs[:, col], 0.0)
+
+
+@pytest.mark.parametrize('name', sorted(COUNT_CASES))
+@pytest.mark.parametrize('distribution', ['NB', 'ZINB'])
+def test_count_reference_matches_pallas_interpret(distribution, name):
+  config, params, *inputs = _count_args(name)
+  got = t_fused.fused_train_reference(
+      distribution, **_k1_args(config, params, *inputs, torch.as_tensor))
+  j_args = _k1_args(config, params, *inputs, jnp.asarray)
+  want = j_fused.fused_train(distribution, j_args.pop('depth'), TILE,
+                             **j_args)
+  np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                             rtol=COUNT_LOSS_RTOL)
+  _assert_unused_obs_zero(distribution, got)
+  got_slots, want_slots = _by_slot(config, got), _by_slot(config, want)
+  for slot, w in want_slots.items():
+    np.testing.assert_allclose(got_slots[slot], w, **COUNT_GRAD_TOL,
+                               err_msg=f'slot {slot}')
+
+
+@pytest.mark.parametrize('name', sorted(COUNT_CASES))
+@pytest.mark.parametrize('distribution', ['NB', 'ZINB'])
+def test_count_reference_matches_jax_autodiff(distribution, name):
+  config, params, x_t, seasonal_t, y = _count_args(name)
+  got = t_fused.fused_train_reference(
+      distribution, **_k1_args(config, params, x_t, seasonal_t, y,
+                               torch.as_tensor))
+  members = params[0].shape[0]
+  rows = [jnp.asarray(np.stack(_member_rows(a, nd, members)))
+          for a, nd in ((x_t, 2), (seasonal_t, 2), (y, 1))]
+  dist = j_likelihoods.LikelihoodDist(distribution)
+
+  def member_loss(p, xm, sm, ym):
+    pred = j_field.apply_field_t(config, p, xm, sm)
+    return -LIK_SCALE * j_likelihoods.log_likelihood(dist, p, pred, ym)
+
+  j_params = tuple(jnp.asarray(p) for p in params)
+  want_losses = jax.vmap(member_loss)(j_params, *rows)
+  want_grads = jax.grad(
+      lambda ps: jax.vmap(member_loss)(ps, *rows).sum())(j_params)
+  np.testing.assert_allclose(got[0].numpy(), np.asarray(want_losses),
+                             rtol=LOSS_RTOL)
+  _assert_unused_obs_zero(distribution, got)
+  got_slots = _by_slot(config, got)
+  for slot, w in enumerate(want_grads):
+    np.testing.assert_allclose(got_slots[slot], np.asarray(w), **GRAD_TOL,
+                               err_msg=f'slot {slot}')
+
+
+def _checked(args, distribution='NORMAL', **changes):
   args = dict(args, **changes)
   return t_fused._check_train_inputs(  # pylint: disable=protected-access
       args['depth'], args['input_scales'], args['fourier_degrees'],
       args['interactions'], args['x_t'], args['seasonal_t'], args['weights'],
       args['biases'], args['lsa'], args['fs_raw'], args['scales_raw'],
-      args['logit'], args['obs_raw'], args['y'])
+      args['logit'], args['obs_raw'], args['y'], distribution)
 
 
 def test_input_checks():
@@ -361,10 +457,11 @@ class _FakeTrainLib:
   @staticmethod
   def bnf_fused_train_scratch_bytes(members, num_features, width, depth,
                                     num_inputs, num_groups, chunk_rows,
-                                    n_rows, tile_rows):
+                                    n_rows, tile_rows, likelihood=0):
     tiles = -(-n_rows // tile_rows)
+    partials = 3 + depth + num_inputs + num_groups + 2 * (likelihood > 0)
     return (members * chunk_rows * (num_features + 3 * depth * width + 1)
-            + members * tiles * (3 + depth + num_inputs + num_groups)) * 4
+            + members * tiles * partials) * 4
 
   def bnf_fused_train(self, *args):
     self.calls.append(args)
@@ -380,7 +477,7 @@ def test_launch_plans_tiles_chunks_and_outputs(monkeypatch):
   dims = _checked(args)
   f = config.encoded_dim
   launch = lambda lib: t_fused._launch_fused_train(  # pylint: disable=protected-access
-      lib, 'stream', dims, **args)
+      lib, 'stream', dims, **args, distribution='NORMAL')
   lib = _FakeTrainLib()
   outs = launch(lib)
   *_, tile_rows, chunk_rows, stream = lib.calls[-1]
@@ -410,8 +507,30 @@ def test_launch_passes_group_strides_and_reps(layout):
   args = _k1_args(config, params, *inputs, torch.as_tensor)
   lib = _FakeTrainLib()
   t_fused._launch_fused_train(  # pylint: disable=protected-access
-      lib, 'stream', _checked(args), **args)
+      lib, 'stream', _checked(args), **args, distribution='NORMAL')
   want = []
   for a, count in zip(inputs, LAYOUTS[layout]):
     want += [0, 1] if count is None else [a[0].size, GROUPED_MEMBERS // count]
   assert list(lib.calls[-1][22:28]) == want
+
+
+@pytest.mark.parametrize('distribution', ['NORMAL', 'NB', 'ZINB'])
+def test_launch_passes_the_likelihood_and_its_partials(distribution):
+  config, params, inputs = _grouped_args('grouped-rep2')
+  args = _k1_args(config, params, *inputs, torch.as_tensor)
+  lib = _FakeTrainLib()
+  dims = _checked(args, distribution)
+  t_fused._launch_fused_train(  # pylint: disable=protected-access
+      lib, 'stream', dims, **args, distribution=distribution)
+  code = t_fused.LIKELIHOOD_CODES[distribution]
+  assert lib.calls[-1][28:30] == (LIK_SCALE, code)
+  extra = 0 if distribution == 'NORMAL' else 2
+  f, g = dims[1:]
+  assert t_fused.num_partials(2, 3, g, distribution) == 3 + 2 + 3 + g + extra
+  # The largest field the kernel takes (depth 8, 8 inputs with Fourier
+  # features, seasonal rows and interactions: 11 groups) fits the per-tile
+  # partials under every likelihood.
+  assert t_fused.num_partials(
+      t_fused.MAX_DEPTH, t_fused.MAX_INPUTS, t_fused.MAX_INPUTS + 3,
+      distribution) <= t_fused.MAX_PARTIALS
+  assert f == config.encoded_dim

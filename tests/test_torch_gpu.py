@@ -185,6 +185,44 @@ def test_train_kernel_grouped_inputs_match_plain(cuda, depth, width, n,
     assert (g - w).abs().max().item() <= 2e-4 * w.abs().max().item()
 
 
+def _with_counts(args, distribution, seed=0):
+  """`args` with count targets of the same layout, for NB or ZINB."""
+  rng = np.random.default_rng(seed)
+  y = rng.poisson(rng.gamma(2.0, 4.0, size=tuple(args['y'].shape)))
+  y.reshape(-1)[::7] = 0
+  return dict(args, distribution=distribution, y=torch.as_tensor(
+      y.astype(np.float32), device=args['y'].device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('distribution', ['NB', 'ZINB'])
+@pytest.mark.parametrize('depth,width,n,members,groups', [
+    (2, 64, 333, 3, None),
+    (1, 256, 70, 3, None),
+    (2, 1024, 17, 3, None),
+    (2, 64, 333, 6, 2),
+    (1, 256, 70, 4, 4),
+], ids=['shared', 'shared-depth1', 'width1024', 'grouped-rep3', 'per-member'])
+def test_train_kernel_count_models_match_plain(cuda, distribution, depth,
+                                               width, n, members, groups):
+  # The kernel evaluates the TPU kernel's Stirling series, the plain version
+  # the exact log-gamma: the JAX package's count bounds (losses rtol 1e-3,
+  # each leaf within 2e-3 of its largest magnitude).
+  args = _with_counts(_train_inputs(depth, width, n, members, cuda,
+                                    groups=groups), distribution)
+  before = fused_mlp.fused_train.launches
+  got = fused_mlp.fused_train(**args)
+  torch.cuda.synchronize()
+  assert fused_mlp.fused_train.launches == before + 1
+  want = fused_mlp.fused_train_reference(**args)
+  torch.testing.assert_close(got[0], want[0], rtol=1e-3, atol=0)
+  for g, w in zip(_flat(got)[1:], _flat(want)[1:]):
+    assert bool(torch.isfinite(g).all())
+    assert (g - w).abs().max().item() <= 2e-3 * w.abs().max().item()
+  unused = [0, 2] if distribution == 'NB' else [0]
+  assert bool((got[-1][:, unused] == 0).all())
+
+
 @pytest.mark.gpu
 def test_train_kernel_refuses_what_it_cannot_take(cuda):
   args = _train_inputs(1, 4096, 8, 2, cuda)
@@ -266,3 +304,32 @@ def test_vi_fit_on_cuda_kernel_matches_torch_backend(cuda, batch_size):
   assert fused_mlp.fused_field_mlp_t.launches == 1
   assert means.shape == (1, 5, 3, len(table))
   assert bool(torch.isfinite(means).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('cls,model,batch_size', [
+    ('BayesianNeuralFieldMAP', 'NB', None),
+    ('BayesianNeuralFieldMLE', 'ZINB', 30),
+    ('BayesianNeuralFieldVI', 'ZINB', 30),
+], ids=['NB-MAP-full', 'ZINB-MLE-minibatch', 'ZINB-VI-minibatch'])
+def test_count_fit_on_cuda_kernel_matches_torch_backend(cuda, cls, model,
+                                                        batch_size):
+  # chickenpox counts; the backends differ by the count math's ~3e-4.
+  table = pd.read_csv(DATA / 'chickenpox.8.train.csv', index_col=0,
+                      parse_dates=['datetime'])
+  extra = (dict(sample_size_divergence=4, sample_size_posterior=3)
+           if cls.endswith('VI') else {})
+  fits = []
+  for backend in ('kernel', 'torch'):
+    fused_mlp.fused_train.launches = 0
+    fits.append(getattr(bayesnf_torch, cls)(
+        **dict(_chickenpox_kwargs(), observation_model=model)).fit(
+            table, seed=0, ensemble_size=3, num_epochs=2,
+            batch_size=batch_size, device=cuda, backend=backend, **extra))
+    assert (fused_mlp.fused_train.launches > 0) == (backend == 'kernel')
+  np.testing.assert_allclose(fits[0].losses_, fits[1].losses_, rtol=1e-3)
+  fused_mlp.fused_field_mlp_t.launches = 0
+  means, quantiles = fits[0].predict(table, quantiles=(0.5, 0.9))
+  assert fused_mlp.fused_field_mlp_t.launches == 1
+  assert bool(torch.isfinite(means).all())
+  assert all(torch.equal(q, torch.round(q)) for q in quantiles)

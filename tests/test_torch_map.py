@@ -14,7 +14,8 @@ against `bayesnf_tpu`.
   bound would hide faults.) Minibatch epochs are held to the same bounds,
   the port given the per-member permutations the JAX package draws from
   its own member keys, on both step functions ('kernel' runs the plain K1
-  here, with per-member (E, ., B) inputs).
+  here, with per-member (E, ., B) inputs). The NB and ZINB trajectories,
+  on count targets, are held to the same bounds.
 - The estimator: `fit` on the CPU, predict, and an artifact that
   `bayesnf_tpu` loads and predicts like the port; the RNG-independent
   golden assertions of `test_golden_mini_parity.py` on chickenpox-8; and
@@ -74,6 +75,16 @@ def _data(n=70, seed=0):
       np.float32)
   aug = np.array(j_field.aug_features_device(j_config, x))
   return j_config, t_config, aug, y
+
+
+def _count_targets(y, distribution, seed=4):
+  """Counts whose log-mean follows the NORMAL targets `y`; ZINB gets extra
+  zeros."""
+  rng = np.random.default_rng(seed)
+  counts = rng.poisson(np.exp(y / 2.0) + 1.0).astype(np.float32)
+  if distribution == 'ZINB':
+    counts[rng.uniform(size=counts.shape) < 0.3] = 0.0
+  return counts
 
 
 def _jax_init(config, y, seed=0, with_keys=False):
@@ -158,6 +169,8 @@ def test_log_probs_and_prior_match_jax():
 
 
 def test_log_likelihood_matches_jax_and_count_models_raise():
+  # The count models no longer raise: NB and ZINB match the JAX package too
+  # (`test_count_log_likelihood_matches_jax`).
   j_config, _, _, y = _data()
   rng = np.random.default_rng(3)
   params = [rng.normal(size=(MEMBERS,) + s.shape).astype(np.float32)
@@ -174,11 +187,44 @@ def test_log_likelihood_matches_jax_and_count_models_raise():
         torch.as_tensor(pred), torch.as_tensor(y),
         weights=None if w is None else torch.as_tensor(w))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    t_likelihoods.log_likelihood(
-        t_likelihoods.LikelihoodDist.NB,
+
+
+@pytest.mark.parametrize('groups', [None, 1, 2, 4], ids=[
+    'shared', 'one-group', 'grouped-rep2', 'per-member'])
+@pytest.mark.parametrize('distribution', ['NB', 'ZINB'])
+def test_count_log_likelihood_matches_jax(distribution, groups):
+  """NB and ZINB log-likelihood sums against the JAX package's, rtol 1e-5,
+  for targets shared by every member or grouped (member m reads group m //
+  (E / G)), weighted and not; preds reach the log-softplus clamp."""
+  members, n = 4, 70
+  rng = np.random.default_rng(5)
+  j_config = j_field.FieldConfig.create(**CONFIG_KWARGS)
+  params = [rng.normal(size=(members,) + s.shape).astype(np.float32)
+            for s in j_field.param_specs(j_config)]
+  pred = rng.normal(scale=4.0, size=(members, n)).astype(np.float32)
+  pred[:, :3] = (-30.0, -18.0, 25.0)
+  y = _counts_for(rng, (n,) if groups is None else (groups, n))
+  weights = (rng.uniform(size=n) > 0.3).astype(np.float32)
+  y_members = y if groups is None else y[np.arange(members) // (
+      members // groups)]
+  dist_j = j_likelihoods.LikelihoodDist(distribution)
+  for w in (None, weights):
+    want = jax.vmap(
+        lambda p, pr, yy: j_likelihoods.log_likelihood(
+            dist_j, p, pr, yy, weights=w),
+        in_axes=(0, 0, None if groups is None else 0))(
+            tuple(jnp.asarray(p) for p in params), pred, y_members)
+    got = t_likelihoods.log_likelihood(
+        t_likelihoods.LikelihoodDist(distribution),
         tuple(torch.as_tensor(p) for p in params), torch.as_tensor(pred),
-        torch.as_tensor(y))
+        torch.as_tensor(y), weights=None if w is None else torch.as_tensor(w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+
+
+def _counts_for(rng, shape):
+  y = rng.poisson(rng.gamma(2.0, 4.0, size=shape)).astype(np.float32)
+  y.reshape(-1)[::7] = 0.0
+  return y
 
 
 @pytest.mark.parametrize('prior_weight', [1.0, 0.0], ids=['MAP', 'MLE'])
@@ -409,18 +455,13 @@ def test_minibatch_fit_takes_n_over_b_steps_per_epoch(cls):
 
 
 @pytest.mark.parametrize('change', [
-    dict(observation_model='NB'),
-    dict(observation_model='ZINB'),
     dict(mesh=object()),
     dict(checkpoint_dir='ckpt'),
     dict(precision='bf16'),
     dict(stream_chunk_steps=4),
-], ids=['NB', 'ZINB', 'mesh', 'checkpoint', 'bf16', 'stream'])
+], ids=['mesh', 'checkpoint', 'bf16', 'stream'])
 def test_fit_refuses_what_is_not_ported(change):
-  change = dict(change)
-  model = change.pop('observation_model', 'NORMAL')
-  est = bayesnf_torch.BayesianNeuralFieldMAP(
-      **dict(ESTIMATOR_KWARGS, observation_model=model))
+  est = bayesnf_torch.BayesianNeuralFieldMAP(**ESTIMATOR_KWARGS)
   with pytest.raises(NotImplementedError, match='ROADMAP'):
     est.fit(_table(), seed=0, ensemble_size=2, num_epochs=1, device='cpu',
             **change)
@@ -438,3 +479,76 @@ def test_fit_device_and_backend_checks(monkeypatch):
   est.fit(_table(), seed=0, ensemble_size=2, num_epochs=1, device='cpu',
           batch_size=10_000)
   assert est.losses_.shape == (1, 2, 1)
+
+
+@pytest.mark.parametrize('batch,backend', [
+    (None, 'torch'), (20, 'torch'), (20, 'kernel'),
+], ids=['full', 'minibatch', 'minibatch-kernel-path'])
+@pytest.mark.parametrize('distribution', ['NB', 'ZINB'])
+def test_count_train_matches_ensemble_map(distribution, batch, backend):
+  """MAP trajectories of the count models against `ensemble_map(xla)` from
+  the JAX package's initial parameters, at the NORMAL bounds."""
+  j_config, t_config, aug, y = _data()
+  counts = _count_targets(y, distribution)
+  mesh, params0, keys = _jax_init(j_config, counts, with_keys=True)
+  epochs = 10 if batch is None else 4
+  want_params, want_losses = j_map.ensemble_map(
+      aug, counts, j_config, j_likelihoods.LikelihoodDist(distribution),
+      MEMBERS, LR, epochs, jax.random.PRNGKey(0), batch_size=batch,
+      mesh=mesh, backend='xla')
+  perms = _jax_permutations(keys, y.shape[0], epochs)
+  t_params = tuple(torch.as_tensor(p) for p in params0)
+  got_params, _, got_losses = t_map.train(
+      t_params, t_map.init_opt_state(t_params),
+      torch.as_tensor(aug.T.copy()), torch.as_tensor(counts), t_config,
+      t_likelihoods.LikelihoodDist(distribution), LR, epochs,
+      backend=backend, batch_size=batch,
+      permutations=lambda e: torch.as_tensor(perms[e]))
+  np.testing.assert_allclose(got_losses.numpy(), np.asarray(want_losses),
+                             rtol=TRAJ_LOSS_RTOL)
+  _leaf_close([p.numpy() for p in got_params], want_params, TRAJ_PARAM_TOL,
+              'params')
+
+
+def _count_table(distribution, n_hours=24, seed=0):
+  table = _table(n_hours=n_hours, seed=seed)
+  table['y'] = _count_targets(table['y'].to_numpy(), distribution, seed)
+  return table
+
+
+@pytest.mark.parametrize('cls', ['BayesianNeuralFieldMAP',
+                                 'BayesianNeuralFieldMLE'])
+@pytest.mark.parametrize('distribution', ['NB', 'ZINB'])
+def test_count_fit_predicts_and_saves_for_jax(distribution, cls, tmp_path):
+  """A count model fitted here, full batch then minibatch, predicts integer
+  quantiles, and its artifact predicts the same in the JAX package: means
+  rtol 2e-5 / atol 1e-4, quantiles within one count on at most max(1, 1%)
+  of the rows."""
+  kwargs = dict(ESTIMATOR_KWARGS, observation_model=distribution)
+  table = _count_table(distribution)
+  est = getattr(bayesnf_torch, cls)(**kwargs).fit(
+      table, seed=0, ensemble_size=3, num_epochs=20, device='cpu')
+  assert est.losses_.shape == (1, 3, 20)
+  assert np.isfinite(est.losses_).all()
+  assert (est.losses_[..., -1] < est.losses_[..., 0]).all()
+  est.fit(table, seed=1, ensemble_size=3, num_epochs=2, batch_size=30,
+          device='cpu')
+  assert est.losses_.shape == (1, 3, 2) and np.isfinite(est.losses_).all()
+  new = _count_table(distribution, n_hours=30, seed=1)
+  means, quantiles = est.predict(new, quantiles=(0.5, 0.9))
+  assert means.shape == (1, 3, len(new))
+  for q in quantiles:
+    assert q.shape == (len(new),) and torch.equal(q, torch.round(q))
+    assert bool((q >= 0).all())
+  path = tmp_path / 'fit.npz'
+  est.save(str(path))
+  back = bayesnf_tpu.BayesianNeuralFieldEstimator.load(str(path))
+  assert type(back).__name__ == cls
+  assert back.observation_model == distribution
+  want_means, want_q = back.predict(new, quantiles=(0.5, 0.9), backend='xla')
+  np.testing.assert_allclose(means.numpy(), np.asarray(want_means),
+                             rtol=2e-5, atol=1e-4)
+  for g, w in zip(quantiles, want_q):
+    off = np.abs(g.numpy() - np.asarray(w))
+    assert off.max() <= 1.0, off.max()
+    assert (off > 0).sum() <= max(1, len(new) // 100), (off > 0).sum()

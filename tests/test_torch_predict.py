@@ -1,4 +1,4 @@
-"""The port's serving path (load -> predict, NORMAL) against `bayesnf_tpu`.
+"""The port's serving path (load -> predict) against `bayesnf_tpu`.
 
 Estimators fitted and saved by the JAX package load into the port, whose
 means and quantiles must match the JAX package's `predict` (backend='xla')
@@ -6,7 +6,11 @@ on the same weights: means to rtol 2e-5 / atol 1e-4, quantiles to
 1e-4 of the largest member noise scale (the two Chandrupatla searches may
 stop at different points inside the 1e-5 CDF tolerance; see
 `test_torch_quantiles.py`). Artifacts saved by the port load into the JAX
-package.
+package. Count-model (NB, ZINB) artifacts of MAP, MLE and VI estimators
+predict means to the same bounds and integer quantiles within one count on
+at most max(1, 1%) of the rows (the bound of PARITY.md); their
+`likelihood_model` objects match the JAX package's (log_prob, mean, stddev,
+cdf) to rtol 2e-5 / atol 1e-4 (the CDF to the quantile search's 1e-5).
 
 The committed golden artifact `test_data/bnf-map.chickenpox.8.port.npz` and
 the JAX predictions on its training rows, `...port-pred.npz`, were made by
@@ -259,12 +263,91 @@ def test_chunking_does_not_change_predictions():
     torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-4)
 
 
-def test_count_models_do_not_predict_yet():
-  port = bayesnf_torch.BayesianNeuralFieldMAP.load(str(GOLDEN), device='cpu')
-  features = port.data_handler.get_test(_golden_table())
-  config = port._field_config(features.shape)  # pylint: disable=protected-access
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    t_predict.predict_bnf(features, 'NB', port.params_, config, QS)
+def _count_table(model, n_hours=24, seed=0):
+  table = _table(n_hours=n_hours, seed=seed)
+  rng = np.random.default_rng(seed + 10)
+  table['y'] = rng.poisson(np.exp(table['y'].to_numpy() / 2.0) + 1.0).astype(
+      np.float32)
+  if model == 'ZINB':
+    table.loc[rng.uniform(size=len(table)) < 0.3, 'y'] = 0.0
+  return table
+
+
+COUNT_FITS = {
+    'NB-MAP': ('NB', 'BayesianNeuralFieldMAP', dict(ensemble_size=3)),
+    'ZINB-MLE': ('ZINB', 'BayesianNeuralFieldMLE', dict(ensemble_size=2)),
+    'ZINB-VI': ('ZINB', 'BayesianNeuralFieldVI', dict(
+        ensemble_size=2, sample_size_posterior=3, batch_size=48)),
+}
+
+
+@pytest.fixture(scope='module', params=sorted(COUNT_FITS))
+def jax_count_fit(request, tmp_path_factory):
+  """(model, fitted JAX count estimator, its saved artifact path)."""
+  model, cls, fit_kwargs = COUNT_FITS[request.param]
+  est = getattr(bayesnf_tpu, cls)(**dict(_kwargs('MAP'),
+                                         observation_model=model))
+  est.fit(_count_table(model), seed=0, num_epochs=10, backend='xla',
+          **fit_kwargs)
+  path = tmp_path_factory.mktemp(request.param) / 'est.npz'
+  est.save(str(path))
+  return model, est, path
+
+
+def _assert_count_predictions_match(got, want_means, want_quantiles):
+  means, quantiles = got
+  np.testing.assert_allclose(means.cpu().numpy(), want_means, **MEANS_TOL)
+  for g, w in zip(quantiles, want_quantiles):
+    g = g.cpu().numpy()
+    assert np.array_equal(g, np.round(g)) and (g >= 0).all()
+    off = np.abs(g - np.asarray(w))
+    assert off.max() <= 1.0, off.max()
+    assert (off > 0).sum() <= max(1, len(g) // 100), (off > 0).sum()
+
+
+def test_jax_count_artifact_predicts_like_jax(jax_count_fit):
+  model, est, path = jax_count_fit
+  table = _count_table(model, n_hours=30, seed=1)
+  want_means, want_q = est.predict(table, quantiles=QS, backend='xla')
+  port = bayesnf_torch.BayesianNeuralFieldEstimator.load(str(path), 'cpu')
+  assert port.observation_model == model
+  _assert_count_predictions_match(port.predict(table, quantiles=QS),
+                                  np.asarray(want_means), want_q)
+  # And back: the port's artifact loads in the JAX package bit for bit.
+  out = path.with_name('port.npz')
+  port.save(str(out))
+  back = bayesnf_tpu.BayesianNeuralFieldEstimator.load(str(out))
+  assert type(back) is type(est) and back.observation_model == model
+  for a, b in zip(back.params_, port.params_):
+    np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def _assert_likelihood_models_match(got, want, table):
+  y = torch.tensor(table['y'].to_numpy(np.float32))
+  tol = dict(rtol=2e-5, atol=1e-4)
+  for name in ('mean', 'stddev'):
+    np.testing.assert_allclose(getattr(got, name)().numpy(),
+                               np.asarray(getattr(want, name)()), **tol,
+                               err_msg=name)
+  np.testing.assert_allclose(got.log_prob(y).numpy(),
+                             np.asarray(want.log_prob(y.numpy())), **tol)
+  np.testing.assert_allclose(got.distribution.cdf(y).numpy(),
+                             np.asarray(want.distribution.cdf(y.numpy())),
+                             rtol=0, atol=1e-5)
+  np.testing.assert_allclose(got.cdf(y).numpy(),
+                             np.asarray(want.cdf(y.numpy())), rtol=1e-4,
+                             atol=1e-5)
+
+
+def test_count_likelihood_model_matches_jax(jax_count_fit):
+  model, est, path = jax_count_fit
+  table = _count_table(model, n_hours=30, seed=2)
+  port = bayesnf_torch.BayesianNeuralFieldEstimator.load(str(path), 'cpu')
+  got = port.likelihood_model(table)
+  assert type(got.distribution).__name__ == {
+      'NB': 'NegativeBinomial', 'ZINB': 'ZeroInflatedNegativeBinomial'}[model]
+  _assert_likelihood_models_match(
+      got, est.likelihood_model(table, backend='xla'), table)
 
 
 def test_unfitted_estimator_raises_value_error():
@@ -276,14 +359,29 @@ def test_unfitted_estimator_raises_value_error():
 
 
 def test_fit_and_likelihood_model_are_not_ported():
-  # `fit` trains full batch and minibatch (tests/test_torch_map.py);
-  # `likelihood_model` is not ported yet.
+  # Both are ported now: `fit` trains full batch and minibatch
+  # (tests/test_torch_map.py), and `likelihood_model` gives the predictive
+  # distribution, on the params' device, or raises unfitted.
   est = bayesnf_torch.BayesianNeuralFieldMLE(**_kwargs('MLE'))
+  with pytest.raises(ValueError, match='unfitted'):
+    est.likelihood_model(_table())
   est.fit(_table(), seed=0, ensemble_size=2, num_epochs=1, batch_size=10,
           device='cpu')
   assert est.losses_.shape == (1, 2, 1)
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    est.likelihood_model(_table())
+  dist = est.likelihood_model(_table(n_hours=5))
+  assert type(dist.distribution).__name__ == 'Normal'
+  assert dist.mean().shape == (1, 2, 20)
+  assert dist.log_prob(torch.zeros(20)).shape == (1, 2)
+
+
+def test_normal_likelihood_model_matches_jax(jax_fit):
+  _, est, path = jax_fit
+  table = _table(n_hours=30, seed=3)
+  port = bayesnf_torch.BayesianNeuralFieldEstimator.load(str(path), 'cpu')
+  _assert_likelihood_models_match(
+      port.likelihood_model(table), est.likelihood_model(table,
+                                                         backend='xla'),
+      table)
 
 
 def _rewrite_spec(tmp_path, **changes):
@@ -300,19 +398,15 @@ def _rewrite_spec(tmp_path, **changes):
   return str(path)
 
 
-@pytest.mark.parametrize('changes', [
-    # VI artifacts load (tests/test_torch_vi.py); a count-model one does not.
-    dict(cls='BayesianNeuralFieldVI', kwargs=dict(observation_model='NB')),
-    dict(kwargs=dict(observation_model='NB')),
-    dict(kwargs=dict(observation_model='ZINB')),
-], ids=['VI', 'NB', 'ZINB'])
-def test_unported_artifacts_raise_not_implemented(tmp_path, changes):
-  changes = dict(changes)
-  if 'cls' in changes:
-    changes['class'] = changes.pop('cls')
-  path = _rewrite_spec(tmp_path, **changes)
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    bayesnf_torch.BayesianNeuralFieldEstimator.load(path, device='cpu')
+@pytest.mark.parametrize('model', ['NB', 'ZINB'])
+def test_count_artifacts_load_and_predict(tmp_path, model):
+  # The golden artifact's weights read as a count model: integer quantiles.
+  path = _rewrite_spec(tmp_path, kwargs=dict(observation_model=model))
+  port = bayesnf_torch.BayesianNeuralFieldEstimator.load(path, device='cpu')
+  assert port.observation_model == model
+  means, quantiles = port.predict(_golden_table().iloc[:20], quantiles=QS)
+  assert means.shape == (1, 4, 20) and bool(torch.isfinite(means).all())
+  assert all(torch.equal(q, torch.round(q)) for q in quantiles)
 
 
 def test_load_checks_format_class_and_device(tmp_path, monkeypatch):

@@ -1,10 +1,15 @@
-"""The port's Normal-mixture quantiles against `bayesnf_tpu`'s.
+"""The port's ensemble-mixture quantiles against `bayesnf_tpu`'s.
 
 `torch.special.ndtr` and `jax.scipy.special.ndtr` round differently, so the
 two Chandrupatla searches may stop at different points that both meet the
 1e-5 value tolerance. The tests therefore hold the port's root to the
 mixture CDF (scipy, float64) and the two roots to each other within
 1e-4 of the largest member scale.
+
+The count-mixture quantiles (NB, ZINB) are integers after the ceiling: the
+port's must equal the JAX package's except on at most max(1, 1%) of the
+rows, and there by one count (PARITY.md), since a root a hair from an
+integer may ceil either way.
 """
 
 import jax.numpy as jnp
@@ -14,7 +19,9 @@ from scipy import stats
 import torch
 
 from bayesnf_torch.inference import quantiles as t_quantiles
+from bayesnf_torch.models import distributions as t_dist
 from bayesnf_tpu.inference import quantiles as j_quantiles
+from bayesnf_tpu.models import distributions as j_dist
 
 torch.set_num_threads(1)
 
@@ -90,3 +97,73 @@ def test_clamp_with_min_above_max_returns_max_like_jnp_clip():
   want = jnp.clip(jnp.asarray(t), jnp.asarray(tlim), jnp.asarray(1.0 - tlim))
   np.testing.assert_array_equal(got.numpy(), np.asarray(want))
   np.testing.assert_array_equal(got.numpy(), 1.0 - tlim)
+
+
+def _count_params(ens_shape, n, seed, zero_inflated):
+  """Forecast parameters (total_count, logits[, pi]) of a count ensemble
+  like a fitted one: total counts from 1 to 30 (the prior's shape loc -1.5
+  gives ~5), means from ~0.1 to ~50."""
+  rng = np.random.default_rng(seed)
+  total_count = np.exp(rng.uniform(0, 3.4, ens_shape)).astype(np.float32)
+  mean = np.exp(rng.uniform(-2, 3.9, ens_shape + (n,)))
+  logits = (np.log(mean) - np.log(total_count[..., None])).astype(np.float32)
+  params = [total_count, logits]
+  if zero_inflated:
+    params.append(np.broadcast_to(
+        rng.uniform(0.0, 0.6, ens_shape + (1,)), logits.shape).astype(
+            np.float32))
+  return params
+
+
+def _mixture_count_cdf(k, params):
+  """The mixture's CDF at integers k (N,), exactly (scipy, float64)."""
+  total_count, logits = (p.astype(float) for p in params[:2])
+  r = total_count[..., None]
+  p_success = 1.0 / (1.0 + np.exp(logits))  # sigmoid(-logits)
+  cdf = stats.nbinom.cdf(k, r, p_success)
+  if len(params) == 3:
+    pi = params[2].astype(float)
+    cdf = pi * (k >= 0) + (1.0 - pi) * cdf
+  return cdf.reshape((-1, cdf.shape[-1])).mean(axis=0)
+
+
+def _assert_counts_close(got, want):
+  got, want = got.numpy(), np.asarray(want)
+  assert np.array_equal(got, np.round(got)) and (got >= 0).all()
+  off = np.abs(got - want)
+  assert off.max() <= 1.0, off.max()
+  assert (off > 0).sum() <= max(1, got.size // 100), (off > 0).sum()
+
+
+@pytest.mark.parametrize('ens_shape', [(1, 4), (2, 3)])
+@pytest.mark.parametrize('zero_inflated', [False, True], ids=['NB', 'ZINB'])
+def test_count_root_matches_jax(zero_inflated, ens_shape):
+  params = _count_params(ens_shape, 200, sum(ens_shape), zero_inflated)
+  t_obs = t_dist.count_obs_dist(*[torch.from_numpy(p) for p in params])
+  j_obs = j_dist.count_obs_dist(*[jnp.asarray(p) for p in params])
+  for q in (0.05, 0.5, 0.9, 0.99):
+    got = t_quantiles.count_mixture_quantile_root(t_obs, q)
+    assert got.shape == (200,)
+    _assert_counts_close(got, j_quantiles.count_mixture_quantile_root(
+        j_obs, q, ensemble_axes=(0, 1)))
+    # The least count whose mixture CDF reaches q, up to the search's
+    # 1e-5 value tolerance.
+    k = got.numpy().astype(float)
+    assert (_mixture_count_cdf(k, params) >= q - 1e-5).all()
+    assert (_mixture_count_cdf(k - 1, params) < q + 1e-5).all()
+
+
+def test_count_root_clamps_to_zero_and_takes_given_stats():
+  # Where the mixture's P(0) exceeds q the quantile is 0; given bracket
+  # statistics (as a streamed predict passes them) give the same roots.
+  params = _count_params((1, 3), 60, 5, zero_inflated=True)
+  params[2][:, 0] = 0.95
+  t_obs = t_dist.count_obs_dist(*[torch.from_numpy(p) for p in params])
+  got = t_quantiles.count_mixture_quantile_root(t_obs, 0.3)
+  assert got[0].item() == 0.0
+  stats_ = (t_obs.mean().amax(), t_obs.stddev().amax())
+  again = t_quantiles.count_mixture_quantile_root(t_obs, 0.3, stats=stats_)
+  assert torch.equal(got, again)
+  j_obs = j_dist.count_obs_dist(*[jnp.asarray(p) for p in params])
+  _assert_counts_close(got, j_quantiles.count_mixture_quantile_root(
+      j_obs, 0.3, ensemble_axes=(0, 1)))

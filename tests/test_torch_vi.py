@@ -13,6 +13,9 @@ against `bayesnf_tpu`.
   rtol 1e-5, surrogate leaves to 1e-4 of their largest magnitude.
 - The RNG-independent golden gate of `test_golden_mini_parity.py` for VI on
   chickenpox-8, and VI artifacts crossing between the packages both ways.
+- The count models: the NB and ZINB ELBO and its gradients on count
+  targets, at the same bounds; an NB VI fit here whose artifact predicts
+  the same in the JAX package.
 """
 
 import pathlib
@@ -96,7 +99,15 @@ def _indices(rng, batch):
   return np.stack([rng.permutation(N_ROWS)[:batch] for _ in range(MEMBERS)])
 
 
-def _jax_elbo(config, aug, y, idx, batch):
+def _count_targets(y, seed=4):
+  """Counts whose log-mean follows the NORMAL targets, with extra zeros."""
+  rng = np.random.default_rng(seed)
+  counts = rng.poisson(np.exp(y / 2.0) + 1.0).astype(np.float32)
+  counts[rng.uniform(size=counts.shape) < 0.2] = 0.0
+  return counts
+
+
+def _jax_elbo(config, aug, y, idx, batch, distribution=NORMAL_J):
   """`(locs, raw_scales, noise) -> (E,)` per-member negative ELBO from the
   JAX package's own pieces; member m's batch is aug[idx[m]]."""
   d = config.num_inputs
@@ -113,7 +124,7 @@ def _jax_elbo(config, aug, y, idx, batch):
 
     def one_draw(zz):
       pred = j_field.apply_field_t(config, zz, aug_t[:d], aug_t[d:])
-      loglik = j_likelihoods.log_likelihood(NORMAL_J, zz, pred, y_m)
+      loglik = j_likelihoods.log_likelihood(distribution, zz, pred, y_m)
       return j_vi._surrogate_log_prob(locs, scales, zz) - (  # pylint: disable=protected-access
           j_priors.prior_log_prob(config, zz)
           + loglik * (N_ROWS / n_b) / KL_WEIGHT)
@@ -316,13 +327,63 @@ def test_vi_refusals_and_errors():
     with pytest.raises(NotImplementedError, match='ROADMAP'):
       est.fit(_table(), seed=0, ensemble_size=2, num_epochs=1, device='cpu',
               **change)
-  nb = bayesnf_torch.BayesianNeuralFieldVI(
-      **dict(ESTIMATOR_KWARGS, observation_model='NB'))
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    nb.fit(_table(), seed=0, ensemble_size=2, num_epochs=1, device='cpu')
   with pytest.raises(ValueError, match='CUDA device'):
     est.fit(_table(), seed=0, ensemble_size=2, num_epochs=1, device='cpu',
             backend='kernel')
+
+
+@pytest.mark.parametrize('batch', [None, BATCH], ids=['full', 'minibatch'])
+@pytest.mark.parametrize('backend', ['torch', 'kernel'],
+                         ids=['torch', 'kernel-path'])
+@pytest.mark.parametrize('distribution', ['NB', 'ZINB'])
+def test_count_elbo_and_gradients_match_jax(distribution, backend, batch):
+  j_config, t_config, aug, y = _data()
+  counts = _count_targets(y)
+  locs, raw = _surrogate(j_config, seed=5)
+  rng = np.random.default_rng(6)
+  noise, idx = _noise(j_config, rng), _indices(rng, batch)
+  j_elbo = _jax_elbo(j_config, aug, counts, idx, batch,
+                     j_likelihoods.LikelihoodDist(distribution))
+  j_args = [tuple(jnp.asarray(a) for a in arrays)
+            for arrays in (locs, raw, noise)]
+  want = j_elbo(*j_args)
+  want_grads = jax.grad(lambda l, r: j_elbo(l, r, j_args[2]).sum(),
+                        argnums=(0, 1))(*j_args[:2])
+  elbo = t_vi.make_elbo_losses(
+      t_config, t_likelihoods.LikelihoodDist(distribution),
+      (N_ROWS / (batch or N_ROWS)) / KL_WEIGHT, backend)
+  leaves = [torch.as_tensor(a).requires_grad_(True) for a in (*locs, *raw)]
+  got = elbo(leaves[:len(locs)], leaves[len(locs):],
+             tuple(torch.as_tensor(a) for a in noise),
+             *_port_batch(aug, counts, idx))
+  grads = torch.autograd.grad(got.sum(), leaves)
+  np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                             rtol=LOSS_RTOL)
+  _leaf_close([g.numpy() for g in grads],
+              [*want_grads[0], *want_grads[1]], LEAF_TOL, 'grads')
+
+
+def test_count_vi_fit_predicts_and_saves_for_jax(tmp_path):
+  table = _table()
+  table['y'] = _count_targets(table['y'].to_numpy())
+  port = bayesnf_torch.BayesianNeuralFieldVI(
+      **dict(ESTIMATOR_KWARGS, observation_model='NB')).fit(
+          table, seed=0, ensemble_size=2, num_epochs=3, batch_size=48,
+          sample_size_posterior=3, device='cpu')
+  assert port.losses_.shape == (1, 2, 6) and np.isfinite(port.losses_).all()
+  port.save(str(tmp_path / 'nb.npz'))
+  back = bayesnf_tpu.BayesianNeuralFieldEstimator.load(
+      str(tmp_path / 'nb.npz'))
+  assert type(back).__name__ == 'BayesianNeuralFieldVI'
+  assert back.observation_model == 'NB'
+  new = _table(n_hours=30, seed=2)
+  want_means, want_q = back.predict(new, quantiles=(0.5, 0.9), backend='xla')
+  means, quantiles = port.predict(new, quantiles=(0.5, 0.9))
+  np.testing.assert_allclose(means.numpy(), np.asarray(want_means),
+                             rtol=2e-5, atol=1e-4)
+  for g, w in zip(quantiles, want_q):
+    off = np.abs(g.numpy() - np.asarray(w))
+    assert off.max() <= 1.0 and (off > 0).sum() <= max(1, len(new) // 100)
 
 
 def test_chickenpox_vi_mini_golden():
