@@ -24,10 +24,15 @@
   by autograd, after the likelihood. The observation model is NORMAL, NB
   or ZINB on both.
 - `fit_map` keeps the `num_splits` host loop over ensemble chunks.
+- `precision` ('f32', 'highest' or 'bf16', `ops/mixed.py`) sets the
+  products of both backends: on 'torch' every dense layer's product
+  (`mixed.matmul_bf16` under 'bf16', as the JAX package's XLA path), on
+  'kernel' K1's (as its TPU kernel). 'highest' is 'f32' bit for bit. The
+  'torch' backend's fp32 products run in true fp32 whatever the caller set
+  (`mixed.fp32_matmuls`).
 
 Not ported yet, and raising NotImplementedError: checkpoints, host
-streaming, precision other than 'f32' and a device mesh (ROADMAP.md,
-queue 1).
+streaming and a device mesh (ROADMAP.md, queue 1).
 """
 
 from typing import NamedTuple
@@ -40,6 +45,7 @@ from bayesnf_torch.models import field as field_lib
 from bayesnf_torch.models import likelihoods
 from bayesnf_torch.models import priors
 from bayesnf_torch.ops import fused_mlp
+from bayesnf_torch.ops import mixed
 
 # Rows per autograd chunk on the 'torch' backend (the JAX package's
 # `grad_row_chunk`): one chunk's graph holds a few (E, width, ROW_CHUNK)
@@ -100,13 +106,16 @@ def _prior_losses_and_grads(config, params, prior_weight):
   return losses.detach(), list(grads)
 
 
-def make_nll_and_grads(config, distribution, lik_scale, backend):
+def make_nll_and_grads(config, distribution, lik_scale, backend,
+                       precision='f32'):
   """The `(params, x_t, seasonal_t, y) -> (losses (E,), grads)` of
-  `lik_scale * -loglik` on `backend` ('torch' or 'kernel', resolved).
+  `lik_scale * -loglik` on `backend` ('torch' or 'kernel', resolved), its
+  products at `precision`.
 
   x_t (D, B), seasonal_t (2F, B) and y (B,) are shared by every member, or
   grouped with a leading axis that divides E (`field.grouped`).
   """
+  mixed.check_precision(precision)
 
   def torch_nll_and_grads(params, x_t, seasonal_t, y):
     losses = torch.zeros_like(params[0]).reshape(-1)
@@ -114,9 +123,9 @@ def make_nll_and_grads(config, distribution, lik_scale, backend):
     leaves = [p.detach().requires_grad_(True) for p in params]
     for lo in range(0, y.shape[-1], ROW_CHUNK):
       rows = slice(lo, lo + ROW_CHUNK)
-      with torch.enable_grad():
+      with torch.enable_grad(), mixed.fp32_matmuls():
         pred = field_lib.apply_field_t(
-            config, leaves, x_t[..., rows], seasonal_t[..., rows])
+            config, leaves, x_t[..., rows], seasonal_t[..., rows], precision)
         chunk_losses = -lik_scale * likelihoods.log_likelihood(
             distribution, leaves, pred, y[..., rows]
         )
@@ -141,6 +150,7 @@ def make_nll_and_grads(config, distribution, lik_scale, backend):
         params[field_lib.IDX_FEATURE_SCALES],
         params[field_lib.IDX_LAYER_SCALES],
         params[field_lib.IDX_ACTIVATION_LOGIT], obs_raw, y,
+        precision=precision,
     )
     return losses, field_lib.scatter_fused_train_grads(
         config, dlsa, dfs, dws, dbs, dscales, dlogit, dobs)
@@ -153,12 +163,14 @@ def make_nll_and_grads(config, distribution, lik_scale, backend):
 
 
 def make_losses_and_grads(config, distribution, prior_weight, backend,
-                          lik_scale=1.0):
+                          lik_scale=1.0, precision='f32'):
   """The per-step `(params, x_t, seasonal_t, y) -> (losses (E,), grads)` of
   a fit on `backend` ('torch' or 'kernel', resolved): `lik_scale` (N / B)
   times the negative log-likelihood of the step's rows, shared (D, B) or
-  per member (E, D, B) (`make_nll_and_grads`), plus the prior."""
-  nll_and_grads = make_nll_and_grads(config, distribution, lik_scale, backend)
+  per member (E, D, B) (`make_nll_and_grads`, at `precision`), plus the
+  prior."""
+  nll_and_grads = make_nll_and_grads(config, distribution, lik_scale, backend,
+                                     precision)
 
   def losses_and_grads(params, x_t, seasonal_t, y):
     losses, grads = nll_and_grads(params, x_t, seasonal_t, y)
@@ -200,6 +212,7 @@ def train(
     backend: str = 'torch',
     batch_size: int | None = None,
     permutations=None,
+    precision: str = 'f32',
 ):
   """`num_epochs` Adam epochs from `params` and `opt_state`.
 
@@ -218,6 +231,7 @@ def train(
     permutations: with B < N, a function `epoch -> (E, N)` row permutation
       per member (`random_permutations` from a seeded generator in a fit;
       tests give the JAX package's).
+    precision: 'f32' | 'highest' | 'bf16' (`make_nll_and_grads`).
 
   Returns:
     (params, opt_state, losses): losses (E, num_epochs) on the parameters'
@@ -228,7 +242,8 @@ def train(
   n = target.shape[0]
   batch_size = n if batch_size is None else min(int(batch_size), n)
   losses_and_grads = make_losses_and_grads(
-      config, distribution, prior_weight, backend, lik_scale=n / batch_size)
+      config, distribution, prior_weight, backend, lik_scale=n / batch_size,
+      precision=precision)
   x_t, seasonal_t = aug_t[:d], aug_t[d:]
   params = tuple(params)
   num_batches = n // batch_size
@@ -268,8 +283,7 @@ def init_ensemble(config, ensemble_size, seed: int, log_noise_init, device):
 
 
 def check_supported(mesh=None, checkpoint_dir=None, checkpoint_every=None,
-                    precision='f32', stream_chunk_steps=None,
-                    stream_member_remix=False):
+                    stream_chunk_steps=None, stream_member_remix=False):
   """Raises NotImplementedError for what the port does not train yet."""
   if mesh is not None:
     raise NotImplementedError(
@@ -286,11 +300,6 @@ def check_supported(mesh=None, checkpoint_dir=None, checkpoint_every=None,
         'Host streaming is not ported to PyTorch yet (ROADMAP.md, queue 1 '
         'item 12).'
     )
-  if precision != 'f32':
-    raise NotImplementedError(
-        f"precision={precision!r} is not ported to PyTorch yet (ROADMAP.md, "
-        "queue 2 K1 stage 5); the port trains in 'f32'."
-    )
 
 
 def ensemble_map(
@@ -306,6 +315,7 @@ def ensemble_map(
     prior_weight: float = 1.0,
     backend: str = 'auto',
     device='cuda',
+    precision: str = 'f32',
     **unported,
 ):
   """Train `ensemble_size` independent MAP/MLE members.
@@ -325,8 +335,10 @@ def ensemble_map(
     prior_weight: prior multiplier (0 == MLE).
     backend: 'auto' | 'torch' | 'kernel' (`backends.resolve_backend`).
     device: where the fit runs.
-    **unported: the JAX package's mesh, checkpoint, precision and
-      streaming arguments; anything but their defaults raises.
+    precision: 'f32' | 'highest' (the same, bit for bit) | 'bf16'
+      (`make_nll_and_grads`).
+    **unported: the JAX package's mesh, checkpoint and streaming
+      arguments; anything but their defaults raises.
 
   Returns:
     (params, losses): params with leading member axis (ensemble_size, ...)
@@ -350,6 +362,7 @@ def ensemble_map(
       prior_weight=prior_weight, backend=backend, batch_size=batch_size,
       permutations=lambda _: random_permutations(
           generator, ensemble_size, y.shape[0]),
+      precision=precision,
   )
   return params, losses.cpu().numpy()
 
@@ -393,6 +406,7 @@ def fit_map(
     num_splits: int = 1,
     backend: str = 'auto',
     device='cuda',
+    precision: str = 'f32',
     **unported,
 ):
   """Fit a MAP/MLE ensemble in `num_splits` sequential splits.
@@ -414,7 +428,7 @@ def fit_map(
         ensemble_size=per_split, learning_rate=learning_rate,
         num_epochs=num_epochs, seed=split_seed(seed, i, num_splits),
         batch_size=batch_size, prior_weight=prior_weight, backend=backend,
-        device=device, **unported,
+        device=device, precision=precision, **unported,
     )
     params_splits.append(params_i)
     losses_splits.append(losses_i)

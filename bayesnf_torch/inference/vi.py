@@ -28,9 +28,11 @@
   takes the noise and the batches as arguments.
 - Adam (`map.adam_update`) over the locs and raw scales, one state.
 
-The observation model is NORMAL, NB or ZINB. Not ported yet, and raising
-NotImplementedError: checkpoints, host streaming, precision other than
-'f32' and a device mesh (ROADMAP.md, queue 1).
+The observation model is NORMAL, NB or ZINB, and `precision` sets the
+likelihood term's products as in `map.make_nll_and_grads` ('f32',
+'highest' or 'bf16'); sampling, log q and the prior are fp32. Not ported
+yet, and raising NotImplementedError: checkpoints, host streaming and a
+device mesh (ROADMAP.md, queue 1).
 """
 
 import numpy as np
@@ -104,16 +106,18 @@ class _NLL(torch.autograd.Function):
             *(gr * g.reshape((-1,) + (1,) * (gr.ndim - 1)) for gr in grads))
 
 
-def make_elbo_losses(config, distribution, lik_scale, backend):
+def make_elbo_losses(config, distribution, lik_scale, backend,
+                     precision='f32'):
   """`(locs, raw_scales, noise, x_b, seasonal_b, y_b) -> (E,)` per-member
   negative ELBO, differentiable in the locs and raw scales.
 
   `lik_scale` is (N / B) / kl_weight; `noise` leaves are (E, S, ...);
   x_b (D, N), seasonal_b (2F, N), y_b (N,) are the full batch, or
-  (E, D, B), (E, 2F, B), (E, B) per-member minibatches.
+  (E, D, B), (E, 2F, B), (E, B) per-member minibatches. The likelihood
+  term's products run at `precision`.
   """
   nll_and_grads = map_lib.make_nll_and_grads(
-      config, distribution, lik_scale, backend)
+      config, distribution, lik_scale, backend, precision)
 
   def elbo_losses(locs, raw_scales, noise, x_b, seasonal_b, y_b):
     scales = surrogate_scales(raw_scales)
@@ -127,11 +131,13 @@ def make_elbo_losses(config, distribution, lik_scale, backend):
   return elbo_losses
 
 
-def make_step(config, distribution, lik_scale, learning_rate, backend):
+def make_step(config, distribution, lik_scale, learning_rate, backend,
+              precision='f32'):
   """One Adam step of every surrogate: `(surrogate, opt_state, noise, x_b,
   seasonal_b, y_b) -> (surrogate, opt_state, losses (E,))`, the losses
   before the update (see `make_elbo_losses` for the arguments)."""
-  elbo_losses = make_elbo_losses(config, distribution, lik_scale, backend)
+  elbo_losses = make_elbo_losses(config, distribution, lik_scale, backend,
+                                 precision)
 
   def step(surrogate, opt_state, noise, x_b, seasonal_b, y_b):
     leaves = [p.detach().requires_grad_(True)
@@ -150,8 +156,9 @@ def make_step(config, distribution, lik_scale, learning_rate, backend):
 
 def train(surrogate, opt_state, aug_t, target, config, distribution,
           learning_rate, num_steps, batch_size, sample_size, kl_weight,
-          generator, backend):
-  """`num_steps` VI steps; noise and batches from `generator`.
+          generator, backend, precision='f32'):
+  """`num_steps` VI steps; noise and batches from `generator`; the
+  likelihood term's products at `precision`.
 
   Returns:
     (surrogate, opt_state, losses): losses (E, num_steps) on the device,
@@ -161,7 +168,7 @@ def train(surrogate, opt_state, aug_t, target, config, distribution,
   n = target.shape[0]
   members = surrogate[0][0].shape[0]
   step = make_step(config, distribution, (n / batch_size) / kl_weight,
-                   learning_rate, backend)
+                   learning_rate, backend, precision)
   x_t, seasonal_t = aug_t[:d], aug_t[d:]
   history = []
   for _ in range(int(num_steps)):
@@ -200,6 +207,7 @@ def fit_vi(
     batch_size: int | None = None,
     backend: str = 'auto',
     device='cuda',
+    precision: str = 'f32',
     **unported,
 ):
   """Fit an ensemble of mean-field surrogate posteriors.
@@ -221,8 +229,10 @@ def fit_vi(
     batch_size: rows per step; None (or at least N) is the full batch.
     backend: 'auto' | 'torch' | 'kernel' (`backends.resolve_backend`).
     device: where the fit runs.
-    **unported: the JAX package's mesh, checkpoint, precision and
-      streaming arguments; anything but their defaults raises.
+    precision: 'f32' | 'highest' (the same, bit for bit) | 'bf16', for the
+      likelihood term's products (`map.make_nll_and_grads`).
+    **unported: the JAX package's mesh, checkpoint and streaming
+      arguments; anything but their defaults raises.
 
   Returns:
     (surrogate, losses, draws): (locs, raw_scales) with leading member axis
@@ -246,7 +256,7 @@ def fit_vi(
   surrogate, _, losses = train(
       surrogate, opt_state, aug_t, y, config, distribution, learning_rate,
       num_epochs, batch_size, int(sample_size_divergence), float(kl_weight),
-      generator, backend)
+      generator, backend, precision)
   draws = posterior_draws(config, surrogate, int(sample_size_posterior),
                           generator)
   return surrogate, losses.cpu().numpy(), draws

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from bayesnf_torch.models import features as feat_lib
+from bayesnf_torch.ops import mixed
 from bayesnf_torch.ops import special
 
 
@@ -385,8 +386,9 @@ def blended_act(z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
   return _BlendedAct.apply(z, w)
 
 
-def mlp_t(depth, h0_groups, weights, biases, scales_raw, logit) -> torch.Tensor:
-  """Features-major field MLP, plain PyTorch: one `torch.matmul` per layer.
+def mlp_t(depth, h0_groups, weights, biases, scales_raw, logit,
+          precision='f32', k1_sites=False) -> torch.Tensor:
+  """Features-major field MLP, plain PyTorch: one matrix product per layer.
 
   Args:
     depth: hidden layers.
@@ -395,6 +397,10 @@ def mlp_t(depth, h0_groups, weights, biases, scales_raw, logit) -> torch.Tensor:
     biases: depth + 1 tensors (E, fan_out).
     scales_raw: (E, depth + 1) pre-softplus layer scales.
     logit: (E,) activation logits.
+    precision: 'f32' | 'highest' (`torch.matmul`) | 'bf16'
+      (`mixed.matmul_bf16` on every layer, as the JAX package's XLA path).
+    k1_sites: under 'bf16', round where the K1 kernel rounds instead: a
+      weight gradient with one column (the output layer's) stays fp32.
 
   Returns:
     (E, N) predictions.
@@ -403,7 +409,9 @@ def mlp_t(depth, h0_groups, weights, biases, scales_raw, logit) -> torch.Tensor:
   s = special.softplus(scales_raw)
   w = torch.sigmoid(logit)[:, None, None]
   for l in range(depth + 1):
-    z = torch.matmul(weights[l].transpose(1, 2), h * (1.0 / math.sqrt(h.shape[1])))
+    z = mixed.matmul(
+        weights[l].transpose(1, 2), h * (1.0 / math.sqrt(h.shape[1])),
+        precision, exact_da=k1_sites and weights[l].shape[-1] == 1)
     z = s[:, l, None, None] * (z + biases[l][:, :, None])
     if l < depth:
       h = blended_act(z, w)
@@ -415,9 +423,11 @@ def apply_field_t(
     params: tuple,
     x_t: torch.Tensor,
     seasonal_t: torch.Tensor,
+    precision: str = 'f32',
 ) -> torch.Tensor:
   """Features-major forward, plain PyTorch: (D, N) shared or (E/rep, D, N)
-  grouped inputs -> (E, N)."""
+  grouped inputs -> (E, N); the dense layers' products at `precision`
+  (`mlp_t`)."""
   weights, biases = dense_params(config, params)
   return mlp_t(
       config.depth,
@@ -426,6 +436,7 @@ def apply_field_t(
       biases,
       params[IDX_LAYER_SCALES],
       params[IDX_ACTIVATION_LOGIT],
+      precision,
   )
 
 

@@ -69,9 +69,28 @@
 // all S of its Monte-Carlo draws (VI), with no S-fold copy of the batch.
 // Only these reads depend on it; the scratch and every later kernel work per
 // member already.
-// Making it fast (wgmma, TMA, keeping z_l on chip, bf16 operands) is later
-// work.
+//
+// Precision. Under 'bf16' every matrix product the TPU kernel casts (its
+// `_mm_t`, where the second operand's free dimension exceeds 1) takes its
+// operands rounded to bf16 (nearest even), multiplies them exactly and sums
+// in fp32: the hidden and output forwards, the backward's W dv products (the
+// output layer's included) and the hidden weight gradients. The output
+// layer's weight gradient, the bias gradients and every scalar partial stay
+// fp32, as do the parameters, the encode, the activations and the
+// likelihood. Each operand is rounded once, where it enters shared memory or
+// a staged tile, never in an FMA loop: the weights by `round_bf16_kernel`
+// into rounded copies at the start of the call, the tile's matmul inputs and
+// W dv cotangents where `train_tile_kernel<., ., true>` writes them to shared
+// memory (their scratch copies stay fp32: `rowdot_kernel` sums the fp32
+// lhs_depth, dv_l and dv_out), and the weight gradients' operands where
+// `wgrad_kernel<true>` stages them. The FMAs stay on the fp32 pipe (a
+// product of two bf16 values is exact in fp32), so the reduction orders, and
+// bitwise reproducibility, are those of the fp32 kernels; precision is a
+// template parameter, so the fp32 instantiations are the code they were.
+// Making it fast (wgmma with bf16 operands, TMA, keeping z_l on chip) is
+// later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -159,6 +178,11 @@ __device__ __forceinline__ float softplus(float x) {
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
+}
+
+// x rounded to bf16 (nearest even) and widened back to fp32, exactly.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // log Gamma(x), x > 0, as `gammaln_stirling` in bayesnf_tpu/ops/special.py:
@@ -476,7 +500,10 @@ __device__ __forceinline__ void encode_row(const TrainArgs& args, int e,
   }
 }
 
-template <int TR, int kLik>
+// kBf16: the 'bf16' precision. args.w then points at the bf16-rounded weight
+// copies, and the matmul inputs and W dv cotangents in shared memory are
+// rounded where they are written (see the header).
+template <int TR, int kLik, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
     train_tile_kernel(const TrainArgs args) {
   constexpr int RT = TR / kRowGroups;  // rows per thread, a multiple of 4
@@ -516,8 +543,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   {
     float* lhs = args.lhs[0] + (size_t)e * f * ld + col0;
     for (int i = tid; i < f * TR; i += kThreads) {
-      lhs[(i / TR) * ld + i % TR] = bufs[0][(i / TR) * LDH + i % TR];
+      float* h0 = bufs[0] + (i / TR) * LDH + i % TR;
+      lhs[(i / TR) * ld + i % TR] = *h0;
+      if constexpr (kBf16) *h0 = round_bf16(*h0);
     }
+    // The rounded h_0 is read by other threads next (block_matmul starts
+    // with a barrier, the depth-0 output layer does not).
+    if constexpr (kBf16) __syncthreads();
   }
 
   // --- Forward; z_l and the next layer's input go to scratch.
@@ -546,7 +578,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float h = blended_act(zz, wgt) * rs_next;
       zg[j * ld + r] = zz;
       lhs[j * ld + r] = h;
-      hout[j * LDH + r] = h;
+      hout[j * LDH + r] = kBf16 ? round_bf16(h) : h;
     }
     __syncthreads();
     fan_in = width;
@@ -597,7 +629,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           dp2 = valid ? dlp_dp2 : 0.f;
         }
         const float dvo = gg * s_out;
-        dv_out[tid] = dvo;
+        // Only the W_out dv_out product below reads the shared copy.
+        dv_out[tid] = kBf16 ? round_bf16(dvo) : dvo;
         args.dv[depth][(size_t)e * ld + col0 + tid] = dvo;
         gv = gg * v_out;
       }
@@ -647,7 +680,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float dz = dh * dact_dz;
       dzz += dz * z;
       const float dv = dz * s;
-      cur[j * LDH + r] = dv;
+      // Only the W dv product reads the shared copy; db_l sums the fp32 one.
+      cur[j * LDH + r] = kBf16 ? round_bf16(dv) : dv;
       dvg[j * ld + r] = dv;
     }
     dzz = block_sum(dzz, red);
@@ -767,12 +801,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 // dw[e] (+)= a[e] b[e]^T over `len` rows: a (E, m, ld), b (E, nn, ld),
 // dw (E, m, nn). 128 x 128 output tile per block, 8 x 8 per thread, rows
 // staged 8 at a time. Each output is summed over rows in order by one
-// thread; `accumulate` adds the chunk's sum to what dw holds.
+// thread; `accumulate` adds the chunk's sum to what dw holds. kRound rounds
+// both operands to bf16 where they are staged into shared memory.
 constexpr int kGTile = 128;
 constexpr int kGK = 8;
 constexpr int kGLd = kGTile + 4;
 constexpr int kGLoads = kGTile * kGK / kThreads;  // 4 per operand per thread
 
+template <bool kRound>
 __global__ void __launch_bounds__(kThreads)
     wgrad_kernel(const float* __restrict__ a, const float* __restrict__ b,
                  float* __restrict__ dw, int m, int nn, int len, int ld,
@@ -808,8 +844,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int q = 0; q < kGLoads; ++q) {
       const int i = tid + q * kThreads;
-      as[i % kGK][i / kGK] = pa[q];
-      bs[i % kGK][i / kGK] = pb[q];
+      as[i % kGK][i / kGK] = kRound ? round_bf16(pa[q]) : pa[q];
+      bs[i % kGK][i / kGK] = kRound ? round_bf16(pb[q]) : pb[q];
     }
     __syncthreads();
     if (r0 + kGK < len) load(r0 + kGK);
@@ -863,6 +899,16 @@ __global__ void __launch_bounds__(kThreads)
   }
   v = warp_sum(v);
   if (lane == 0) out[gw] = accumulate ? out[gw] + v : v;
+}
+
+// out[i] = in[i] rounded to bf16 (the weights' copies under 'bf16').
+__global__ void __launch_bounds__(kThreads)
+    round_bf16_kernel(const float* __restrict__ in, float* __restrict__ out,
+                      size_t n) {
+  for (size_t i = blockIdx.x * (size_t)kThreads + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * kThreads) {
+    out[i] = round_bf16(__ldg(in + i));
+  }
 }
 
 struct FinalArgs {
@@ -951,29 +997,51 @@ size_t floats_per_row(int num_features, int width, int depth) {
   return (size_t)num_features + 3 * (size_t)depth * width + 1;
 }
 
-template <int TR, int kLik>
+template <int TR, int kLik, bool kBf16>
 cudaError_t launch_tile(const TrainArgs& args, int tiles, int members,
                         size_t smem_bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      train_tile_kernel<TR, kLik>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      train_tile_kernel<TR, kLik, kBf16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_bytes));
   if (err != cudaSuccess) return err;
-  train_tile_kernel<TR, kLik>
+  train_tile_kernel<TR, kLik, kBf16>
       <<<dim3(tiles, members), kThreads, smem_bytes, stream>>>(args);
   return cudaGetLastError();
 }
 
-template <int kLik>
+template <int kLik, bool kBf16>
 cudaError_t launch_tile_rows(const TrainArgs& args, int tile_rows, int tiles,
                              int members, size_t smem_bytes,
                              cudaStream_t stream) {
   switch (tile_rows) {
     case 32:
-      return launch_tile<32, kLik>(args, tiles, members, smem_bytes, stream);
+      return launch_tile<32, kLik, kBf16>(args, tiles, members, smem_bytes,
+                                          stream);
     case 16:
-      return launch_tile<16, kLik>(args, tiles, members, smem_bytes, stream);
+      return launch_tile<16, kLik, kBf16>(args, tiles, members, smem_bytes,
+                                          stream);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// The tile kernel of `likelihood` and precision kBf16: TR {32, 16} x
+// likelihood x precision, twelve instantiations.
+template <bool kBf16>
+cudaError_t launch_tile_likelihood(const TrainArgs& args, int likelihood,
+                                   int tile_rows, int tiles, int members,
+                                   size_t smem_bytes, cudaStream_t stream) {
+  switch (likelihood) {
+    case kNormal:
+      return launch_tile_rows<kNormal, kBf16>(args, tile_rows, tiles, members,
+                                              smem_bytes, stream);
+    case kNB:
+      return launch_tile_rows<kNB, kBf16>(args, tile_rows, tiles, members,
+                                          smem_bytes, stream);
+    default:
+      return launch_tile_rows<kZINB, kBf16>(args, tile_rows, tiles, members,
+                                            smem_bytes, stream);
   }
 }
 
@@ -1004,13 +1072,15 @@ size_t bnf_fused_train_scratch_bytes(int members, int num_features, int width,
 }
 
 // Loss and gradients of the training objective under `likelihood` (Lik:
-// 0 NORMAL, 1 NB, 2 ZINB) on `stream`. Pointers
-// are device pointers to contiguous float32 tensors, except the host arrays
-// `weights`, `biases`, `dweights`, `dbiases` (depth + 1 device pointers),
-// `rsqrts` (depth + 1 floats), `fourier_degrees` (num_inputs ints) and
-// `pairs` (2 * num_pairs ints). `x`, `seasonal` and `y` hold one row set
-// per group of `*_rep` members, `*_group_stride` floats apart (stride 0 and
-// rep 1 for a set shared by every member). `scratch` holds
+// 0 NORMAL, 1 NB, 2 ZINB) at `precision` (0 fp32, 1 bf16) on `stream`.
+// Pointers are device pointers to contiguous float32 tensors, except the
+// host arrays `weights`, `biases`, `dweights`, `dbiases`, `weights16` (depth
+// + 1 device pointers; `weights16`, buffers shaped like the weights that
+// receive their bf16-rounded copies, is read only under bf16), `rsqrts`
+// (depth + 1 floats), `fourier_degrees` (num_inputs ints) and `pairs` (2 *
+// num_pairs ints). `x`, `seasonal` and `y` hold one row set per group of
+// `*_rep` members, `*_group_stride` floats apart (stride 0 and rep 1 for a
+// set shared by every member). `scratch` holds
 // bnf_fused_train_scratch_bytes(...) bytes. Returns the first launch's
 // cudaError_t that is not cudaSuccess, or 0.
 int bnf_fused_train(const void* x, const void* seasonal, const void* y,
@@ -1024,7 +1094,8 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
                     const int* pairs, size_t x_group_stride, int x_rep,
                     size_t seasonal_group_stride, int seasonal_rep,
                     size_t y_group_stride, int y_rep, float lik_scale,
-                    int likelihood, int depth, int members,
+                    int likelihood, int precision,
+                    void* const* weights16, int depth, int members,
                     int num_inputs, int num_seasonal, int num_pairs, int width,
                     int n_rows, int tile_rows, int chunk_rows, void* stream) {
   if (depth < 0 || depth + 1 > kMaxLayers || members < 1 || members > 65535 ||
@@ -1033,9 +1104,11 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
       chunk_rows < tile_rows || chunk_rows % tile_rows != 0 || x_rep < 1 ||
       members % x_rep != 0 || seasonal_rep < 1 || members % seasonal_rep != 0 ||
       y_rep < 1 || members % y_rep != 0 || likelihood < kNormal ||
-      likelihood > kZINB) {
+      likelihood > kZINB || precision < 0 || precision > 1 ||
+      (precision == 1 && weights16 == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool bf16 = precision == 1;
   TrainArgs args = {};
   int num_features = num_inputs + num_seasonal + num_pairs;
   int num_groups = 1 + (num_seasonal > 0) + (num_pairs > 0);
@@ -1111,6 +1184,22 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
   const size_t smem = bnf_fused_train_smem_bytes(tile_rows, num_features, width);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+  if (bf16) {
+    // The tile kernel reads the rounded copies in place of the weights.
+    for (int l = 0; l <= depth; ++l) {
+      const size_t n = (size_t)members * (l == 0 ? num_features : width) *
+                       (l == depth ? 1 : width);
+      float* out = static_cast<float*>(weights16[l]);
+      const size_t blocks = (n + kThreads - 1) / kThreads;
+      round_bf16_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), kThreads,
+                          0, s>>>(args.w[l], out, n);
+      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+      args.w[l] = out;
+    }
+  }
+  // The hidden weight gradients round their operands under bf16 where the
+  // TPU kernel does: when dv_l has more than one column (width > 1).
+  const bool round_wgrad = bf16 && width > 1;
   for (int row0 = 0; row0 < n_rows; row0 += chunk_rows) {
     const int chunk = n_rows - row0 < chunk_rows ? n_rows - row0 : chunk_rows;
     const int tiles = (chunk + tile_rows - 1) / tile_rows;
@@ -1118,25 +1207,23 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
     const int acc = row0 > 0;
     args.row0 = row0;
     args.tile0 = row0 / tile_rows;
-    switch (likelihood) {
-      case kNormal:
-        err = launch_tile_rows<kNormal>(args, tile_rows, tiles, members, smem, s);
-        break;
-      case kNB:
-        err = launch_tile_rows<kNB>(args, tile_rows, tiles, members, smem, s);
-        break;
-      default:
-        err = launch_tile_rows<kZINB>(args, tile_rows, tiles, members, smem, s);
-        break;
-    }
+    err = bf16 ? launch_tile_likelihood<true>(args, likelihood, tile_rows,
+                                              tiles, members, smem, s)
+               : launch_tile_likelihood<false>(args, likelihood, tile_rows,
+                                               tiles, members, smem, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     int fan_in = num_features;
     for (int l = 0; l < depth; ++l) {
       const dim3 grid((width + kGTile - 1) / kGTile,
                       (fan_in + kGTile - 1) / kGTile, members);
-      wgrad_kernel<<<grid, kThreads, 0, s>>>(
-          args.lhs[l], args.dv[l], static_cast<float*>(dweights[l]), fan_in,
-          width, len, chunk_rows, acc);
+      float* dw = static_cast<float*>(dweights[l]);
+      if (round_wgrad) {
+        wgrad_kernel<true><<<grid, kThreads, 0, s>>>(
+            args.lhs[l], args.dv[l], dw, fan_in, width, len, chunk_rows, acc);
+      } else {
+        wgrad_kernel<false><<<grid, kThreads, 0, s>>>(
+            args.lhs[l], args.dv[l], dw, fan_in, width, len, chunk_rows, acc);
+      }
       if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
       fan_in = width;
     }

@@ -35,6 +35,7 @@ import torch
 from bayesnf_torch.models import field as field_lib
 from bayesnf_torch.models import likelihoods
 from bayesnf_torch.ops import _build
+from bayesnf_torch.ops import mixed
 
 _LIB_NAME = 'fused_mlp_fwd'
 _TRAIN_LIB_NAME = 'fused_train'
@@ -50,6 +51,8 @@ MAX_PAIRS = 32  # kMaxPairs.
 MAX_PARTIALS = 32
 # The kernel's likelihood codes (`Lik` in csrc/fused_train.cu).
 LIKELIHOOD_CODES = {'NORMAL': 0, 'NB': 1, 'ZINB': 2}
+# Its precision codes: 'highest' runs the fp32 kernel (see `ops/mixed.py`).
+PRECISION_CODES = {'f32': 0, 'highest': 0, 'bf16': 1}
 # Global scratch one `fused_train` call may hold; rows are processed in
 # chunks that fit it.
 TRAIN_SCRATCH_BYTES = 2 << 30
@@ -224,22 +227,18 @@ fused_field_mlp_t.launches = 0
 
 
 def _check_ported(distribution, precision, n_valid):
-  """Raises ValueError for an unknown likelihood, and for the K1 variants not
-  ported yet (ROADMAP.md, queue 2, K1 stages 4 and 5)."""
+  """Raises ValueError for an unknown likelihood or precision, and for the K1
+  variant not ported yet (ROADMAP.md, queue 2, K1 stage 4)."""
   if distribution not in LIKELIHOOD_CODES:
     raise ValueError(
         f'fused_train: unknown likelihood {distribution!r}; expected one of '
         f'{sorted(LIKELIHOOD_CODES)}.'
     )
+  mixed.check_precision(precision)
   if n_valid is not None:
     raise ValueError(
         'fused_train: a dynamic valid-row count is not ported yet '
         '(ROADMAP.md, queue 2, K1 stage 4).'
-    )
-  if precision != 'f32':
-    raise ValueError(
-        f'fused_train: precision {precision!r} is not ported yet (ROADMAP.md, '
-        "queue 2, K1 stage 5); only 'f32' runs."
     )
 
 
@@ -270,7 +269,11 @@ def fused_train_reference(
   Its count-model math is the exact one (`torch.lgamma`, log-softplus
   clamped at -20), as the JAX package's autodiff oracle; the kernel follows
   the TPU kernel (Stirling series, clamp at -15). The two differ by up to
-  ~3e-4 relative."""
+  ~3e-4 relative.
+
+  Under 'bf16' it rounds where K1 rounds (`field.mlp_t(k1_sites=True)`):
+  every product but the output layer's weight gradient, which stays fp32.
+  Its fp32 products run in true fp32 (`mixed.fp32_matmuls`)."""
   _check_ported(distribution, precision, n_valid)
   num_w = depth + 1
   leaves = [
@@ -278,12 +281,13 @@ def fused_train_reference(
       for t in (lsa, fs_raw, *weights, *biases, scales_raw, logit, obs_raw)
   ]
   ws, bs = leaves[2 : 2 + num_w], leaves[2 + num_w : 2 + 2 * num_w]
-  with torch.enable_grad():
+  with torch.enable_grad(), mixed.fp32_matmuls():
     groups = field_lib.encode_raw_t(
         input_scales, fourier_degrees, interactions, leaves[0], leaves[1],
         x_t, seasonal_t,
     )
-    pred = field_lib.mlp_t(depth, groups, ws, bs, *leaves[-3:-1])
+    pred = field_lib.mlp_t(depth, groups, ws, bs, *leaves[-3:-1],
+                           precision=precision, k1_sites=True)
     # The observation scalars as the three leading parameter leaves.
     losses = -lik_scale * likelihoods.log_likelihood(
         likelihoods.LikelihoodDist(distribution), leaves[-1].unbind(-1),
@@ -316,6 +320,8 @@ def _train_lib() -> ctypes.CDLL:
       ctypes.c_size_t, i32, ctypes.c_size_t, i32, ctypes.c_size_t, i32,
       ctypes.c_float,  # lik_scale
       i32,  # likelihood code
+      i32,  # precision code
+      ptrs,  # buffers for the bf16-rounded weights (precision code 1)
       i32, i32, i32, i32, i32, i32,  # depth, members, inputs, seasonal, pairs, width
       i32, i32, i32,  # n_rows, tile_rows, chunk_rows
       ptr,  # stream
@@ -455,11 +461,11 @@ def pick_train_tile_rows(num_features: int, width: int, lib=None) -> int:
 def _launch_fused_train(
     lib, stream, dims, depth, lik_scale, input_scales, fourier_degrees,
     interactions, x_t, seasonal_t, weights, biases, lsa, fs_raw, scales_raw,
-    logit, obs_raw, y, distribution,
+    logit, obs_raw, y, distribution, precision='f32',
 ):
-  """Allocates the outputs and the scratch, and runs one K1 call of `lib`
-  on `stream`; `dims` is what `_check_train_inputs` returned for these
-  inputs."""
+  """Allocates the outputs and the scratch (and under 'bf16' the buffers of
+  the rounded weights), and runs one K1 call of `lib` on `stream`; `dims` is
+  what `_check_train_inputs` returned for these inputs."""
   width, f, g = dims
   d, n = x_t.shape[-2:]
   e = weights[0].shape[0]
@@ -498,6 +504,10 @@ def _launch_fused_train(
     return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
   pairs = [int(i) for pair in interactions for i in pair]
+  code = PRECISION_CODES[precision]
+  # Under 'bf16' the kernel writes the rounded weights here (held until the
+  # call returns; later allocations on the stream are ordered after it).
+  weights16 = [torch.empty_like(w) for w in weights] if code else None
   err = lib.bnf_fused_train(
       x_t.data_ptr(), seasonal_t.data_ptr(), y.data_ptr(),
       ptr_array(weights), ptr_array(biases),
@@ -512,7 +522,9 @@ def _launch_fused_train(
       (ctypes.c_int * d)(*[int(k) for k in fourier_degrees]),
       (ctypes.c_int * max(1, len(pairs)))(*pairs),
       *[v for rep, stride in layout for v in (stride, rep)],
-      float(lik_scale), likelihood, depth, e, d, s2, len(interactions),
+      float(lik_scale), likelihood, code,
+      ptr_array(weights16) if code else None, depth, e, d, s2,
+      len(interactions),
       width, n, tile_rows, chunk_rows, stream,
   )
   if err != 0:
@@ -544,7 +556,8 @@ def fused_train(
   Takes the JAX package's arguments, without its TPU-only `tile` and
   `subtiles`. On CPU tensors it returns :func:`fused_train_reference`; on
   CUDA tensors it launches the kernels of `csrc/fused_train.cu` on the
-  current stream and counts the call in `fused_train.launches`.
+  current stream and counts the call in `fused_train.launches` (and a
+  'bf16' call in `fused_train.bf16_launches` too).
 
   Args:
     distribution: 'NORMAL' | 'NB' | 'ZINB'.
@@ -567,8 +580,11 @@ def fused_train(
     obs_raw: (E, 3) (log_noise_scale, nb_shape_raw, zinb_logit).
     y: (N,) targets shared by every member, or (E, N) / (E/rep, N); its
       grouping is checked apart from that of `x_t`.
-    precision: 'f32' only.
-    n_valid: None only (every row counts).
+    precision: 'f32' | 'highest' (the same fp32 kernel, bit for bit) |
+      'bf16' (the products the TPU kernel casts take bf16-rounded operands,
+      exact products and fp32 sums; the output layer's weight gradient,
+      the sums and the elementwise math stay fp32; see `ops/mixed.py`).
+    n_valid: None only (every row counts; K1 stage 4 is not ported).
 
   Returns:
     (losses (E,), dlsa, dfs_raw, dweights, dbiases, dscales_raw, dlogit,
@@ -577,8 +593,7 @@ def fused_train(
     and 2; ZINB: 0).
 
   Raises:
-    ValueError: for an unknown likelihood or an unported variant (n_valid,
-      'bf16'), a data
+    ValueError: for an unknown likelihood or precision, an `n_valid`, a data
       input whose leading dim does not divide the member count, and on CUDA
       for shapes, dtypes, devices or layouts the kernel does not take, or a
       width whose tile does not fit in shared memory.
@@ -592,7 +607,7 @@ def fused_train(
     return fused_train_reference(
         distribution, depth, lik_scale, input_scales, fourier_degrees,
         interactions, x_t, seasonal_t, weights, biases, lsa, fs_raw,
-        scales_raw, logit, obs_raw, y,
+        scales_raw, logit, obs_raw, y, precision,
     )
   if x_t.device.type != 'cuda':
     raise ValueError(
@@ -609,10 +624,12 @@ def fused_train(
         lib, torch.cuda.current_stream().cuda_stream, dims, depth, lik_scale,
         input_scales, fourier_degrees, interactions, x_t, seasonal_t,
         weights, biases, lsa, fs_raw, scales_raw, logit, obs_raw, y,
-        distribution,
+        distribution, precision,
     )
   fused_train.launches += 1
+  fused_train.bf16_launches += precision == 'bf16'
   return outs
 
 
 fused_train.launches = 0
+fused_train.bf16_launches = 0

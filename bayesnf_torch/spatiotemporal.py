@@ -11,8 +11,9 @@ What the port does, and what it does not yet:
 
 - `fit` for MAP, MLE and VI with the NORMAL, NB or ZINB observation model,
   full batch or minibatch, on one device, on the 'kernel' (CUDA) or 'torch'
-  backend (`inference/map.py`, `inference/vi.py`). Checkpoints, streaming,
-  precision other than 'f32' and a mesh raise NotImplementedError.
+  backend (`inference/map.py`, `inference/vi.py`), at `precision` 'f32',
+  'highest' (the same) or 'bf16' (`ops/mixed.py`). Checkpoints, streaming
+  and a mesh raise NotImplementedError.
 - `predict` (means and exact mixture quantiles) and `likelihood_model` (the
   predictive distribution object of `models/distributions.py`), on the
   'kernel' or 'torch' backend (`inference/backends.py`). They return tensors
@@ -419,6 +420,7 @@ class BayesianNeuralFieldMAP(BayesianNeuralFieldEstimator):
       num_splits=1,
       backend='auto',
       device='cuda',
+      precision='f32',
       **unported,
   ) -> 'BayesianNeuralFieldMAP':
     """Run stochastic ensemble MAP (or MLE) inference.
@@ -437,8 +439,12 @@ class BayesianNeuralFieldMAP(BayesianNeuralFieldEstimator):
       backend: 'auto' (the CUDA kernel K1 on a CUDA device, plain PyTorch
         on the CPU) | 'torch' | 'kernel'.
       device: where the fit runs and `params_` live.
+      precision: 'f32' (true fp32 products) | 'highest' (the same, bit for
+        bit) | 'bf16' (bf16-rounded operands, exact products, fp32 sums;
+        parameters, Adam and the elementwise math stay fp32), as the JAX
+        package's argument (`ops/mixed.py`).
       **unported: the JAX package's `mesh`, `checkpoint_dir`,
-        `checkpoint_every`, `precision`, `stream_chunk_steps` and
+        `checkpoint_every`, `stream_chunk_steps` and
         `stream_member_remix`; anything but their defaults raises.
 
     Returns:
@@ -447,6 +453,7 @@ class BayesianNeuralFieldMAP(BayesianNeuralFieldEstimator):
 
     Raises:
       NotImplementedError: for the unported arguments above.
+      ValueError: for an unknown precision.
       RuntimeError: if `device` is CUDA and CUDA is not available.
     """
     config, aug, train_target, batch_size, num_epochs = self._fit_inputs(
@@ -457,7 +464,7 @@ class BayesianNeuralFieldMAP(BayesianNeuralFieldEstimator):
         num_particles=ensemble_size, learning_rate=learning_rate,
         num_epochs=num_epochs, prior_weight=self._prior_weight,
         batch_size=batch_size, num_splits=num_splits, backend=backend,
-        device=device, **unported,
+        device=device, precision=precision, **unported,
     )
     # One device: the JAX package's (num_devices, per_device) group shape.
     self.params_ = tuple(
@@ -499,6 +506,7 @@ class BayesianNeuralFieldVI(BayesianNeuralFieldEstimator):
       batch_size=None,
       backend='auto',
       device='cuda',
+      precision='f32',
       **unported,
   ) -> 'BayesianNeuralFieldVI':
     """Run stochastic ensemble variational inference.
@@ -518,6 +526,7 @@ class BayesianNeuralFieldVI(BayesianNeuralFieldEstimator):
       backend: 'auto' (the CUDA kernel K1 on a CUDA device, plain PyTorch
         on the CPU) | 'torch' | 'kernel'.
       device: where the fit runs and `params_` live.
+      precision: as for :meth:`BayesianNeuralFieldMAP.fit`.
       **unported: as for :meth:`BayesianNeuralFieldMAP.fit`.
 
     Returns:
@@ -527,6 +536,7 @@ class BayesianNeuralFieldVI(BayesianNeuralFieldEstimator):
 
     Raises:
       NotImplementedError: for the unported arguments.
+      ValueError: for an unknown precision.
       RuntimeError: if `device` is CUDA and CUDA is not available.
     """
     config, aug, train_target, batch_size, num_epochs = self._fit_inputs(
@@ -537,7 +547,8 @@ class BayesianNeuralFieldVI(BayesianNeuralFieldEstimator):
         ensemble_size=ensemble_size, learning_rate=learning_rate,
         num_epochs=num_epochs, sample_size_divergence=sample_size_divergence,
         sample_size_posterior=sample_size_posterior, kl_weight=kl_weight,
-        batch_size=batch_size, backend=backend, device=device, **unported,
+        batch_size=batch_size, backend=backend, device=device,
+        precision=precision, **unported,
     )
     self.surrogate_ = surrogate
     self.params_ = _posterior_params(draws, ensemble_size,

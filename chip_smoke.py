@@ -23,7 +23,11 @@ CUDA toolkit (nvcc). It imports nothing of JAX. Phases, one line each:
    members = 16 groups of 5, each group its own 3,500 rows) and per-member
    inputs (64 members, a ragged 3,497 rows, width 256); then the NB and
    ZINB likelihoods (count targets) at the main and the grouped shape, held
-   to the JAX package's count bounds; time both with CUDA events.
+   to the JAX package's count bounds; then precision 'bf16' (the bf16
+   instantiations of the tile kernel and the weight-gradient GEMM) at the
+   main shape under each likelihood, the grouped shape and width 1024, each
+   held to the plain 'bf16' version and to the plain fp32 one, and 'highest'
+   bit for bit equal to 'f32'; time both with CUDA events.
 4. Golden check: the committed artifact fitted by the JAX package, loaded
    onto the card, must predict what the JAX package predicted (the
    tolerances of `tests/test_torch_predict.py`).
@@ -55,7 +59,12 @@ CUDA toolkit (nvcc). It imports nothing of JAX. Phases, one line each:
    max(1, 1%) of the rows.
 9. A ZINB VI epoch of the `air_quality` stanza on both backends (losses to
    rtol 1e-3), then a predict of its posterior draws through K2.
-10. A JSON line of the kernels, with each one's time, its plain version's,
+10. The 'bf16' path at full width: phase 6's full-batch fit and minibatch
+   epoch and phase 7's VI epoch with `precision='bf16'`, on 'kernel' (every
+   K1 call the bf16 one, by the launch counters) and on 'torch', each
+   against phases 6-7's fp32 fits from the same seed; member-steps/s of
+   both backends.
+11. A JSON line of the kernels, with each one's time, its plain version's,
    the least time the card could take for the same products and bytes
    (`bound_ms`) and the PyTorch call that computes the same function, if
    any (`library_ms`); then the last line,
@@ -140,9 +149,19 @@ COUNT_EPOCHS = 3
 # Posterior draws of the ZINB VI predict: 16 x 4 = 64 members, as the MAP
 # predicts (the count root-find's cost grows with members x rows).
 COUNT_VI_POSTERIOR = 4
+# Precision 'bf16': kernel against plain version, both rounding the same
+# fp32 values, which an ulp apart can round to neighbouring bf16 values: the
+# JAX package's count bounds (losses rtol 1e-3, leaves 2e-3 of their largest
+# magnitude). Against fp32 (the plain version, and the fp32 fits from the
+# same seed): the JAX package's bf16 bound, rtol 2e-2 plus 2e-2 of the
+# leaf's largest magnitude (tests/test_fused_mlp.py).
+BF16_LOSS_RTOL = 1e-3
+BF16_LEAF_TOL = 2e-3
+BF16_F32_TOL = 2e-2
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): fp32 outside
-# the tensor cores, and HBM3.
+# the tensor cores, dense bf16 on the tensor cores, and HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -185,10 +204,11 @@ def kernel_inputs(members, groups, n, width, depth, seed):
   )
 
 
-def bound_ms(flops, nbytes):
+def bound_ms(flops, nbytes, bf16_flops=0):
   """(least ms the card could take, 'operations' or 'bytes'): the larger of
-  the fp32 products at the SIMT peak and the bytes at the HBM rate."""
-  ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+  the products (fp32 ones at the SIMT peak, bf16 ones at the tensor cores')
+  and the bytes at the HBM rate."""
+  ops_ms = (flops / PEAK_FP32_FLOPS + bf16_flops / PEAK_BF16_FLOPS) * 1e3
   bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
   return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms, 'bytes')
 
@@ -211,11 +231,12 @@ def k2_bound(args, depth):
   return bound_ms(e * n * mlp_flops_per_row(f, width, depth), nbytes)
 
 
-def k1_bound(args):
+def k1_bound(args, precision='f32'):
   """K1's bound at `args`: three products per row and member as large as
   the forward's (the forward, the backward's W dv, and the weight
   gradients' contraction over rows); the inputs read once and every
-  gradient written once."""
+  gradient written once. Under 'bf16' every product but the output layer's
+  weight gradient runs on bf16 operands."""
   weights = args['weights']
   e, f, width = weights[0].shape
   n = args['x_t'].shape[-1]
@@ -224,8 +245,11 @@ def k1_bound(args):
   params = [*weights, *args['biases'], *ins[3:]]
   nbytes = 4 * (sum(t.numel() for t in ins + params)
                 + sum(t.numel() for t in params) + e)
-  return bound_ms(
-      3 * e * n * mlp_flops_per_row(f, width, len(weights) - 1), nbytes)
+  flops = 3 * e * n * mlp_flops_per_row(f, width, len(weights) - 1)
+  if precision != 'bf16':
+    return bound_ms(flops, nbytes)
+  fp32_flops = 2 * e * n * weights[-1].shape[1]  # dW_out = lhs_out dv_out^T
+  return bound_ms(fp32_flops, nbytes, bf16_flops=flops - fp32_flops)
 
 
 def check_kernel(seed):
@@ -330,39 +354,54 @@ def train_outputs(outs, depth):
 
 def check_train_kernel(seed):
   """Phase 3t; returns {case: (max abs error, kernel ms, plain ms, bound)}
-  of the main and grouped cases of each likelihood."""
-  # (name, kernel members, rows, width, depth, input groups, likelihood)
+  of the main and grouped cases of each likelihood and precision."""
+  # (name, kernel members, rows, width, depth, input groups, likelihood,
+  # precision)
+  main, grouped = (MEMBERS, TRAIN_ROWS, 512, 2, None), (
+      VI_MEMBERS * VI_SAMPLES, BATCH, 512, 2, VI_MEMBERS)
   cases = [
-      ('main', MEMBERS, TRAIN_ROWS, 512, 2, None, 'NORMAL'),
-      ('ragged-width256', MEMBERS, TRAIN_ROWS - 3, 256, 2, None, 'NORMAL'),
-      ('depth1', MEMBERS, 1000, 512, 1, None, 'NORMAL'),
-      ('depth3', MEMBERS, 1001, 512, 3, None, 'NORMAL'),
-      ('width1024', MEMBERS, 2048, 1024, 2, None, 'NORMAL'),
-      ('grouped', VI_MEMBERS * VI_SAMPLES, BATCH, 512, 2, VI_MEMBERS,
-       'NORMAL'),
-      ('per-member', MEMBERS, BATCH - 3, 256, 2, MEMBERS, 'NORMAL'),
-      ('main-NB', MEMBERS, TRAIN_ROWS, 512, 2, None, 'NB'),
-      ('main-ZINB', MEMBERS, TRAIN_ROWS, 512, 2, None, 'ZINB'),
-      ('grouped-NB', VI_MEMBERS * VI_SAMPLES, BATCH, 512, 2, VI_MEMBERS,
-       'NB'),
-      ('grouped-ZINB', VI_MEMBERS * VI_SAMPLES, BATCH, 512, 2, VI_MEMBERS,
-       'ZINB'),
+      ('main', *main, 'NORMAL', 'f32'),
+      ('ragged-width256', MEMBERS, TRAIN_ROWS - 3, 256, 2, None, 'NORMAL',
+       'f32'),
+      ('depth1', MEMBERS, 1000, 512, 1, None, 'NORMAL', 'f32'),
+      ('depth3', MEMBERS, 1001, 512, 3, None, 'NORMAL', 'f32'),
+      ('width1024', MEMBERS, 2048, 1024, 2, None, 'NORMAL', 'f32'),
+      ('grouped', *grouped, 'NORMAL', 'f32'),
+      ('per-member', MEMBERS, BATCH - 3, 256, 2, MEMBERS, 'NORMAL', 'f32'),
+      ('main-NB', *main, 'NB', 'f32'),
+      ('main-ZINB', *main, 'ZINB', 'f32'),
+      ('grouped-NB', *grouped, 'NB', 'f32'),
+      ('grouped-ZINB', *grouped, 'ZINB', 'f32'),
+      ('main-bf16', *main, 'NORMAL', 'bf16'),
+      ('main-NB-bf16', *main, 'NB', 'bf16'),
+      ('main-ZINB-bf16', *main, 'ZINB', 'bf16'),
+      ('grouped-bf16', *grouped, 'NORMAL', 'bf16'),
+      ('width1024-bf16', MEMBERS, 2048, 1024, 2, None, 'NORMAL', 'bf16'),
   ]
   result = {}
-  for name, members, n, width, depth, groups, distribution in cases:
+  for (name, members, n, width, depth, groups, distribution,
+       precision) in cases:
     args = train_kernel_inputs(members, n, width, depth, seed, groups=groups,
                                distribution=distribution)
+    bf16 = precision == 'bf16'
     count = distribution != 'NORMAL'
-    loss_rtol = COUNT_LOSS_RTOL if count else TRAIN_LOSS_RTOL
-    leaf_tol = COUNT_LEAF_TOL if count else TRAIN_LEAF_TOL
-    before = fused_mlp.fused_train.launches
-    got = fused_mlp.fused_train(**args)
+    loss_rtol = (BF16_LOSS_RTOL if bf16 else
+                 COUNT_LOSS_RTOL if count else TRAIN_LOSS_RTOL)
+    leaf_tol = (BF16_LEAF_TOL if bf16 else
+                COUNT_LEAF_TOL if count else TRAIN_LEAF_TOL)
+    before = (fused_mlp.fused_train.launches,
+              fused_mlp.fused_train.bf16_launches)
+    got = fused_mlp.fused_train(**args, precision=precision)
     torch.cuda.synchronize()
-    assert fused_mlp.fused_train.launches == before + 1
-    want = fused_mlp.fused_train_reference(**args)
-    max_abs, leaf_rel = 0.0, {}
-    for (leaf, g), (_, w) in zip(train_outputs(got, depth),
-                                 train_outputs(want, depth)):
+    assert (fused_mlp.fused_train.launches,
+            fused_mlp.fused_train.bf16_launches) == (before[0] + 1,
+                                                     before[1] + bf16)
+    want = fused_mlp.fused_train_reference(**args, precision=precision)
+    f32 = fused_mlp.fused_train_reference(**args) if bf16 else want
+    max_abs, leaf_rel, f32_rel = 0.0, {}, 0.0
+    for (leaf, g), (_, w), (_, f) in zip(train_outputs(got, depth),
+                                         train_outputs(want, depth),
+                                         train_outputs(f32, depth)):
       assert g.shape == w.shape, (leaf, g.shape, w.shape)
       assert bool(torch.isfinite(g).all()), leaf
       err = (g - w).abs().max().item()
@@ -373,24 +412,43 @@ def check_train_kernel(seed):
         torch.testing.assert_close(g, w, rtol=loss_rtol, atol=0)
       else:
         assert err <= leaf_tol * scale, (name, leaf, err, scale)
+      if bf16:
+        # Against fp32: rtol plus a floor of the leaf's largest magnitude.
+        f_scale = f.abs().max().item()
+        off = (g - f).abs() - BF16_F32_TOL * f.abs()
+        assert off.max().item() <= BF16_F32_TOL * f_scale, (name, leaf)
+        f32_rel = max(f32_rel, (g - f).abs().max().item() / max(f_scale,
+                                                                1e-30))
     # The observation scalars the likelihood does not read get exactly zero.
     unused = {'NORMAL': [1, 2], 'NB': [0, 2], 'ZINB': [0]}[distribution]
     assert bool((got[-1][:, unused] == 0).all()), name
-    ms = cuda_ms(lambda: fused_mlp.fused_train(**args), reps=5)
-    plain_ms = cuda_ms(lambda: fused_mlp.fused_train_reference(**args),
-                       reps=3)
+    extra = {}
+    if name == 'main':
+      # 'highest' is the fp32 kernel, bit for bit.
+      highest = fused_mlp.fused_train(**args, precision='highest')
+      assert all(torch.equal(a, b) for (_, a), (_, b) in zip(
+          train_outputs(highest, depth), train_outputs(got, depth)))
+      extra['highest'] = 'bit-equal'
+    if bf16:
+      extra['vs_f32_worst_leaf_rel'] = f'{f32_rel:.3e}'
+    ms = cuda_ms(lambda: fused_mlp.fused_train(**args, precision=precision),
+                 reps=5)
+    plain_ms = cuda_ms(lambda: fused_mlp.fused_train_reference(
+        **args, precision=precision), reps=3)
     worst = max(leaf_rel, key=leaf_rel.get)
+    bound = k1_bound(args, precision)
     phase('3t K1-vs-plain', case=name, likelihood=distribution,
-          members=members, rows=n, width=width,
+          precision=precision, members=members, rows=n, width=width,
           depth=depth, input_groups=groups or 'shared',
           rep=members // groups if groups else members,
           tile_rows=fused_mlp.pick_train_tile_rows(49, width),
           max_abs_err=f'{max_abs:.3e}',
           worst_leaf=f'{worst}:{leaf_rel[worst]:.3e}',
-          loss_rel_err=f'{leaf_rel["losses"]:.3e}',
-          kernel_ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}')
+          loss_rel_err=f'{leaf_rel["losses"]:.3e}', **extra,
+          kernel_ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
+          bound_ms=f'{bound[0]:.4f}')
     if name.startswith(('main', 'grouped')):
-      result[name] = (max_abs, ms, plain_ms, k1_bound(args))
+      result[name] = (max_abs, ms, plain_ms, bound)
   return result
 
 
@@ -515,17 +573,20 @@ def bench_estimator(est_cls=bayesnf_torch.BayesianNeuralFieldMAP,
       standardize=['lat', 'lon'], observation_model=observation_model)
 
 
-def timed_fit(table, seed, backend):
+def timed_fit(table, seed, backend, precision='f32', batch_size=None,
+              num_epochs=FIT_EPOCHS):
   start = time.perf_counter()
   est = bench_estimator().fit(table, seed, ensemble_size=MEMBERS,
-                              learning_rate=0.005, num_epochs=FIT_EPOCHS,
-                              backend=backend, device='cuda')
+                              learning_rate=0.005, num_epochs=num_epochs,
+                              batch_size=batch_size, backend=backend,
+                              device='cuda', precision=precision)
   torch.cuda.synchronize()
   return est, time.perf_counter() - start
 
 
 def member_steps_per_s(est, table, backend,
-                       distribution=likelihoods.LikelihoodDist.NORMAL):
+                       distribution=likelihoods.LikelihoodDist.NORMAL,
+                       precision='f32'):
   """Steady-state training rate: TIMED_STEPS full-batch steps from the
   fitted parameters, host clock around a synchronized run."""
   train = est.data_handler.get_train(table)
@@ -539,13 +600,15 @@ def member_steps_per_s(est, table, backend,
   torch.cuda.synchronize()
   start = time.perf_counter()
   map_lib.train(params, map_lib.init_opt_state(params), aug_t, y, config,
-                distribution, 0.005, TIMED_STEPS, backend=backend)
+                distribution, 0.005, TIMED_STEPS, backend=backend,
+                precision=precision)
   torch.cuda.synchronize()
   return MEMBERS * TIMED_STEPS / (time.perf_counter() - start)
 
 
 def check_minibatch_fit(table, seed):
-  """Phase 6's minibatch epoch on both backends; returns its K1 launches."""
+  """Phase 6's minibatch epoch on both backends; returns its K1 launches
+  and the 'kernel' fit's losses."""
   steps = len(table) // BATCH
   fits = {}
   for backend in ('kernel', 'torch'):
@@ -570,11 +633,12 @@ def check_minibatch_fit(table, seed):
         mean_loss_kernel=f'{losses.mean():.6g}',
         mean_loss_torch=f'{plain.mean():.6g}',
         loss_rel_diff_max=f'{(np.abs(losses - plain) / np.abs(plain)).max():.3e}')
-  return launches
+  return launches, losses
 
 
 def check_training_path(seed):
-  """Phase 6; returns the K1 launches counted while it drove the fits."""
+  """Phase 6; returns the K1 launches counted while it drove the fits, and
+  the 'kernel' fits' losses ('full', 'minibatch')."""
   table = bench_table(seed)
   torch.cuda.synchronize()
   fused_mlp.fused_train.launches = 0
@@ -614,21 +678,23 @@ def check_training_path(seed):
             f'{v:.6g}' for v in plain.losses_.mean(axis=(0, 1))),
         loss_rel_diff_max=f'{loss_rel.max():.3e}',
         k2_launches=chunks)
-  return launches + check_minibatch_fit(table, seed)
+  minibatch_launches, minibatch_losses = check_minibatch_fit(table, seed)
+  return launches + minibatch_launches, {'full': est.losses_,
+                                         'minibatch': minibatch_losses}
 
 
-def vi_fit(table, seed, backend):
+def vi_fit(table, seed, backend, precision='f32'):
   start = time.perf_counter()
   est = bench_estimator(bayesnf_torch.BayesianNeuralFieldVI).fit(
       table, seed, ensemble_size=VI_MEMBERS, learning_rate=VI_LR,
       num_epochs=1, sample_size_posterior=VI_POSTERIOR,
       sample_size_divergence=VI_SAMPLES, kl_weight=VI_KL_WEIGHT,
-      batch_size=BATCH, backend=backend, device='cuda')
+      batch_size=BATCH, backend=backend, device='cuda', precision=precision)
   torch.cuda.synchronize()
   return est, time.perf_counter() - start
 
 
-def vi_member_steps_per_s(est, table, backend):
+def vi_member_steps_per_s(est, table, backend, precision='f32'):
   """Steady-state VI rate: TIMED_STEPS minibatch steps of the 16
   surrogates from the fitted ones, host clock around a synchronized run."""
   train = est.data_handler.get_train(table)
@@ -645,14 +711,14 @@ def vi_member_steps_per_s(est, table, backend):
   start = time.perf_counter()
   vi_lib.train(surrogate, state, aug_t, y, config,
                likelihoods.LikelihoodDist.NORMAL, VI_LR, TIMED_STEPS, BATCH,
-               VI_SAMPLES, VI_KL_WEIGHT, generator, backend)
+               VI_SAMPLES, VI_KL_WEIGHT, generator, backend, precision)
   torch.cuda.synchronize()
   return VI_MEMBERS * TIMED_STEPS / (time.perf_counter() - start)
 
 
 def check_vi_path(seed):
   """Phase 7; returns the K1 and K2 launches counted while it drove the VI
-  fit and its predict."""
+  fit and its predict, and the 'kernel' fit's losses."""
   table = bench_table(seed)
   steps = len(table) // BATCH
   torch.cuda.synchronize()
@@ -731,7 +797,7 @@ def check_vi_path(seed):
         means_max_abs_diff=f'{(means - t_means).abs().max().item():.3e}',
         quantile_cdf_residual_max=f'{max(residuals):.3e}',
         roundtrip='bit-exact', resampled=True)
-  return k1_launches, k2_launches
+  return k1_launches, k2_launches, est.losses_
 
 
 def count_table(seed):
@@ -869,6 +935,75 @@ def check_count_vi_path(seed):
   return k1_launches, k2_launches
 
 
+def check_bf16_path(seed, f32_losses):
+  """Phase 10; returns the K1 launches (every one the bf16 kernel) counted
+  while it drove the 'bf16' fits. `f32_losses` are phases 6-7's fp32
+  'kernel' fits from the same seed ('full', 'minibatch', 'vi')."""
+  table = bench_table(seed)
+  steps = len(table) // BATCH
+  fits = {}
+  for kind in ('full', 'minibatch', 'vi'):
+    for backend in ('kernel', 'torch'):
+      torch.cuda.synchronize()
+      fused_mlp.fused_train.launches = 0
+      fused_mlp.fused_train.bf16_launches = 0
+      if kind == 'vi':
+        est, seconds = vi_fit(table, seed, backend, 'bf16')
+      else:
+        est, seconds = timed_fit(
+            table, seed, backend, 'bf16',
+            batch_size=BATCH if kind == 'minibatch' else None,
+            num_epochs=FIT_EPOCHS if kind == 'full' else 1)
+      launches = fused_mlp.fused_train.launches
+      expected = (FIT_EPOCHS if kind == 'full' else steps) * (
+          backend == 'kernel')
+      assert launches == expected, (kind, backend, launches, expected)
+      assert fused_mlp.fused_train.bf16_launches == launches, (kind, backend)
+      assert np.isfinite(est.losses_).all(), (kind, backend)
+      # Same seed: the same start, batches and noise as the fp32 fit.
+      np.testing.assert_allclose(est.losses_, f32_losses[kind],
+                                 rtol=BF16_F32_TOL)
+      fits[kind, backend] = (est, seconds, launches)
+  rates = {}
+  for kind, rate_fn in (('full', member_steps_per_s),
+                        ('vi', vi_member_steps_per_s)):
+    est = fits[kind, 'kernel'][0]
+    rates[kind] = [rate_fn(est, table, b, precision='bf16')
+                   for b in ('kernel', 'torch', 'kernel', 'torch')]
+
+  def rel(a, b):
+    return f'{(np.abs(a - b) / np.abs(b)).max():.3e}'
+
+  fields = {}
+  for kind in ('full', 'minibatch', 'vi'):
+    (est, kernel_s, launches), (plain, torch_s, _) = (
+        fits[kind, 'kernel'], fits[kind, 'torch'])
+    np.testing.assert_allclose(est.losses_, plain.losses_,
+                               rtol=BF16_F32_TOL)
+    fields.update({
+        f'{kind}_k1_launches': launches,
+        f'{kind}_fit_s_kernel': f'{kernel_s:.2f}',
+        f'{kind}_fit_s_torch': f'{torch_s:.2f}',
+        f'{kind}_vs_f32_rel_max': rel(est.losses_, f32_losses[kind]),
+        f'{kind}_torch_vs_f32_rel_max': rel(plain.losses_, f32_losses[kind]),
+        f'{kind}_kernel_vs_torch_rel_max': rel(est.losses_, plain.losses_)})
+  phase('10 bf16-path', rows=len(table), members=MEMBERS,
+        vi_members=VI_MEMBERS, epochs=FIT_EPOCHS, batch_size=BATCH,
+        **fields,
+        member_steps_per_s_kernel='/'.join(
+            f'{r:.2f}' for r in rates['full'][::2]),
+        member_steps_per_s_torch='/'.join(
+            f'{r:.2f}' for r in rates['full'][1::2]),
+        vi_member_steps_per_s_kernel='/'.join(
+            f'{r:.2f}' for r in rates['vi'][::2]),
+        vi_member_steps_per_s_torch='/'.join(
+            f'{r:.2f}' for r in rates['vi'][1::2]),
+        mean_loss_kernel='/'.join(
+            f'{v:.6g}' for v in fits['full', 'kernel'][0].losses_.mean(
+                axis=(0, 1))))
+  return sum(fits[kind, 'kernel'][2] for kind in ('full', 'minibatch', 'vi'))
+
+
 def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -901,10 +1036,11 @@ def main(argv=None):
   train_cases = check_train_kernel(args.seed)
   check_golden()
   launches = check_main_path(args.seed)
-  train_launches = check_training_path(args.seed)
-  vi_k1_launches, vi_k2_launches = check_vi_path(args.seed)
+  train_launches, f32_losses = check_training_path(args.seed)
+  vi_k1_launches, vi_k2_launches, f32_losses['vi'] = check_vi_path(args.seed)
   count_k1_launches, count_k2_launches = check_count_path(args.seed)
   count_vi_k1_launches, count_vi_k2_launches = check_count_vi_path(args.seed)
+  bf16_launches = check_bf16_path(args.seed, f32_losses)
 
   k1_bound_ms, k1_bound_by = train_cases['main'][3]
   print(json.dumps({'kernels': [{
@@ -937,10 +1073,30 @@ def main(argv=None):
       # bound ms, max abs error against the plain version).
       'cases': {name: {'ms': case[1], 'plain_ms': case[2],
                        'bound_ms': case[3][0], 'max_abs_err': case[0]}
-                for name, case in train_cases.items() if name != 'main'},
+                for name, case in train_cases.items()
+                if name != 'main' and not name.endswith('bf16')},
       'launches_by_likelihood': {
           'NORMAL': train_launches + vi_k1_launches,
           'NB': count_k1_launches, 'ZINB': count_vi_k1_launches},
+  }, {
+      # K1 at precision 'bf16': the bf16 instantiations of the tile kernel
+      # and the weight-gradient GEMM; bound at the tensor cores' bf16 rate.
+      'name': 'fused_train_bf16',
+      'route': 'cuda',
+      'source': 'bayesnf_torch/ops/csrc/fused_train.cu',
+      'replaces': 'bayesnf_tpu/ops/fused_mlp.py:1412',
+      'launches': bf16_launches,
+      'max_abs_err': max(train_cases['main-bf16'][0],
+                         train_cases['grouped-bf16'][0]),
+      'ms': train_cases['main-bf16'][1],
+      'plain_ms': train_cases['main-bf16'][2],
+      'bound_ms': train_cases['main-bf16'][3][0],
+      'bound_by': train_cases['main-bf16'][3][1],
+      'library_ms': None,
+      'cases': {name: {'ms': case[1], 'plain_ms': case[2],
+                       'bound_ms': case[3][0], 'max_abs_err': case[0]}
+                for name, case in train_cases.items()
+                if name.endswith('bf16') and name != 'main-bf16'},
   }]}), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}),

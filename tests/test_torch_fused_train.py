@@ -298,12 +298,18 @@ def test_wrapper_refuses_other_devices():
 
 @pytest.mark.parametrize('change', [
     dict(n_valid=50),
-    dict(precision='bf16'),
-], ids=['n_valid', 'bf16'])
+], ids=['n_valid'])
 def test_unported_variants_raise(change):
   _, _, args = _torch_args('depth1-seasonal')
   with pytest.raises(ValueError, match='ROADMAP'):
     t_fused.fused_train('NORMAL', **args, **change)
+
+
+def test_unknown_precision_raises():
+  _, _, args = _torch_args('depth1-seasonal')
+  for fn in (t_fused.fused_train, t_fused.fused_train_reference):
+    with pytest.raises(ValueError, match="'f32', 'bf16', 'highest'"):
+      fn('NORMAL', **args, precision='fp16')
 
 
 def test_unknown_likelihood_raises():
@@ -534,3 +540,137 @@ def test_launch_passes_the_likelihood_and_its_partials(distribution):
       t_fused.MAX_DEPTH, t_fused.MAX_INPUTS, t_fused.MAX_INPUTS + 3,
       distribution) <= t_fused.MAX_PARTIALS
   assert f == config.encoded_dim
+
+
+# 'bf16' against the JAX package's 'bf16': both round the same fp32 values,
+# but values an ulp apart can round to neighbouring bf16 values (~0.4% on
+# one term of a fan-in sum), so the JAX package's count bounds: losses rtol
+# 1e-3, each gradient leaf within 2e-3 of its largest magnitude. Against
+# fp32 the JAX package's bf16 bound (`tests/test_fused_mlp.py`): rtol 2e-2
+# plus 2e-2 of the leaf's largest magnitude.
+BF16_LOSS_RTOL = 1e-3
+BF16_LEAF_TOL = 2e-3
+BF16_F32_TOL = 2e-2
+BF16_DEPTHS = {1: 'depth1-seasonal', 2: 'depth2-seasonal-interactions'}
+BF16_LAYOUTS = ('shared', 'per-member', 'grouped-rep2')
+
+
+def _bf16_inputs(distribution, layout, depth):
+  """(JAX config, params, numpy x_t, seasonal_t, y) at `depth`, shared or
+  in `LAYOUTS[layout]`; count targets for NB and ZINB."""
+  case = BF16_DEPTHS[depth]
+  if layout == 'shared':
+    config, params, x_t, seasonal_t, y = _setup(**CASES[case])
+  else:
+    config, params, (x_t, seasonal_t, y) = _grouped_args(layout, case)
+  if distribution != 'NORMAL':
+    y = _counts(y.shape, np.random.default_rng(7))
+  return config, params, x_t, seasonal_t, y
+
+
+def _assert_leaves_within(got_slots, want_slots, tol):
+  for slot, w in want_slots.items():
+    err = np.abs(got_slots[slot] - w).max()
+    assert err <= tol * np.abs(w).max(), (slot, err, np.abs(w).max())
+
+
+@pytest.mark.parametrize('depth', sorted(BF16_DEPTHS))
+@pytest.mark.parametrize('layout', BF16_LAYOUTS)
+@pytest.mark.parametrize('distribution', ['NORMAL', 'NB', 'ZINB'])
+def test_bf16_reference_matches_pallas_interpret(distribution, layout, depth):
+  config, params, *inputs = _bf16_inputs(distribution, layout, depth)
+  got = t_fused.fused_train_reference(
+      distribution, **_k1_args(config, params, *inputs, torch.as_tensor),
+      precision='bf16')
+  j_args = _k1_args(config, params, *inputs, jnp.asarray)
+  want = j_fused.fused_train(distribution, j_args.pop('depth'), TILE,
+                             **j_args, precision='bf16')
+  np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                             rtol=BF16_LOSS_RTOL)
+  _assert_leaves_within(_by_slot(config, got), _by_slot(config, want),
+                        BF16_LEAF_TOL)
+
+
+@pytest.mark.parametrize('depth', sorted(BF16_DEPTHS))
+@pytest.mark.parametrize('layout', BF16_LAYOUTS)
+@pytest.mark.parametrize('distribution', ['NORMAL', 'NB', 'ZINB'])
+def test_bf16_reference_is_near_f32(distribution, layout, depth):
+  config, params, *inputs = _bf16_inputs(distribution, layout, depth)
+  args = _k1_args(config, params, *inputs, torch.as_tensor)
+  got = t_fused.fused_train_reference(distribution, **args, precision='bf16')
+  want = t_fused.fused_train_reference(distribution, **args)
+  np.testing.assert_allclose(got[0].numpy(), want[0].numpy(),
+                             rtol=BF16_F32_TOL)
+  got_slots, want_slots = _by_slot(config, got), _by_slot(config, want)
+  rounded = False
+  for slot, w in want_slots.items():
+    g = got_slots[slot]
+    np.testing.assert_allclose(g, w, rtol=BF16_F32_TOL,
+                               atol=BF16_F32_TOL * np.abs(w).max(),
+                               err_msg=f'slot {slot}')
+    rounded |= not np.array_equal(g, w)
+  assert rounded
+
+
+@pytest.mark.parametrize('distribution', ['NORMAL', 'NB', 'ZINB'])
+def test_highest_is_f32_bit_for_bit(distribution):
+  config, params, *inputs = _bf16_inputs(distribution, 'grouped-rep2', 2)
+  args = _k1_args(config, params, *inputs, torch.as_tensor)
+  f32 = t_fused.fused_train(distribution, **args)
+  highest = t_fused.fused_train(distribution, **args, precision='highest')
+  for g, w in zip(_by_slot(config, highest).values(),
+                  _by_slot(config, f32).values()):
+    np.testing.assert_array_equal(g, w)
+  np.testing.assert_array_equal(highest[0].numpy(), f32[0].numpy())
+  # On CPU tensors the wrapper is the plain version at every precision.
+  bf16 = t_fused.fused_train(distribution, **args, precision='bf16')
+  want = t_fused.fused_train_reference(distribution, **args, precision='bf16')
+  for g, w in zip(_by_slot(config, bf16).values(),
+                  _by_slot(config, want).values()):
+    np.testing.assert_array_equal(g, w)
+
+
+def test_bf16_output_weight_gradient_stays_fp32():
+  # K1 rounds every product but the output layer's weight gradient (its
+  # cotangent has one column): that leaf is the fp32 sum of the fp32
+  # lhs_out dv_out, given the bf16 forward. The XLA path
+  # (`field.mlp_t(precision='bf16')` without `k1_sites`) rounds it too.
+  config, params, *inputs = _bf16_inputs('NORMAL', 'shared', 2)
+  args = _k1_args(config, params, *inputs, torch.as_tensor)
+  k1 = t_fused.fused_train_reference('NORMAL', **args, precision='bf16')
+  leaves = [t.detach().requires_grad_(True) for t in args['weights']]
+  groups = t_field.encode_raw_t(
+      args['input_scales'], args['fourier_degrees'], args['interactions'],
+      args['lsa'], args['fs_raw'], args['x_t'], args['seasonal_t'])
+  pred = t_field.mlp_t(2, groups, leaves, args['biases'], args['scales_raw'],
+                       args['logit'], precision='bf16')
+  loss = -LIK_SCALE * t_fused.likelihoods.log_likelihood(
+      t_fused.likelihoods.LikelihoodDist.NORMAL, args['obs_raw'].unbind(-1),
+      pred, args['y'])
+  xla = torch.autograd.grad(loss.sum(), leaves)
+  for l in range(2):  # The hidden layers round at the same sites.
+    np.testing.assert_allclose(k1[3][l].numpy(), xla[l].numpy(), rtol=1e-5,
+                               atol=1e-6 * xla[l].abs().max().item())
+  assert not torch.equal(k1[3][2], xla[2])
+  np.testing.assert_allclose(k1[3][2].numpy(), xla[2].numpy(),
+                             rtol=BF16_F32_TOL,
+                             atol=BF16_F32_TOL * xla[2].abs().max().item())
+
+
+@pytest.mark.parametrize('precision', ['f32', 'highest', 'bf16'])
+def test_launch_passes_the_precision(precision):
+  config, params, inputs = _grouped_args('grouped-rep2')
+  args = _k1_args(config, params, *inputs, torch.as_tensor)
+  lib = _FakeTrainLib()
+  t_fused._launch_fused_train(  # pylint: disable=protected-access
+      lib, 'stream', _checked(args), **args, distribution='NORMAL',
+      precision=precision)
+  code, weights16 = lib.calls[-1][30:32]
+  assert code == t_fused.PRECISION_CODES[precision] == (precision == 'bf16')
+  if precision != 'bf16':
+    assert weights16 is None
+  else:
+    # One buffer per weight, none of them the weight itself.
+    assert len(weights16) == config.depth + 1
+    assert not {int(p) for p in weights16} & {
+        w.data_ptr() for w in args['weights']}

@@ -223,6 +223,99 @@ def test_train_kernel_count_models_match_plain(cuda, distribution, depth,
   assert bool((got[-1][:, unused] == 0).all())
 
 
+# 'bf16' kernel against 'bf16' plain version: both round the same fp32
+# values, but values an ulp apart can round to neighbouring bf16 values, so
+# the JAX package's count bounds (losses rtol 1e-3, each leaf within 2e-3 of
+# its largest magnitude); against the fp32 plain version the JAX package's
+# bf16 bound (rtol 2e-2 and 2e-2 of the leaf's largest magnitude).
+BF16_LOSS_RTOL = 1e-3
+BF16_LEAF_TOL = 2e-3
+BF16_F32_TOL = 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('distribution', ['NORMAL', 'NB', 'ZINB'])
+@pytest.mark.parametrize('depth,width,n,members,groups', [
+    (2, 64, 333, 3, None),
+    (1, 256, 70, 3, None),
+    (2, 1024, 17, 3, None),
+    (0, 1, 40, 3, None),
+    (2, 64, 333, 6, 2),
+    (1, 256, 70, 4, 4),
+], ids=['shared', 'shared-depth1', 'width1024', 'depth0', 'grouped-rep3',
+        'per-member'])
+def test_train_kernel_bf16_matches_plain(cuda, distribution, depth, width, n,
+                                         members, groups):
+  args = _train_inputs(depth, width, n, members, cuda, groups=groups)
+  if distribution != 'NORMAL':
+    args = _with_counts(args, distribution)
+  before = (fused_mlp.fused_train.launches, fused_mlp.fused_train.bf16_launches)
+  got = fused_mlp.fused_train(**args, precision='bf16')
+  torch.cuda.synchronize()
+  assert (fused_mlp.fused_train.launches,
+          fused_mlp.fused_train.bf16_launches) == (before[0] + 1, before[1] + 1)
+  want = fused_mlp.fused_train_reference(**args, precision='bf16')
+  f32 = fused_mlp.fused_train_reference(**args)
+  torch.testing.assert_close(got[0], want[0], rtol=BF16_LOSS_RTOL, atol=0)
+  for g, w, f in zip(_flat(got), _flat(want), _flat(f32)):
+    assert bool(torch.isfinite(g).all())
+    assert (g - w).abs().max().item() <= BF16_LEAF_TOL * w.abs().max().item()
+    assert bool(((g - f).abs() <= BF16_F32_TOL * (
+        f.abs() + f.abs().max())).all())
+
+
+@pytest.mark.gpu
+def test_train_kernel_highest_is_f32_bit_for_bit(cuda):
+  args = _train_inputs(2, 64, 333, 3, cuda)
+  bf16_before = fused_mlp.fused_train.bf16_launches
+  highest = fused_mlp.fused_train(**args, precision='highest')
+  f32 = fused_mlp.fused_train(**args)
+  assert fused_mlp.fused_train.bf16_launches == bf16_before
+  assert all(torch.equal(a, b) for a, b in zip(_flat(highest), _flat(f32)))
+
+
+@pytest.mark.gpu
+def test_train_kernel_bf16_is_reproducible(cuda):
+  # Fixed reduction orders and no atomics, as in fp32.
+  args = _train_inputs(2, 256, 333, 4, cuda, groups=2)
+  first = fused_mlp.fused_train(**args, precision='bf16')
+  again = fused_mlp.fused_train(**args, precision='bf16')
+  assert all(torch.equal(a, b) for a, b in zip(_flat(first), _flat(again)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('cls,batch_size', [
+    ('BayesianNeuralFieldMAP', None),
+    ('BayesianNeuralFieldMLE', 30),
+    ('BayesianNeuralFieldVI', 30),
+], ids=['MAP-full', 'MLE-minibatch', 'VI-minibatch'])
+def test_bf16_fit_on_cuda_kernel_matches_torch_backend(cuda, cls, batch_size):
+  # The two backends round at their JAX counterparts' sites, which differ
+  # only in the output layer's weight gradient (fp32 in K1): the bf16 bound
+  # between them; against the fp32 fit from the same seed, 2e-2.
+  table = pd.read_csv(DATA / 'chickenpox.8.train.csv', index_col=0,
+                      parse_dates=['datetime'])
+  extra = (dict(sample_size_divergence=4, sample_size_posterior=3)
+           if cls.endswith('VI') else {})
+  fits = {}
+  for backend, precision in (('kernel', 'bf16'), ('torch', 'bf16'),
+                             ('kernel', 'f32')):
+    fused_mlp.fused_train.launches = 0
+    fused_mlp.fused_train.bf16_launches = 0
+    fits[backend, precision] = getattr(bayesnf_torch, cls)(
+        **_chickenpox_kwargs()).fit(
+            table, seed=0, ensemble_size=3, num_epochs=2,
+            batch_size=batch_size, device=cuda, backend=backend,
+            precision=precision, **extra).losses_
+    launches = fused_mlp.fused_train.launches
+    assert (launches > 0) == (backend == 'kernel')
+    assert fused_mlp.fused_train.bf16_launches == (
+        launches if precision == 'bf16' else 0)
+  kernel, plain, f32 = fits.values()
+  np.testing.assert_allclose(kernel, plain, rtol=BF16_LOSS_RTOL)
+  np.testing.assert_allclose(kernel, f32, rtol=BF16_F32_TOL)
+
+
 @pytest.mark.gpu
 def test_train_kernel_refuses_what_it_cannot_take(cuda):
   args = _train_inputs(1, 4096, 8, 2, cuda)

@@ -457,9 +457,8 @@ def test_minibatch_fit_takes_n_over_b_steps_per_epoch(cls):
 @pytest.mark.parametrize('change', [
     dict(mesh=object()),
     dict(checkpoint_dir='ckpt'),
-    dict(precision='bf16'),
     dict(stream_chunk_steps=4),
-], ids=['mesh', 'checkpoint', 'bf16', 'stream'])
+], ids=['mesh', 'checkpoint', 'stream'])
 def test_fit_refuses_what_is_not_ported(change):
   est = bayesnf_torch.BayesianNeuralFieldMAP(**ESTIMATOR_KWARGS)
   with pytest.raises(NotImplementedError, match='ROADMAP'):
@@ -552,3 +551,186 @@ def test_count_fit_predicts_and_saves_for_jax(distribution, cls, tmp_path):
     off = np.abs(g.numpy() - np.asarray(w))
     assert off.max() <= 1.0, off.max()
     assert (off > 0).sum() <= max(1, len(new) // 100), (off > 0).sum()
+
+
+# 'bf16' against the JAX package's 'bf16': both round the same fp32 values,
+# but values an ulp apart can round to neighbouring bf16 values, so losses
+# rtol 1e-3 and each leaf within 2e-3 of its largest magnitude (the JAX
+# package's count bounds), for one step's gradients and for the parameters
+# after a few epochs alike.
+BF16_LOSS_RTOL = 1e-3
+BF16_LEAF_TOL = 2e-3
+
+
+@pytest.mark.parametrize('prior_weight', [1.0, 0.0], ids=['MAP', 'MLE'])
+def test_bf16_first_step_matches_value_and_grad(prior_weight):
+  # The 'torch' backend rounds where the JAX package's XLA path does
+  # (`apply_field_t(compute_dtype=bfloat16)`): every dense product.
+  j_config, t_config, aug, y = _data()
+  _, params = _jax_init(j_config, y)
+  d = j_config.num_inputs
+  aug_t = jnp.asarray(aug.T)
+
+  def loss(p):
+    pred = j_field.apply_field_t(j_config, p, aug_t[:d], aug_t[d:],
+                                 compute_dtype=jnp.bfloat16)
+    out = -j_likelihoods.log_likelihood(NORMAL_J, p, pred, jnp.asarray(y))
+    if prior_weight:
+      out = out - prior_weight * j_priors.prior_log_prob(j_config, p)
+    return out
+
+  want_losses, want_grads = jax.vmap(jax.value_and_grad(loss))(
+      tuple(jnp.asarray(p) for p in params))
+  step = t_map.make_losses_and_grads(t_config, NORMAL_T, prior_weight,
+                                     'torch', precision='bf16')
+  losses, grads = step(tuple(torch.as_tensor(p) for p in params),
+                       torch.as_tensor(aug.T[:d].copy()),
+                       torch.as_tensor(aug.T[d:].copy()), torch.as_tensor(y))
+  np.testing.assert_allclose(losses.numpy(), np.asarray(want_losses),
+                             rtol=BF16_LOSS_RTOL)
+  _leaf_close([g.numpy() for g in grads], want_grads, BF16_LEAF_TOL, 'grads')
+
+
+def _jax_xla_bf16_train(config, aug, target, params, distribution, epochs,
+                        batch, perms):
+  """`ensemble_map(backend='xla', precision='bf16')`'s epochs, stepped
+  eagerly: the same per-member loss (`apply_field_t(compute_dtype=
+  bfloat16)`, likelihood, prior) and `optax.adam`. XLA:CPU cannot run the
+  jitted program (its DotThunk has no BF16 x BF16 = F32 dot), while each
+  operation dispatched on its own runs."""
+  d, n = config.num_inputs, target.shape[0]
+  batch = batch or n
+  dist = j_likelihoods.LikelihoodDist(distribution)
+
+  def loss(p, aug_t, y):
+    pred = j_field.apply_field_t(config, p, aug_t[:d], aug_t[d:],
+                                 compute_dtype=jnp.bfloat16)
+    return (-(n / batch) * j_likelihoods.log_likelihood(dist, p, pred, y)
+            - j_priors.prior_log_prob(config, p))
+
+  opt = optax.adam(LR)
+  params = tuple(jnp.asarray(p) for p in params)
+  state = opt.init(params)
+  history = []
+  for epoch in range(epochs):
+    if batch == n:
+      batches, axes = [(jnp.asarray(aug.T), jnp.asarray(target))], None
+    else:
+      keep, axes = perms[epoch], 0
+      batches = [(jnp.asarray(np.stack([aug[r].T for r in rows])),
+                  jnp.asarray(target[rows]))
+                 for rows in (keep[:, j * batch:(j + 1) * batch]
+                              for j in range(n // batch))]
+    step_losses = []
+    for aug_b, y_b in batches:
+      losses, grads = jax.vmap(jax.value_and_grad(loss),
+                               in_axes=(0, axes, axes))(params, aug_b, y_b)
+      updates, state = opt.update(grads, state)
+      params = optax.apply_updates(params, updates)
+      step_losses.append(np.asarray(losses))
+    history.append(np.mean(step_losses, axis=0))
+  return params, np.stack(history, axis=1)
+
+
+# After a few Adam epochs a parameter entry whose gradient the two sides
+# round differently moves by a fraction of one step (lr): the parameters are
+# held to 2e-3 of each leaf's largest magnitude plus 5% of lr (the largest
+# difference seen is 1.6% of lr, in a ZINB feature scale).
+BF16_STEP_TOL = 0.05 * LR
+
+
+@pytest.mark.parametrize('batch', [None, 20], ids=['full', 'minibatch'])
+@pytest.mark.parametrize('backend', ['torch', 'kernel'],
+                         ids=['torch', 'kernel-path'])
+@pytest.mark.parametrize('distribution', ['NORMAL', 'NB', 'ZINB'])
+def test_bf16_train_matches_jax(distribution, backend, batch):
+  """A few 'bf16' epochs from the JAX package's initial parameters and
+  permutations: 'torch' against the XLA path's loss under `optax.adam`
+  (`_jax_xla_bf16_train`), the CPU kernel path (the plain K1, rounding where
+  K1 rounds) against `ensemble_map(backend='pallas', precision='bf16')`
+  (the Pallas kernel, interpreted)."""
+  j_config, t_config, aug, y = _data()
+  target = y if distribution == 'NORMAL' else _count_targets(y, distribution)
+  mesh, params0, keys = _jax_init(j_config, target, with_keys=True)
+  epochs = 4 if batch is None else 2
+  perms = _jax_permutations(keys, y.shape[0], epochs)
+  if backend == 'torch':
+    want_params, want_losses = _jax_xla_bf16_train(
+        j_config, aug, target, params0, distribution, epochs, batch, perms)
+  else:
+    want_params, want_losses = j_map.ensemble_map(
+        aug, target, j_config, j_likelihoods.LikelihoodDist(distribution),
+        MEMBERS, LR, epochs, jax.random.PRNGKey(0), batch_size=batch,
+        mesh=mesh, precision='bf16', backend='pallas')
+  t_params = tuple(torch.as_tensor(p) for p in params0)
+  got_params, _, got_losses = t_map.train(
+      t_params, t_map.init_opt_state(t_params),
+      torch.as_tensor(aug.T.copy()), torch.as_tensor(target), t_config,
+      t_likelihoods.LikelihoodDist(distribution), LR, epochs,
+      backend=backend, batch_size=batch,
+      permutations=lambda e: torch.as_tensor(perms[e]), precision='bf16')
+  np.testing.assert_allclose(got_losses.numpy(), np.asarray(want_losses),
+                             rtol=BF16_LOSS_RTOL)
+  for i, (g, w) in enumerate(zip(got_params, want_params)):
+    w = np.asarray(w)
+    bound = BF16_LEAF_TOL * np.abs(w).max() + BF16_STEP_TOL
+    assert np.abs(g.numpy() - w).max() <= bound, (i, np.abs(g.numpy() - w).max())
+
+
+@pytest.mark.parametrize('precision', ['bf16', 'highest'])
+@pytest.mark.parametrize('batch_size', [None, 30], ids=['full', 'minibatch'])
+@pytest.mark.parametrize('cls', ['BayesianNeuralFieldMAP',
+                                 'BayesianNeuralFieldMLE'])
+def test_precision_plumbs_through_fit(cls, batch_size, precision):
+  table = _table()
+  fits = [getattr(bayesnf_torch, cls)(**ESTIMATOR_KWARGS).fit(
+      table, seed=0, ensemble_size=3, num_epochs=4, batch_size=batch_size,
+      device='cpu', precision=p) for p in (precision, 'f32')]
+  assert np.isfinite(fits[0].losses_).all()
+  if precision == 'highest':
+    np.testing.assert_array_equal(fits[0].losses_, fits[1].losses_)
+    assert all(torch.equal(a, b) for a, b in zip(fits[0].params_,
+                                                 fits[1].params_))
+  else:
+    assert not np.array_equal(fits[0].losses_, fits[1].losses_)
+    np.testing.assert_allclose(fits[0].losses_, fits[1].losses_, rtol=2e-2)
+
+
+def test_unknown_precision_raises():
+  est = bayesnf_torch.BayesianNeuralFieldMAP(**ESTIMATOR_KWARGS)
+  with pytest.raises(ValueError, match="'f32', 'bf16', 'highest'"):
+    est.fit(_table(), seed=0, ensemble_size=2, num_epochs=1, device='cpu',
+            precision='fp16')
+  _, t_config, aug, y = _data()
+  with pytest.raises(ValueError, match="'f32', 'bf16', 'highest'"):
+    t_map.ensemble_map(aug, y, t_config, NORMAL_T, 2, LR, 1, 0,
+                       device='cpu', precision='fp16')
+  with pytest.raises(ValueError, match="'f32', 'bf16', 'highest'"):
+    t_map.make_nll_and_grads(None, NORMAL_T, 1.0, 'torch', 'fp16')
+
+
+@pytest.mark.parametrize('precision', ['f32', 'highest', 'bf16'])
+@pytest.mark.parametrize('batch_size', [None, 30], ids=['full', 'minibatch'])
+def test_fit_products_run_in_fp32_whatever_tf32(precision, batch_size,
+                                                monkeypatch):
+  # A caller who allowed TF32 gets it back after the fit, and the fit's
+  # products ran without it ('bf16' too: its exact products are fp32 ones).
+  seen = []
+  matmul = torch.matmul
+
+  def spy(*args, **kwargs):
+    seen.append((torch.backends.cuda.matmul.allow_tf32,
+                 torch.get_float32_matmul_precision()))
+    return matmul(*args, **kwargs)
+
+  monkeypatch.setattr(torch, 'matmul', spy)
+  saved = torch.get_float32_matmul_precision()
+  try:
+    torch.backends.cuda.matmul.allow_tf32 = True
+    bayesnf_torch.BayesianNeuralFieldMAP(**ESTIMATOR_KWARGS).fit(
+        _table(), seed=0, ensemble_size=2, num_epochs=2, device='cpu',
+        batch_size=batch_size, precision=precision)
+    assert torch.backends.cuda.matmul.allow_tf32
+  finally:
+    torch.set_float32_matmul_precision(saved)
+  assert seen and set(seen) == {(False, 'highest')}

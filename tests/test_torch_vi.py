@@ -41,6 +41,7 @@ from bayesnf_tpu.inference import vi as j_vi
 from bayesnf_tpu.models import field as j_field
 from bayesnf_tpu.models import likelihoods as j_likelihoods
 from bayesnf_tpu.models import priors as j_priors
+from bayesnf_tpu.ops import fused_mlp as j_fused
 from bayesnf_tpu.ops import special as j_special
 
 torch.set_num_threads(1)
@@ -107,9 +108,11 @@ def _count_targets(y, seed=4):
   return counts
 
 
-def _jax_elbo(config, aug, y, idx, batch, distribution=NORMAL_J):
+def _jax_elbo(config, aug, y, idx, batch, distribution=NORMAL_J,
+              compute_dtype=None):
   """`(locs, raw_scales, noise) -> (E,)` per-member negative ELBO from the
-  JAX package's own pieces; member m's batch is aug[idx[m]]."""
+  JAX package's own pieces; member m's batch is aug[idx[m]]. The field's
+  products at `compute_dtype` (the XLA path's precision)."""
   d = config.num_inputs
   n_b = N_ROWS if idx is None else batch
   if idx is None:
@@ -123,7 +126,8 @@ def _jax_elbo(config, aug, y, idx, batch, distribution=NORMAL_J):
     z = tuple(l + s * e for l, s, e in zip(locs, scales, eps))
 
     def one_draw(zz):
-      pred = j_field.apply_field_t(config, zz, aug_t[:d], aug_t[d:])
+      pred = j_field.apply_field_t(config, zz, aug_t[:d], aug_t[d:],
+                                   compute_dtype=compute_dtype)
       loglik = j_likelihoods.log_likelihood(distribution, zz, pred, y_m)
       return j_vi._surrogate_log_prob(locs, scales, zz) - (  # pylint: disable=protected-access
           j_priors.prior_log_prob(config, zz)
@@ -323,7 +327,7 @@ def test_vi_refusals_and_errors():
   with pytest.raises(ValueError, match='No fitted surrogate'):
     est.resample_posterior(seed=0)
   for change in (dict(mesh=object()), dict(checkpoint_dir='ckpt'),
-                 dict(precision='bf16'), dict(stream_chunk_steps=2)):
+                 dict(stream_chunk_steps=2)):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
       est.fit(_table(), seed=0, ensemble_size=2, num_epochs=1, device='cpu',
               **change)
@@ -482,3 +486,153 @@ def test_port_vi_artifact_loads_in_jax(tmp_path):
   # The JAX package resamples from the port's surrogate too.
   back.resample_posterior(seed=3, sample_size_posterior=2)
   assert np.asarray(back.params_[0]).shape == (1, 2, 2)
+
+
+# 'bf16' against the JAX package's 'bf16': both round the same fp32 values,
+# but values an ulp apart can round to neighbouring bf16 values, so losses
+# rtol 1e-3 and each gradient leaf within 2e-3 of its largest magnitude (the
+# JAX package's count bounds).
+BF16_LOSS_RTOL = 1e-3
+BF16_LEAF_TOL = 2e-3
+
+
+def _jax_kernel_elbo(config, aug, y, idx, batch, distribution, precision):
+  """The JAX package's kernel-path ELBO (`vi._make_elbo_losses` with
+  kernel='pallas') on injected noise: the S draws of each member folded into
+  the member axis of one `fused_train` call at `precision` (Pallas
+  interpret), its gradients returned through a custom VJP, and log q and
+  the prior by autodiff around it."""
+  d = config.num_inputs
+  n_b = N_ROWS if idx is None else batch
+  if idx is None:
+    aug_b, y_b = jnp.asarray(aug.T), jnp.asarray(y)
+  else:
+    aug_b = jnp.asarray(np.stack([aug[i].T for i in idx]))
+    y_b = jnp.asarray(y[idx])
+  num_w = config.depth + 1
+
+  def run_kernel(z_f):
+    dense = j_field.IDX_FIRST_DENSE
+    return j_fused.fused_train(
+        distribution.value, config.depth, 32,
+        (N_ROWS / n_b) / KL_WEIGHT, config.input_scales,
+        config.fourier_degrees, config.interactions, aug_b[..., :d, :],
+        aug_b[..., d:, :],
+        tuple(z_f[dense + 2 * l] for l in range(num_w)),
+        tuple(z_f[dense + 2 * l + 1] for l in range(num_w)),
+        z_f[j_field.IDX_LOG_SCALE_ADJ], z_f[j_field.IDX_FEATURE_SCALES],
+        z_f[j_field.IDX_LAYER_SCALES], z_f[j_field.IDX_ACTIVATION_LOGIT],
+        jnp.stack([z_f[j_field.IDX_LOG_NOISE_SCALE],
+                   z_f[j_field.IDX_NB_SHAPE_RAW],
+                   z_f[j_field.IDX_ZINB_LOGIT]], axis=-1),
+        y_b, precision=precision)
+
+  @jax.custom_vjp
+  def nll(z_f):
+    return run_kernel(z_f)[0]
+
+  def fwd(z_f):
+    losses, *grads = run_kernel(z_f)
+    return losses, tuple(grads)
+
+  def bwd(res, g):
+    grads = j_field.scatter_fused_train_grads(config, *res)
+    return (tuple(gr * g.reshape((-1,) + (1,) * (gr.ndim - 1))
+                  for gr in grads),)
+
+  nll.defvjp(fwd, bwd)
+
+  def elbo(locs, raw_scales, eps):
+    scales = j_vi.surrogate_scales(raw_scales)
+    z = tuple(l[:, None] + s[:, None] * e
+              for l, s, e in zip(locs, scales, eps))  # (E, S, ...)
+    z_f = tuple(p.reshape((MEMBERS * SAMPLES,) + p.shape[2:]) for p in z)
+    prior = jax.vmap(lambda p: j_priors.prior_log_prob(config, p))(z_f)
+    logq = jax.vmap(jax.vmap(j_vi._surrogate_log_prob,  # pylint: disable=protected-access
+                             in_axes=(None, None, 0)))(locs, scales, z)
+    target = (prior - nll(z_f)).reshape(MEMBERS, SAMPLES)
+    return (logq - target).mean(axis=1)
+
+  return elbo
+
+
+@pytest.mark.parametrize('batch', [None, BATCH], ids=['full', 'minibatch'])
+@pytest.mark.parametrize('backend', ['torch', 'kernel'],
+                         ids=['torch', 'kernel-path'])
+@pytest.mark.parametrize('distribution', ['NORMAL', 'NB', 'ZINB'])
+def test_bf16_elbo_and_gradients_match_jax(distribution, backend, batch):
+  """The 'bf16' ELBO and its gradients: 'torch' against the XLA path's
+  composition (`apply_field_t(compute_dtype=bfloat16)`), the CPU kernel
+  path (the plain K1) against the Pallas kernel's."""
+  j_config, t_config, aug, y = _data()
+  target = y if distribution == 'NORMAL' else _count_targets(y)
+  j_dist = j_likelihoods.LikelihoodDist(distribution)
+  locs, raw = _surrogate(j_config, seed=7)
+  rng = np.random.default_rng(8)
+  noise, idx = _noise(j_config, rng), _indices(rng, batch)
+  if backend == 'torch':
+    j_elbo = _jax_elbo(j_config, aug, target, idx, batch, j_dist,
+                       compute_dtype=jnp.bfloat16)
+  else:
+    j_elbo = _jax_kernel_elbo(j_config, aug, target, idx, batch, j_dist,
+                              'bf16')
+  j_args = [tuple(jnp.asarray(a) for a in arrays)
+            for arrays in (locs, raw, noise)]
+  want, want_grads = jax.value_and_grad(
+      lambda l, r: j_elbo(l, r, j_args[2]).sum(), argnums=(0, 1))(
+          *j_args[:2])
+  want = j_elbo(*j_args)
+  elbo = t_vi.make_elbo_losses(
+      t_config, t_likelihoods.LikelihoodDist(distribution),
+      (N_ROWS / (batch or N_ROWS)) / KL_WEIGHT, backend, precision='bf16')
+  leaves = [torch.as_tensor(a).requires_grad_(True) for a in (*locs, *raw)]
+  got = elbo(leaves[:len(locs)], leaves[len(locs):],
+             tuple(torch.as_tensor(a) for a in noise),
+             *_port_batch(aug, target, idx))
+  grads = torch.autograd.grad(got.sum(), leaves)
+  np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                             rtol=BF16_LOSS_RTOL)
+  _leaf_close([g.numpy() for g in grads],
+              [*want_grads[0], *want_grads[1]], BF16_LEAF_TOL, 'grads')
+
+
+def test_kernel_elbo_composition_matches_at_f32():
+  # The Pallas composition above is the JAX package's XLA one at 'f32'.
+  j_config, _, aug, y = _data()
+  locs, raw = _surrogate(j_config, seed=7)
+  rng = np.random.default_rng(8)
+  noise, idx = _noise(j_config, rng), _indices(rng, BATCH)
+  j_args = [tuple(jnp.asarray(a) for a in arrays)
+            for arrays in (locs, raw, noise)]
+  got = _jax_kernel_elbo(j_config, aug, y, idx, BATCH, NORMAL_J, 'f32')(
+      *j_args)
+  want = _jax_elbo(j_config, aug, y, idx, BATCH)(*j_args)
+  np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                             rtol=LOSS_RTOL)
+
+
+@pytest.mark.parametrize('precision', ['bf16', 'highest'])
+@pytest.mark.parametrize('batch_size', [None, 30], ids=['full', 'minibatch'])
+def test_vi_precision_plumbs_through_fit(batch_size, precision):
+  table = _table()
+  fits = [bayesnf_torch.BayesianNeuralFieldVI(**ESTIMATOR_KWARGS).fit(
+      table, seed=0, ensemble_size=2, num_epochs=3, batch_size=batch_size,
+      sample_size_posterior=2, device='cpu', precision=p)
+          for p in (precision, 'f32')]
+  assert np.isfinite(fits[0].losses_).all()
+  if precision == 'highest':
+    np.testing.assert_array_equal(fits[0].losses_, fits[1].losses_)
+    assert all(torch.equal(a, b) for a, b in zip(fits[0].params_,
+                                                 fits[1].params_))
+  else:
+    assert not np.array_equal(fits[0].losses_, fits[1].losses_)
+    np.testing.assert_allclose(fits[0].losses_, fits[1].losses_, rtol=2e-2)
+
+
+def test_vi_unknown_precision_raises():
+  est = bayesnf_torch.BayesianNeuralFieldVI(**ESTIMATOR_KWARGS)
+  with pytest.raises(ValueError, match="'f32', 'bf16', 'highest'"):
+    est.fit(_table(), seed=0, ensemble_size=2, num_epochs=1, device='cpu',
+            precision='fp16')
+  with pytest.raises(ValueError, match="'f32', 'bf16', 'highest'"):
+    t_vi.make_step(None, NORMAL_T, 1.0, LR, 'torch', precision='fp16')
