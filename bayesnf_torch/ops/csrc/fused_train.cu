@@ -62,6 +62,14 @@
 // evaluated on a padded row could give inf or NaN, and 0 * NaN is NaN, so the
 // count epilogue selects with the row's validity instead of multiplying.)
 //
+// Valid rows. `n_rows` is the rows' stride in x, seasonal and y; only rows
+// below `n_valid` <= n_rows count (the TPU kernel's dynamic `n_valid`, stage
+// 4: a row shard of a mesh fit holds its valid rows then padding). Rows at
+// n_valid and past it are treated as the ragged tile's padding: their
+// inputs and targets are selected out (never read into a result, so a NaN
+// there cannot leak), they carry a zero cotangent, and the NORMAL loss
+// counts n_valid rows. Chunks and tiles still cover all n_rows rows.
+//
 // Inputs. x, seasonal and y are each shared by every member (a group stride
 // of 0), or stored once per group of `rep` consecutive members: member e
 // reads group e / rep, as the TPU kernel's index maps do. rep = 1 is one row
@@ -163,7 +171,8 @@ struct TrainArgs {
   int num_groups;
   int num_features;
   int width;
-  int n_rows;                      // valid rows N
+  int n_rows;                      // rows N: the stride of x, seasonal, y
+  int n_valid;                     // rows that count: index < n_valid
   int row0;                        // first row of this chunk
   int ld;                          // scratch row stride (rows per chunk)
   int tile0;                       // global index of the chunk's first tile
@@ -525,7 +534,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int e = blockIdx.y;
   const int col0 = blockIdx.x * TR;        // column in the chunk's scratch
   const int grow0 = args.row0 + col0;      // first row of the tile
-  const int n = args.n_rows;
+  const int n_valid = args.n_valid;
   const size_t ld = args.ld;
   const int num_w = depth + 1;
   const float* scales_raw = args.scales_raw + (size_t)e * num_w;
@@ -537,7 +546,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   // --- Encode: h_0 / sqrt(F) into bufs[0], one row per thread of warp 0.
   if (tid < TR) {
     const int row = grow0 + tid;
-    encode_row(args, e, row, row < n, bufs[0] + tid, LDH, args.rsqrt[0]);
+    encode_row(args, e, row, row < n_valid, bufs[0] + tid, LDH,
+               args.rsqrt[0]);
   }
   __syncthreads();
   {
@@ -611,11 +621,11 @@ __global__ void __launch_bounds__(kThreads, 1)
           const float inv_sigma2 = 1.f / (sigma * sigma);
           const float* y =
               group_rows(args.y, args.y_group_stride, args.y_rep, e);
-          const float res = row < n ? pred - y[row] : 0.f;
+          const float res = row < n_valid ? pred - y[row] : 0.f;
           gg = args.lik_scale * inv_sigma2 * res;
           rr = res * res;
         } else {
-          const bool valid = row < n;
+          const bool valid = row < n_valid;
           const float* y =
               group_rows(args.y, args.y_group_stride, args.y_rep, e);
           const float* obs = args.obs_raw + (size_t)e * 3;
@@ -720,7 +730,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     float sx[kMaxInputs];
     if (tid < TR) {
       const int row = grow0 + tid;
-      const bool valid = row < n;
+      const bool valid = row < n_valid;
       const float* dh0 = cur + tid;
       const float* fsr = args.fs_raw + (size_t)e * num_groups;
       // The forward's buffers are overwritten by now: recompute sx, and the
@@ -765,7 +775,8 @@ __global__ void __launch_bounds__(kThreads, 1)
             args.seasonal, args.seasonal_group_stride, args.seasonal_rep, e);
         acc = 0.f;
         for (int q = 0; q < args.num_seasonal; ++q) {
-          const float v = valid ? seasonal[(size_t)q * n + row] : 0.f;
+          const float v =
+              valid ? seasonal[(size_t)q * args.n_rows + row] : 0.f;
           acc += dh0[(k + q) * LDH] * v;
         }
         dfs[g++] = acc;
@@ -925,7 +936,7 @@ struct FinalArgs {
   float* dobs;             // (E, 3)
   float lik_scale;
   int likelihood;          // Lik
-  int n_rows;
+  int n_valid;             // rows that count
   int depth;
   int num_inputs;
   int num_groups;
@@ -955,7 +966,7 @@ __global__ void finalize_kernel(const FinalArgs args) {
     const float sigma = 0.01f + expf(obs[0]);
     const float inv_sigma2 = 1.f / (sigma * sigma);
     const float rr = sums[kPartRR];
-    const float nf = (float)args.n_rows;
+    const float nf = (float)args.n_valid;
     args.losses[e] = args.lik_scale * (0.5f * inv_sigma2 * rr +
                                        nf * (logf(sigma) + kHalfLog2Pi));
     dobs[0] = args.lik_scale * (sigma - 0.01f) *
@@ -1081,8 +1092,10 @@ size_t bnf_fused_train_scratch_bytes(int members, int num_features, int width,
 // num_pairs ints). `x`, `seasonal` and `y` hold one row set per group of
 // `*_rep` members, `*_group_stride` floats apart (stride 0 and rep 1 for a
 // set shared by every member). `scratch` holds
-// bnf_fused_train_scratch_bytes(...) bytes. Returns the first launch's
-// cudaError_t that is not cudaSuccess, or 0.
+// bnf_fused_train_scratch_bytes(...) bytes. `n_rows` is the rows' stride;
+// rows at index `n_valid` (0 <= n_valid <= n_rows) and past it count for
+// nothing. Returns the first launch's cudaError_t that is not cudaSuccess,
+// or 0.
 int bnf_fused_train(const void* x, const void* seasonal, const void* y,
                     const void* const* weights, const void* const* biases,
                     const void* lsa_eff, const void* fs_raw,
@@ -1097,9 +1110,11 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
                     int likelihood, int precision,
                     void* const* weights16, int depth, int members,
                     int num_inputs, int num_seasonal, int num_pairs, int width,
-                    int n_rows, int tile_rows, int chunk_rows, void* stream) {
+                    int n_rows, int n_valid, int tile_rows, int chunk_rows,
+                    void* stream) {
   if (depth < 0 || depth + 1 > kMaxLayers || members < 1 || members > 65535 ||
-      n_rows < 1 || num_inputs < 1 || num_inputs > kMaxInputs ||
+      n_rows < 1 || n_valid < 0 || n_valid > n_rows || num_inputs < 1 ||
+      num_inputs > kMaxInputs ||
       num_pairs < 0 || num_pairs > kMaxPairs || num_seasonal < 0 ||
       chunk_rows < tile_rows || chunk_rows % tile_rows != 0 || x_rep < 1 ||
       members % x_rep != 0 || seasonal_rep < 1 || members % seasonal_rep != 0 ||
@@ -1159,6 +1174,7 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
   args.num_features = num_features;
   args.width = width;
   args.n_rows = n_rows;
+  args.n_valid = n_valid;
   args.ld = chunk_rows;
   args.num_tiles = (n_rows + tile_rows - 1) / tile_rows;
   args.num_partials = np;
@@ -1258,7 +1274,7 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
   fin.dobs = static_cast<float*>(dobs);
   fin.lik_scale = lik_scale;
   fin.likelihood = likelihood;
-  fin.n_rows = n_rows;
+  fin.n_valid = n_valid;
   fin.depth = depth;
   fin.num_inputs = num_inputs;
   fin.num_groups = num_groups;

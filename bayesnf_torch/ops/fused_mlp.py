@@ -12,7 +12,8 @@ K2, per ensemble member e:
 with s_l = softplus(layer_scales_raw[l]) and w = sigmoid(activation_logit).
 
 K1 computes, from the raw inputs, the encode, the same MLP, the negative
-log-likelihood (NORMAL, NB or ZINB) summed over rows, and its gradient with
+log-likelihood (NORMAL, NB or ZINB) summed over rows (or over the first
+`n_valid` of them: a row shard's valid prefix), and its gradient with
 respect to every learned input (see `fused_train`). Its data inputs are shared by every
 member, or stored once per group of `rep` consecutive members (rep = 1: one
 minibatch per member; rep = S: a VI member's minibatch feeds its S draws).
@@ -121,11 +122,17 @@ def _lib() -> ctypes.CDLL:
   return lib
 
 
+def check_forward_shape(depth):
+  """Raises ValueError for a depth K2 does not take (above MAX_DEPTH); its
+  width limit is `pick_tile_rows`'."""
+  if not 0 <= depth <= MAX_DEPTH:
+    raise ValueError(f'depth must be in [0, {MAX_DEPTH}], got {depth}.')
+
+
 def _check_inputs(depth, h0, weights, biases, scales_raw, logit):
   """Raises ValueError on anything the kernel does not take."""
   e, f, _ = h0.shape
-  if not 0 <= depth <= MAX_DEPTH:
-    raise ValueError(f'depth must be in [0, {MAX_DEPTH}], got {depth}.')
+  check_forward_shape(depth)
   if len(weights) != depth + 1 or len(biases) != depth + 1:
     raise ValueError(
         f'Expected {depth + 1} weights and biases, got {len(weights)} and '
@@ -226,19 +233,19 @@ fused_field_mlp_t.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _check_ported(distribution, precision, n_valid):
-  """Raises ValueError for an unknown likelihood or precision, and for the K1
-  variant not ported yet (ROADMAP.md, queue 2, K1 stage 4)."""
+def _check_call(distribution, precision, n_valid, n):
+  """Raises ValueError for an unknown likelihood or precision, or a
+  valid-row count outside [0, n]."""
   if distribution not in LIKELIHOOD_CODES:
     raise ValueError(
         f'fused_train: unknown likelihood {distribution!r}; expected one of '
         f'{sorted(LIKELIHOOD_CODES)}.'
     )
   mixed.check_precision(precision)
-  if n_valid is not None:
+  if n_valid is not None and not 0 <= n_valid <= n:
     raise ValueError(
-        'fused_train: a dynamic valid-row count is not ported yet '
-        '(ROADMAP.md, queue 2, K1 stage 4).'
+        f'fused_train: n_valid must be in [0, {n}] (the row count), got '
+        f'{n_valid}.'
     )
 
 
@@ -273,8 +280,13 @@ def fused_train_reference(
 
   Under 'bf16' it rounds where K1 rounds (`field.mlp_t(k1_sites=True)`):
   every product but the output layer's weight gradient, which stays fp32.
-  Its fp32 products run in true fp32 (`mixed.fp32_matmuls`)."""
-  _check_ported(distribution, precision, n_valid)
+  Its fp32 products run in true fp32 (`mixed.fp32_matmuls`).
+
+  With `n_valid` it computes on the first `n_valid` rows only, so whatever
+  the rows past them hold (NaN included) never enters a result."""
+  _check_call(distribution, precision, n_valid, x_t.shape[-1])
+  if n_valid is not None:
+    x_t, seasonal_t, y = (t[..., :n_valid] for t in (x_t, seasonal_t, y))
   num_w = depth + 1
   leaves = [
       t.detach().requires_grad_(True)
@@ -323,7 +335,7 @@ def _train_lib() -> ctypes.CDLL:
       i32,  # precision code
       ptrs,  # buffers for the bf16-rounded weights (precision code 1)
       i32, i32, i32, i32, i32, i32,  # depth, members, inputs, seasonal, pairs, width
-      i32, i32, i32,  # n_rows, tile_rows, chunk_rows
+      i32, i32, i32, i32,  # n_rows, n_valid, tile_rows, chunk_rows
       ptr,  # stream
   ]
   lib.bnf_fused_train.restype = ctypes.c_int
@@ -367,6 +379,41 @@ def _input_layout(members, x_t, seasonal_t, y):
       (x_t, 2, 'x_t'), (seasonal_t, 2, 'seasonal_t'), (y, 1, 'y'))]
 
 
+def check_train_shape(distribution, depth, width, fourier_degrees,
+                      interactions, num_seasonal):
+  """Raises ValueError for a model K1 does not take under `distribution`:
+  depth above MAX_DEPTH, other than 1 to MAX_INPUTS inputs (one Fourier
+  degree each), more than MAX_PAIRS interaction pairs or a pair of unknown
+  inputs, or more per-tile partial sums than MAX_PARTIALS. Its width limit
+  is `pick_train_tile_rows`'.
+
+  Returns:
+    (width, encoded features F, feature groups G); at depth 0 the width is F.
+  """
+  d = len(fourier_degrees)
+  if not 0 <= depth <= MAX_DEPTH:
+    raise ValueError(f'depth must be in [0, {MAX_DEPTH}], got {depth}.')
+  if not 1 <= d <= MAX_INPUTS:
+    raise ValueError(
+        f'Expected 1 to {MAX_INPUTS} inputs with one input scale and one '
+        f'Fourier degree each; got {d} degrees.'
+    )
+  if len(interactions) > MAX_PAIRS or any(
+      not (0 <= a < d and 0 <= b < d) for a, b in interactions):
+    raise ValueError(
+        f'Expected at most {MAX_PAIRS} interaction pairs of input indices '
+        f'below {d}, got {interactions}.'
+    )
+  f, g = _feature_layout(fourier_degrees, interactions, d, num_seasonal)
+  if num_partials(depth, d, g, distribution) > MAX_PARTIALS:
+    raise ValueError(
+        f'depth {depth}, {d} inputs and {g} feature groups exceed the '
+        f"kernel's {MAX_PARTIALS} per-tile partial sums under the "
+        f'{distribution} likelihood.'
+    )
+  return (width if depth else f), f, g
+
+
 def _check_train_inputs(
     depth, input_scales, fourier_degrees, interactions, x_t, seasonal_t,
     weights, biases, lsa, fs_raw, scales_raw, logit, obs_raw, y,
@@ -379,8 +426,6 @@ def _check_train_inputs(
   """
   d, n = x_t.shape[-2:]
   e = weights[0].shape[0] if weights else 0
-  if not 0 <= depth <= MAX_DEPTH:
-    raise ValueError(f'depth must be in [0, {MAX_DEPTH}], got {depth}.')
   if len(weights) != depth + 1 or len(biases) != depth + 1:
     raise ValueError(
         f'Expected {depth + 1} weights and biases, got {len(weights)} and '
@@ -388,30 +433,18 @@ def _check_train_inputs(
     )
   if not 1 <= e <= MAX_MEMBERS:
     raise ValueError(f'members must be in [1, {MAX_MEMBERS}], got {e}.')
-  if not 1 <= d <= MAX_INPUTS or len(input_scales) != d or len(
-      fourier_degrees) != d:
+  if len(input_scales) != d or len(fourier_degrees) != d:
     raise ValueError(
-        f'Expected 1 to {MAX_INPUTS} inputs with one input scale and one '
-        f'Fourier degree each; got x_t of {d} rows, {len(input_scales)} '
-        f'scales and {len(fourier_degrees)} degrees.'
-    )
-  if len(interactions) > MAX_PAIRS or any(
-      not (0 <= a < d and 0 <= b < d) for a, b in interactions):
-    raise ValueError(
-        f'Expected at most {MAX_PAIRS} interaction pairs of input indices '
-        f'below {d}, got {interactions}.'
+        f'Expected one input scale and one Fourier degree for each of the '
+        f'{d} inputs of x_t; got {len(input_scales)} scales and '
+        f'{len(fourier_degrees)} degrees.'
     )
   if n < 1:
     raise ValueError('fused_train needs at least one row.')
   _input_layout(e, x_t, seasonal_t, y)
-  f, g = _feature_layout(fourier_degrees, interactions, d, seasonal_t.shape[-2])
-  if num_partials(depth, d, g, distribution) > MAX_PARTIALS:
-    raise ValueError(
-        f'depth {depth}, {d} inputs and {g} feature groups exceed the '
-        f"kernel's {MAX_PARTIALS} per-tile partial sums under the "
-        f'{distribution} likelihood.'
-    )
-  width = weights[0].shape[-1] if depth else f
+  width, f, g = check_train_shape(
+      distribution, depth, weights[0].shape[-1], fourier_degrees,
+      interactions, seasonal_t.shape[-2])
   fan_ins = [f] + [width] * depth
   fan_outs = [width] * depth + [1]
   expected = [
@@ -461,11 +494,12 @@ def pick_train_tile_rows(num_features: int, width: int, lib=None) -> int:
 def _launch_fused_train(
     lib, stream, dims, depth, lik_scale, input_scales, fourier_degrees,
     interactions, x_t, seasonal_t, weights, biases, lsa, fs_raw, scales_raw,
-    logit, obs_raw, y, distribution, precision='f32',
+    logit, obs_raw, y, distribution, precision='f32', n_valid=None,
 ):
   """Allocates the outputs and the scratch (and under 'bf16' the buffers of
   the rounded weights), and runs one K1 call of `lib` on `stream`; `dims` is
-  what `_check_train_inputs` returned for these inputs."""
+  what `_check_train_inputs` returned for these inputs. Rows at index
+  `n_valid` (None: n) and past it count for nothing."""
   width, f, g = dims
   d, n = x_t.shape[-2:]
   e = weights[0].shape[0]
@@ -525,7 +559,8 @@ def _launch_fused_train(
       float(lik_scale), likelihood, code,
       ptr_array(weights16) if code else None, depth, e, d, s2,
       len(interactions),
-      width, n, tile_rows, chunk_rows, stream,
+      width, n, n if n_valid is None else int(n_valid), tile_rows,
+      chunk_rows, stream,
   )
   if err != 0:
     raise RuntimeError(
@@ -584,7 +619,12 @@ def fused_train(
       'bf16' (the products the TPU kernel casts take bf16-rounded operands,
       exact products and fp32 sums; the output layer's weight gradient,
       the sums and the elementwise math stay fp32; see `ops/mixed.py`).
-    n_valid: None only (every row counts; K1 stage 4 is not ported).
+    n_valid: None (every row counts) or a host int in [0, N]: rows at
+      index n_valid and past it contribute nothing to the loss or to any
+      gradient, whatever they hold (NaN included: the kernel selects them
+      out and never multiplies them by 0). N stays the rows' stride. A row
+      shard of a mesh fit passes its valid-row count (stage 4 of the TPU
+      kernel, whose `n_valid` is a traced int32).
 
   Returns:
     (losses (E,), dlsa, dfs_raw, dweights, dbiases, dscales_raw, dlogit,
@@ -593,13 +633,14 @@ def fused_train(
     and 2; ZINB: 0).
 
   Raises:
-    ValueError: for an unknown likelihood or precision, an `n_valid`, a data
-      input whose leading dim does not divide the member count, and on CUDA
+    ValueError: for an unknown likelihood or precision, an `n_valid` outside
+      [0, N], a data input whose leading dim does not divide the member
+      count, and on CUDA
       for shapes, dtypes, devices or layouts the kernel does not take, or a
       width whose tile does not fit in shared memory.
     RuntimeError: if the kernel fails to build or to launch.
   """
-  _check_ported(distribution, precision, n_valid)
+  _check_call(distribution, precision, n_valid, x_t.shape[-1])
   _input_layout(weights[0].shape[0], x_t, seasonal_t, y)
   tensors = (x_t, seasonal_t, *weights, *biases, lsa, fs_raw, scales_raw,
              logit, obs_raw, y)
@@ -607,7 +648,7 @@ def fused_train(
     return fused_train_reference(
         distribution, depth, lik_scale, input_scales, fourier_degrees,
         interactions, x_t, seasonal_t, weights, biases, lsa, fs_raw,
-        scales_raw, logit, obs_raw, y, precision,
+        scales_raw, logit, obs_raw, y, precision, n_valid,
     )
   if x_t.device.type != 'cuda':
     raise ValueError(
@@ -624,7 +665,7 @@ def fused_train(
         lib, torch.cuda.current_stream().cuda_stream, dims, depth, lik_scale,
         input_scales, fourier_degrees, interactions, x_t, seasonal_t,
         weights, biases, lsa, fs_raw, scales_raw, logit, obs_raw, y,
-        distribution, precision,
+        distribution, precision, n_valid,
     )
   fused_train.launches += 1
   fused_train.bf16_launches += precision == 'bf16'

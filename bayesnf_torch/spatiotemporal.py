@@ -10,16 +10,20 @@ surrogate too, so a loaded VI estimator can `resample_posterior`.
 What the port does, and what it does not yet:
 
 - `fit` for MAP, MLE and VI with the NORMAL, NB or ZINB observation model,
-  full batch or minibatch, on one device, on the 'kernel' (CUDA) or 'torch'
-  backend (`inference/map.py`, `inference/vi.py`), at `precision` 'f32',
-  'highest' (the same) or 'bf16' (`ops/mixed.py`). Checkpoints, streaming
-  and a mesh raise NotImplementedError.
+  full batch or minibatch, on one device or over a `mesh`
+  (`parallel/mesh.py`: members split over 'ens', rows over 'data'), on the
+  'kernel' (CUDA) or 'torch' backend (`inference/map.py`,
+  `inference/vi.py`), at `precision` 'f32', 'highest' (the same) or 'bf16'
+  (`ops/mixed.py`). Checkpoints and streaming raise NotImplementedError.
 - `predict` (means and exact mixture quantiles) and `likelihood_model` (the
   predictive distribution object of `models/distributions.py`), on the
-  'kernel' or 'torch' backend (`inference/backends.py`). They return tensors
-  on the parameters' device.
-- The port runs on one device: the artifact's `fit_mesh` is read and
-  ignored.
+  'kernel' or 'torch' backend (`inference/backends.py`), row-parallel over
+  the fit's mesh (`mesh_`). They return tensors on the parameters' device.
+- `params_` carries the JAX package's group shape: (mesh size, E / size)
+  when the mesh's size divides E, else (1, E). `save` writes the mesh's
+  extents as `fit_mesh`; `load` rebuilds the mesh when their product is the
+  count of devices of the load device's type, and stays meshless
+  otherwise, as the JAX package does.
 """
 
 from collections.abc import Sequence
@@ -36,8 +40,18 @@ from bayesnf_torch.inference import vi as vi_lib
 from bayesnf_torch.models import distributions as dist_lib
 from bayesnf_torch.models import field as field_lib
 from bayesnf_torch.models import likelihoods
+from bayesnf_torch.parallel import mesh as mesh_lib
 
 ARTIFACT_FORMAT = 'bayesnf-tpu-estimator-v1'
+
+
+def _group_shape(ensemble_size: int, mesh=None) -> tuple[int, int]:
+  """The public (num_devices, per_device) factorization of the member axis:
+  (mesh size, E / size) when the fit's mesh size divides E, else (1, E)."""
+  num_devices = 1 if mesh is None else mesh.size
+  if ensemble_size % num_devices == 0:
+    return (num_devices, ensemble_size // num_devices)
+  return (1, ensemble_size)
 
 
 class BayesianNeuralFieldEstimator:
@@ -101,6 +115,7 @@ class BayesianNeuralFieldEstimator:
     self.losses_ = None
     self.params_ = None
     self.surrogate_ = None
+    self.mesh_ = None
     self.data_handler = SpatiotemporalDataHandler(
         self.feature_cols,
         self.target_col,
@@ -179,11 +194,13 @@ class BayesianNeuralFieldEstimator:
         num_seasonal_harmonics=self._get_num_seasonal_harmonics(),
     )
 
-  def _fit_inputs(self, table, batch_size, num_epochs, device):
-    """(config, aug features on `device`, target, batch_size, num_epochs)
-    of a fit: the batch is clamped to the table, and VI counts its epochs
-    in steps (times N // batch_size), as the JAX package does."""
-    device = torch.device(device)
+  def _fit_inputs(self, table, batch_size, num_epochs, device, mesh):
+    """(config, aug features on `device`, or on the first device of
+    `mesh`, target, batch_size, num_epochs) of a fit: the batch is clamped
+    to the table, and VI counts its epochs in steps (times N //
+    batch_size), as the JAX package does."""
+    device = (torch.device(device) if mesh is None
+              else mesh_lib.check_mesh(mesh).first_device)
     if device.type == 'cuda' and not torch.cuda.is_available():
       raise RuntimeError(
           f"Cannot fit on {device}: CUDA is not available (pass device='cpu' "
@@ -224,7 +241,8 @@ class BayesianNeuralFieldEstimator:
     Returns:
       (means, quantiles) as tensors on the device of `params_`: means has
       the ensemble leading dims `(num_devices, ensemble_size // num_devices,
-      len(table))`; each quantile tensor has length `len(table)`.
+      len(table))`; each quantile tensor has length `len(table)`. A fit
+      over a mesh predicts over it too (row-parallel, `mesh_`).
 
     Raises:
       ValueError: if the estimator is unfitted.
@@ -240,6 +258,7 @@ class BayesianNeuralFieldEstimator:
         ensemble_dims=self._ensemble_dims,
         approximate_quantiles=approximate_quantiles,
         backend=backend,
+        mesh=self.mesh_,
     )
 
   def likelihood_model(self, table, backend='auto'):
@@ -267,6 +286,7 @@ class BayesianNeuralFieldEstimator:
         self._field_config(test_data.shape),
         ensemble_dims=self._ensemble_dims,
         backend=backend,
+        mesh=self.mesh_,
     )
     if likelihoods.LikelihoodDist(self.observation_model) == (
         likelihoods.LikelihoodDist.NORMAL):
@@ -282,7 +302,8 @@ class BayesianNeuralFieldEstimator:
     """Persist this fitted estimator to `path` (.npz).
 
     Writes the JAX package's artifact format: constructor arguments, the
-    data handler's train-time statistics, `params_` and `losses_`.
+    data handler's train-time statistics, `params_`, `losses_` and the fit
+    mesh's extents (`fit_mesh`).
     """
     self._require_fitted('save')
     h = self.data_handler
@@ -322,7 +343,7 @@ class BayesianNeuralFieldEstimator:
             'time_scale': jsonable(h.time_scale_),
         },
         'num_params': len(self.params_),
-        'fit_mesh': None,
+        'fit_mesh': None if self.mesh_ is None else dict(self.mesh_.shape),
     }
     arrays = {
         f'param_{i}': torch.as_tensor(p).detach().cpu().numpy()
@@ -347,7 +368,10 @@ class BayesianNeuralFieldEstimator:
     """Reconstruct a fitted estimator saved with `save` by either package.
 
     Callable from the base class (the artifact names its concrete class) or
-    from the matching subclass. The parameters go to `device`.
+    from the matching subclass. The parameters go to `device`. An artifact
+    fitted over a mesh of ens x data devices predicts over the mesh of
+    `mesh.default_mesh` when `device`'s type has that many devices (every
+    CUDA device, or the one CPU), and on `device` alone otherwise.
 
     Raises:
       RuntimeError: if `device` is CUDA and CUDA is not available.
@@ -400,6 +424,14 @@ class BayesianNeuralFieldEstimator:
                 config, [data[f'surrogate_{kind}_{i}']
                          for i in range(num_surrogate)], 1, device)
             for kind in ('loc', 'raw_scale'))
+    fit_mesh = spec.get('fit_mesh')
+    if fit_mesh:
+      ens = int(fit_mesh.get(mesh_lib.ENSEMBLE_AXIS, 1))
+      dat = int(fit_mesh.get(mesh_lib.DATA_AXIS, 1))
+      if device.type == 'cuda' and ens * dat == torch.cuda.device_count():
+        model.mesh_ = mesh_lib.default_mesh(None, ens, dat)
+      elif device.type != 'cuda' and ens * dat == 1:
+        model.mesh_ = mesh_lib.default_mesh([device], ens, dat)
     return model
 
 
@@ -421,6 +453,7 @@ class BayesianNeuralFieldMAP(BayesianNeuralFieldEstimator):
       backend='auto',
       device='cuda',
       precision='f32',
+      mesh=None,
       **unported,
   ) -> 'BayesianNeuralFieldMAP':
     """Run stochastic ensemble MAP (or MLE) inference.
@@ -438,38 +471,46 @@ class BayesianNeuralFieldMAP(BayesianNeuralFieldEstimator):
       num_splits: sequential ensemble splits.
       backend: 'auto' (the CUDA kernel K1 on a CUDA device, plain PyTorch
         on the CPU) | 'torch' | 'kernel'.
-      device: where the fit runs and `params_` live.
+      device: where the fit runs and `params_` live, without a mesh.
       precision: 'f32' (true fp32 products) | 'highest' (the same, bit for
         bit) | 'bf16' (bf16-rounded operands, exact products, fp32 sums;
         parameters, Adam and the elementwise math stay fp32), as the JAX
         package's argument (`ops/mixed.py`).
-      **unported: the JAX package's `mesh`, `checkpoint_dir`,
-        `checkpoint_every`, `stream_chunk_steps` and
-        `stream_member_remix`; anything but their defaults raises.
+      mesh: None, or a `parallel.mesh.Mesh` (`mesh.default_mesh`; a device
+        may repeat) to fit over: members split over 'ens' (padded to a
+        multiple of its extent), rows over 'data' (`inference/map.py`).
+        `params_` then live on its first device, and `predict` runs over it.
+      **unported: the JAX package's `checkpoint_dir`, `checkpoint_every`,
+        `stream_chunk_steps` and `stream_member_remix`; anything but their
+        defaults raises.
 
     Returns:
-      self, with `params_` leaves (1, ensemble_size, ...) on `device` and
-      `losses_` (1, ensemble_size, num_epochs) as numpy.
+      self, with `params_` leaves (g, ensemble_size / g, ...) and `losses_`
+      (g, ensemble_size / g, num_epochs) as numpy, g the mesh's size when
+      it divides ensemble_size, else 1.
 
     Raises:
       NotImplementedError: for the unported arguments above.
-      ValueError: for an unknown precision.
+      TypeError: if `mesh` is not a `parallel.mesh.Mesh`.
+      ValueError: for an unknown precision, or a minibatch on 'kernel' that
+        does not split evenly over the mesh's data shards.
       RuntimeError: if `device` is CUDA and CUDA is not available.
     """
     config, aug, train_target, batch_size, num_epochs = self._fit_inputs(
-        table, batch_size, num_epochs, device)
+        table, batch_size, num_epochs, device, mesh)
     params, losses = map_lib.fit_map(
         aug, train_target, seed=seed,
         observation_model=self.observation_model, config=config,
         num_particles=ensemble_size, learning_rate=learning_rate,
         num_epochs=num_epochs, prior_weight=self._prior_weight,
         batch_size=batch_size, num_splits=num_splits, backend=backend,
-        device=device, precision=precision, **unported,
+        device=device, precision=precision, mesh=mesh, **unported,
     )
-    # One device: the JAX package's (num_devices, per_device) group shape.
-    self.params_ = tuple(
-        p.reshape((1, ensemble_size) + tuple(p.shape[1:])) for p in params)
-    self.losses_ = losses.reshape((1, ensemble_size) + losses.shape[1:])
+    g, m = _group_shape(ensemble_size, mesh)
+    self.params_ = tuple(p.reshape((g, m) + tuple(p.shape[1:]))
+                         for p in params)
+    self.losses_ = losses.reshape((g, m) + losses.shape[1:])
+    self.mesh_ = mesh
     return self
 
 
@@ -479,11 +520,13 @@ class BayesianNeuralFieldMLE(BayesianNeuralFieldMAP):
   _prior_weight = 0.0
 
 
-def _posterior_params(draws, ensemble_size, num_samples):
-  """Draws (M, S, ...) in the public (1, S, M, ...) layout: the JAX
-  package's reshape to (groups, M, S) then swap of axes 1 and 2."""
+def _posterior_params(draws, ensemble_size, num_samples, mesh):
+  """Draws (M, S, ...) in the public (g, S, M / g, ...) layout
+  (`_group_shape`): the JAX package's reshape to (g, M / g, S) then swap of
+  axes 1 and 2."""
+  g, m = _group_shape(ensemble_size, mesh)
   return tuple(
-      p.reshape((1, ensemble_size, num_samples) + tuple(p.shape[2:]))
+      p.reshape((g, m, num_samples) + tuple(p.shape[2:]))
       .transpose(1, 2).contiguous() for p in draws)
 
 
@@ -507,6 +550,7 @@ class BayesianNeuralFieldVI(BayesianNeuralFieldEstimator):
       backend='auto',
       device='cuda',
       precision='f32',
+      mesh=None,
       **unported,
   ) -> 'BayesianNeuralFieldVI':
     """Run stochastic ensemble variational inference.
@@ -525,22 +569,23 @@ class BayesianNeuralFieldVI(BayesianNeuralFieldEstimator):
       batch_size: rows per step; None is the full batch.
       backend: 'auto' (the CUDA kernel K1 on a CUDA device, plain PyTorch
         on the CPU) | 'torch' | 'kernel'.
-      device: where the fit runs and `params_` live.
+      device: where the fit runs and `params_` live, without a mesh.
       precision: as for :meth:`BayesianNeuralFieldMAP.fit`.
+      mesh: as for :meth:`BayesianNeuralFieldMAP.fit`; every data shard of
+        an ensemble group sees the same Monte-Carlo draws.
       **unported: as for :meth:`BayesianNeuralFieldMAP.fit`.
 
     Returns:
       self, with `surrogate_` (locs, raw_scales) of leaves (ensemble_size,
-      ...), `params_` of leaves (1, sample_size_posterior, ensemble_size,
-      ...) on `device` and `losses_` (1, ensemble_size, steps) as numpy.
+      ...), `params_` of leaves (g, sample_size_posterior, ensemble_size /
+      g, ...) (g as for MAP) and `losses_` (g, ensemble_size / g, steps) as
+      numpy.
 
     Raises:
-      NotImplementedError: for the unported arguments.
-      ValueError: for an unknown precision.
-      RuntimeError: if `device` is CUDA and CUDA is not available.
+      As :meth:`BayesianNeuralFieldMAP.fit`.
     """
     config, aug, train_target, batch_size, num_epochs = self._fit_inputs(
-        table, batch_size, num_epochs, device)
+        table, batch_size, num_epochs, device, mesh)
     surrogate, losses, draws = vi_lib.fit_vi(
         aug, train_target, seed=seed,
         observation_model=self.observation_model, config=config,
@@ -548,12 +593,14 @@ class BayesianNeuralFieldVI(BayesianNeuralFieldEstimator):
         num_epochs=num_epochs, sample_size_divergence=sample_size_divergence,
         sample_size_posterior=sample_size_posterior, kl_weight=kl_weight,
         batch_size=batch_size, backend=backend, device=device,
-        precision=precision, **unported,
+        precision=precision, mesh=mesh, **unported,
     )
     self.surrogate_ = surrogate
     self.params_ = _posterior_params(draws, ensemble_size,
-                                     int(sample_size_posterior))
-    self.losses_ = losses.reshape((1, ensemble_size) + losses.shape[1:])
+                                     int(sample_size_posterior), mesh)
+    g, m = _group_shape(ensemble_size, mesh)
+    self.losses_ = losses.reshape((g, m) + losses.shape[1:])
+    self.mesh_ = mesh
     return self
 
   def resample_posterior(self, seed: int, sample_size_posterior: int = 30):
@@ -561,7 +608,7 @@ class BayesianNeuralFieldVI(BayesianNeuralFieldEstimator):
 
     Works on a loaded estimator too (`save` keeps the surrogate). The
     draws come from a generator on the surrogate's device seeded with
-    `seed`; `params_` keeps its (1, S, M, ...) layout.
+    `seed`; `params_` keeps its (g, S, M / g, ...) layout.
 
     Raises:
       ValueError: if there is no fitted surrogate.
@@ -577,5 +624,5 @@ class BayesianNeuralFieldVI(BayesianNeuralFieldEstimator):
     draws = vi_lib.posterior_draws(
         config, self.surrogate_, int(sample_size_posterior), generator)
     self.params_ = _posterior_params(draws, int(locs[0].shape[0]),
-                                     int(sample_size_posterior))
+                                     int(sample_size_posterior), self.mesh_)
     return self

@@ -27,7 +27,11 @@ CUDA toolkit (nvcc). It imports nothing of JAX. Phases, one line each:
    instantiations of the tile kernel and the weight-gradient GEMM) at the
    main shape under each likelihood, the grouped shape and width 1024, each
    held to the plain 'bf16' version and to the plain fp32 one, and 'highest'
-   bit for bit equal to 'f32'; time both with CUDA events.
+   bit for bit equal to 'f32'; then the valid-row count (stage 4) at the
+   main shape under each likelihood and at 'bf16': 13 junk rows appended
+   (x 9.9, seasonal -9.9, y NaN) with n_valid = 8192, bit for bit equal to
+   K1 on the 8,192 unpadded rows and held to the plain version with
+   n_valid; time both with CUDA events.
 4. Golden check: the committed artifact fitted by the JAX package, loaded
    onto the card, must predict what the JAX package predicted (the
    tolerances of `tests/test_torch_predict.py`).
@@ -64,7 +68,17 @@ CUDA toolkit (nvcc). It imports nothing of JAX. Phases, one line each:
    K1 call the bf16 one, by the launch counters) and on 'torch', each
    against phases 6-7's fp32 fits from the same seed; member-steps/s of
    both backends.
-11. A JSON line of the kernels, with each one's time, its plain version's,
+11. The mesh path on the one card (`parallel/mesh.py`; a mesh may repeat a
+   device): phase 6's full-batch fit over an (ens 2, data 3) mesh of
+   cuda:0 on 'kernel' (6 K1 calls an epoch, each shard masking its padded
+   row through n_valid: 12,699 / 12,699 / 12,698 rows), its losses held to
+   phase 6's from the same seed; one minibatch epoch over (ens 1, data 2)
+   (1,750 rows a shard a step) on both backends; one full-batch VI step of
+   the `air_quality` stanza over the (2, 3) mesh on both backends; then the
+   mesh-fitted estimator's row-parallel predict against the meshless
+   predict of the same parameters. Member-steps/s (one card shows no
+   data-parallel speed).
+12. A JSON line of the kernels, with each one's time, its plain version's,
    the least time the card could take for the same products and bytes
    (`bound_ms`) and the PyTorch call that computes the same function, if
    any (`library_ms`); then the last line,
@@ -94,6 +108,7 @@ from bayesnf_torch.models import field as field_lib
 from bayesnf_torch.models import likelihoods
 from bayesnf_torch.ops import _build
 from bayesnf_torch.ops import fused_mlp
+from bayesnf_torch.parallel import mesh as mesh_lib
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, 'tests', 'test_data',
@@ -449,6 +464,71 @@ def check_train_kernel(seed):
           bound_ms=f'{bound[0]:.4f}')
     if name.startswith(('main', 'grouped')):
       result[name] = (max_abs, ms, plain_ms, bound)
+  result.update(check_n_valid(seed))
+  return result
+
+
+# Rows past n_valid in the stage-4 cases, and what they hold.
+JUNK_ROWS = 13
+
+
+def check_n_valid(seed):
+  """Phase 3t's stage-4 cases; returns {case: (max abs error against the
+  plain version, kernel ms, plain ms, bound)}."""
+  result = {}
+  for distribution, precision in (('NORMAL', 'f32'), ('NB', 'f32'),
+                                  ('ZINB', 'f32'), ('NORMAL', 'bf16')):
+    args = train_kernel_inputs(MEMBERS, TRAIN_ROWS, 512, 2, seed,
+                               distribution=distribution)
+
+    def pad(t, value):
+      return torch.cat([t, torch.full(t.shape[:-1] + (JUNK_ROWS,), value,
+                                      device=t.device)], -1).contiguous()
+
+    junk = dict(args, x_t=pad(args['x_t'], 9.9),
+                seasonal_t=pad(args['seasonal_t'], -9.9),
+                y=pad(args['y'], float('nan')))
+    before = fused_mlp.fused_train.launches
+    got = fused_mlp.fused_train(**junk, precision=precision,
+                                n_valid=TRAIN_ROWS)
+    unpadded = fused_mlp.fused_train(**args, precision=precision)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_train.launches == before + 2
+    named = train_outputs(got, 2)
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        named, train_outputs(unpadded, 2))), (distribution, precision)
+    want = fused_mlp.fused_train_reference(**junk, precision=precision,
+                                           n_valid=TRAIN_ROWS)
+    stage1 = distribution == 'NORMAL' and precision == 'f32'
+    loss_rtol, leaf_tol = ((TRAIN_LOSS_RTOL, TRAIN_LEAF_TOL) if stage1 else
+                           (COUNT_LOSS_RTOL, COUNT_LEAF_TOL))
+    max_abs, worst = 0.0, (None, 0.0)
+    for (leaf, g), (_, w) in zip(named, train_outputs(want, 2)):
+      err = (g - w).abs().max().item()
+      scale = w.abs().max().item()
+      max_abs = max(max_abs, err)
+      if leaf == 'losses':
+        torch.testing.assert_close(g, w, rtol=loss_rtol, atol=0)
+      else:
+        assert err <= leaf_tol * scale, (distribution, precision, leaf)
+      if err / max(scale, 1e-30) > worst[1]:
+        worst = (leaf, err / max(scale, 1e-30))
+    ms = cuda_ms(lambda: fused_mlp.fused_train(
+        **junk, precision=precision, n_valid=TRAIN_ROWS), reps=5)
+    plain_ms = cuda_ms(lambda: fused_mlp.fused_train_reference(
+        **junk, precision=precision, n_valid=TRAIN_ROWS), reps=3)
+    # The work is the valid rows': the bound of the unpadded call.
+    bound = k1_bound(args, precision)
+    name = 'n_valid' + ('' if distribution == 'NORMAL' else
+                        f'-{distribution}') + (
+                            '-bf16' if precision == 'bf16' else '')
+    phase('3t K1-n_valid', case=name, likelihood=distribution,
+          precision=precision, members=MEMBERS, rows=TRAIN_ROWS + JUNK_ROWS,
+          n_valid=TRAIN_ROWS, junk='x 9.9, seasonal -9.9, y NaN',
+          vs_unpadded='bit-equal', max_abs_err=f'{max_abs:.3e}',
+          worst_leaf=f'{worst[0]}:{worst[1]:.3e}', kernel_ms=f'{ms:.4f}',
+          plain_ms=f'{plain_ms:.4f}', bound_ms=f'{bound[0]:.4f}')
+    result[name] = (max_abs, ms, plain_ms, bound)
   return result
 
 
@@ -586,9 +666,10 @@ def timed_fit(table, seed, backend, precision='f32', batch_size=None,
 
 def member_steps_per_s(est, table, backend,
                        distribution=likelihoods.LikelihoodDist.NORMAL,
-                       precision='f32'):
+                       precision='f32', mesh=None):
   """Steady-state training rate: TIMED_STEPS full-batch steps from the
-  fitted parameters, host clock around a synchronized run."""
+  fitted parameters (over `mesh`, if one is given), host clock around a
+  synchronized run."""
   train = est.data_handler.get_train(table)
   config = est._field_config(train.shape)  # pylint: disable=protected-access
   aug_t = field_lib.aug_features(
@@ -596,12 +677,12 @@ def member_steps_per_s(est, table, backend,
   ).T.contiguous()
   y = torch.tensor(est.data_handler.get_target(table), dtype=torch.float32,
                    device='cuda')
-  params = tuple(p[0] for p in est.params_)
+  params = tuple(p.reshape((-1,) + tuple(p.shape[2:])) for p in est.params_)
   torch.cuda.synchronize()
   start = time.perf_counter()
   map_lib.train(params, map_lib.init_opt_state(params), aug_t, y, config,
                 distribution, 0.005, TIMED_STEPS, backend=backend,
-                precision=precision)
+                precision=precision, mesh=mesh)
   torch.cuda.synchronize()
   return MEMBERS * TIMED_STEPS / (time.perf_counter() - start)
 
@@ -1004,6 +1085,133 @@ def check_bf16_path(seed, f32_losses):
   return sum(fits[kind, 'kernel'][2] for kind in ('full', 'minibatch', 'vi'))
 
 
+def mesh_predict_launches(rows, mesh):
+  """K2 calls of a row-parallel predict: one per non-empty slice of each
+  chunk (CHUNK rounded up to a multiple of the mesh's size)."""
+  chunk = -(-CHUNK // mesh.size) * mesh.size
+  local = chunk // mesh.size
+  return sum(1 for lo in range(0, rows, chunk) for k in range(mesh.size)
+             if lo + k * local < rows)
+
+
+def check_mesh_path(seed, f32_full_losses):
+  """Phase 11; returns the K1 and K2 launches counted while it drove the
+  mesh fits and the mesh predict. `f32_full_losses` are phase 6's
+  single-device 'kernel' full-batch losses from the same seed."""
+  table = bench_table(seed)
+  n = len(table)
+  mesh6 = mesh_lib.default_mesh(['cuda:0'] * 6, ensemble_devices=2,
+                                data_devices=3)
+  mesh2 = mesh_lib.default_mesh(['cuda:0'] * 2, data_devices=2)
+  counts = [n // 3 + (j < n % 3) for j in range(3)]
+  k1_launches = 0
+
+  # Full batch over (2, 3): 6 K1 calls an epoch, against phase 6.
+  torch.cuda.synchronize()
+  fused_mlp.fused_train.launches = 0
+  start = time.perf_counter()
+  est = bench_estimator().fit(table, seed, ensemble_size=MEMBERS,
+                              learning_rate=0.005, num_epochs=FIT_EPOCHS,
+                              backend='kernel', mesh=mesh6)
+  torch.cuda.synchronize()
+  fit_s = time.perf_counter() - start
+  full_launches = fused_mlp.fused_train.launches
+  assert full_launches == 6 * FIT_EPOCHS, full_launches
+  k1_launches += full_launches
+  assert est.losses_.shape == (1, MEMBERS, FIT_EPOCHS), est.losses_.shape
+  np.testing.assert_allclose(est.losses_, f32_full_losses, rtol=FIT_LOSS_RTOL)
+  full_rel = np.abs(est.losses_ - f32_full_losses) / np.abs(f32_full_losses)
+
+  # One minibatch epoch over (1, 2): BATCH / 2 rows a shard a step.
+  steps = n // BATCH
+  fits = {}
+  for backend in ('kernel', 'torch'):
+    torch.cuda.synchronize()
+    fused_mlp.fused_train.launches = 0
+    start = time.perf_counter()
+    fits[backend] = bench_estimator().fit(
+        table, seed, ensemble_size=MEMBERS, learning_rate=0.005,
+        num_epochs=1, batch_size=BATCH, backend=backend, mesh=mesh2)
+    torch.cuda.synchronize()
+    launches = fused_mlp.fused_train.launches
+    assert launches == (2 * steps if backend == 'kernel' else 0), launches
+    k1_launches += launches
+    fits[backend] = (fits[backend].losses_, time.perf_counter() - start)
+  (mb_losses, mb_kernel_s), (mb_plain, mb_torch_s) = fits.values()
+  assert np.isfinite(mb_losses).all()
+  np.testing.assert_allclose(mb_losses, mb_plain, rtol=FIT_LOSS_RTOL)
+
+  # One full-batch VI step of the air_quality stanza over (2, 3).
+  vi = {}
+  for backend in ('kernel', 'torch'):
+    torch.cuda.synchronize()
+    fused_mlp.fused_train.launches = 0
+    start = time.perf_counter()
+    vi[backend] = bench_estimator(bayesnf_torch.BayesianNeuralFieldVI).fit(
+        table, seed, ensemble_size=VI_MEMBERS, learning_rate=VI_LR,
+        num_epochs=1, sample_size_posterior=2,
+        sample_size_divergence=VI_SAMPLES, kl_weight=VI_KL_WEIGHT,
+        backend=backend, mesh=mesh6)
+    torch.cuda.synchronize()
+    launches = fused_mlp.fused_train.launches
+    assert launches == (6 if backend == 'kernel' else 0), launches
+    k1_launches += launches
+    vi[backend] = (vi[backend].losses_, time.perf_counter() - start)
+  (vi_losses, vi_kernel_s), (vi_plain, vi_torch_s) = vi.values()
+  # 16 members do not split over the mesh's 6 devices: the (1, 16) shape.
+  assert vi_losses.shape == (1, VI_MEMBERS, 1), vi_losses.shape
+  assert np.isfinite(vi_losses).all()
+  np.testing.assert_allclose(vi_losses, vi_plain, rtol=FIT_LOSS_RTOL)
+
+  rates = [member_steps_per_s(est, table, b, mesh=mesh6)
+           for b in ('kernel', 'torch')]
+
+  # The row-parallel predict over (2, 3) against the meshless one.
+  torch.cuda.synchronize()
+  fused_mlp.fused_field_mlp_t.launches = 0
+  start = time.perf_counter()
+  means, quantiles = est.predict(table, quantiles=QUANTILES)
+  torch.cuda.synchronize()
+  predict_ms = (time.perf_counter() - start) * 1e3
+  k2_launches = fused_mlp.fused_field_mlp_t.launches
+  assert k2_launches == mesh_predict_launches(n, mesh6), k2_launches
+  est.mesh_ = None
+  want_means, want_quantiles = est.predict(table, quantiles=QUANTILES)
+  est.mesh_ = mesh6
+  torch.testing.assert_close(means, want_means, **MEANS_TOL)
+  scales = 0.01 + torch.exp(est.params_[0])
+  residuals = []
+  for q, got, want in zip(QUANTILES, quantiles, want_quantiles):
+    residuals.append(mixture_cdf_residual(got, want_means, scales, q))
+    assert residuals[-1] <= 2e-5, (q, residuals[-1])
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-3 * scales.max().item())
+  phase('11 mesh-path', rows=n, members=MEMBERS, mesh='ens 2 x data 3',
+        devices='cuda:0 x 6', shard_rows='/'.join(map(str, counts)),
+        epochs=FIT_EPOCHS, k1_launches=full_launches,
+        fit_s_kernel=f'{fit_s:.2f}',
+        loss_rel_diff_vs_phase6_max=f'{full_rel.max():.3e}',
+        member_steps_per_s_kernel=f'{rates[0]:.2f}',
+        member_steps_per_s_torch=f'{rates[1]:.2f}',
+        minibatch_mesh='ens 1 x data 2', minibatch_rows_per_shard=BATCH // 2,
+        minibatch_k1_launches=2 * steps,
+        minibatch_fit_s_kernel=f'{mb_kernel_s:.2f}',
+        minibatch_fit_s_torch=f'{mb_torch_s:.2f}',
+        minibatch_loss_rel_diff_max=(
+            f'{(np.abs(mb_losses - mb_plain) / np.abs(mb_plain)).max():.3e}'),
+        vi_members=VI_MEMBERS, vi_kernel_members_per_call=(
+            VI_MEMBERS // 2 * VI_SAMPLES), vi_k1_launches=6,
+        vi_fit_s_kernel=f'{vi_kernel_s:.2f}',
+        vi_fit_s_torch=f'{vi_torch_s:.2f}',
+        vi_loss_rel_diff_max=(
+            f'{(np.abs(vi_losses - vi_plain) / np.abs(vi_plain)).max():.3e}'),
+        k2_launches=k2_launches, predict_ms=f'{predict_ms:.2f}',
+        means_max_abs_diff=(
+            f'{(means - want_means).abs().max().item():.3e}'),
+        quantile_cdf_residual_max=f'{max(residuals):.3e}')
+  return k1_launches, k2_launches
+
+
 def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -1041,6 +1249,8 @@ def main(argv=None):
   count_k1_launches, count_k2_launches = check_count_path(args.seed)
   count_vi_k1_launches, count_vi_k2_launches = check_count_vi_path(args.seed)
   bf16_launches = check_bf16_path(args.seed, f32_losses)
+  mesh_k1_launches, mesh_k2_launches = check_mesh_path(args.seed,
+                                                       f32_losses['full'])
 
   k1_bound_ms, k1_bound_by = train_cases['main'][3]
   print(json.dumps({'kernels': [{
@@ -1049,7 +1259,7 @@ def main(argv=None):
       'source': 'bayesnf_torch/ops/csrc/fused_mlp_fwd.cu',
       'replaces': 'bayesnf_tpu/ops/fused_mlp.py:488',
       'launches': (launches + vi_k2_launches + count_k2_launches
-                   + count_vi_k2_launches),
+                   + count_vi_k2_launches + mesh_k2_launches),
       'max_abs_err': max_err,
       'ms': ms,
       'plain_ms': plain_ms,
@@ -1062,21 +1272,22 @@ def main(argv=None):
       'source': 'bayesnf_torch/ops/csrc/fused_train.cu',
       'replaces': 'bayesnf_tpu/ops/fused_mlp.py:1412',
       'launches': (train_launches + vi_k1_launches + count_k1_launches
-                   + count_vi_k1_launches),
+                   + count_vi_k1_launches + mesh_k1_launches),
       'max_abs_err': max(train_cases['main'][0], train_cases['grouped'][0]),
       'ms': train_cases['main'][1],
       'plain_ms': train_cases['main'][2],
       'bound_ms': k1_bound_ms,
       'bound_by': k1_bound_by,
       'library_ms': None,
-      # The other shapes and likelihoods of phase 3t: (kernel ms, plain ms,
-      # bound ms, max abs error against the plain version).
+      # The other shapes and likelihoods of phase 3t, the valid-row count
+      # (stage 4) among them: (kernel ms, plain ms, bound ms, max abs error
+      # against the plain version).
       'cases': {name: {'ms': case[1], 'plain_ms': case[2],
                        'bound_ms': case[3][0], 'max_abs_err': case[0]}
                 for name, case in train_cases.items()
                 if name != 'main' and not name.endswith('bf16')},
       'launches_by_likelihood': {
-          'NORMAL': train_launches + vi_k1_launches,
+          'NORMAL': train_launches + vi_k1_launches + mesh_k1_launches,
           'NB': count_k1_launches, 'ZINB': count_vi_k1_launches},
   }, {
       # K1 at precision 'bf16': the bf16 instantiations of the tile kernel

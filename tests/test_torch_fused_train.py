@@ -297,12 +297,15 @@ def test_wrapper_refuses_other_devices():
 
 
 @pytest.mark.parametrize('change', [
-    dict(n_valid=50),
+    dict(n_valid=N_ROWS + 1),
 ], ids=['n_valid'])
 def test_unported_variants_raise(change):
+  # Stage 4 is ported (tests/test_torch_parallel.py); a valid-row count
+  # past the rows is refused by the wrapper and its plain version.
   _, _, args = _torch_args('depth1-seasonal')
-  with pytest.raises(ValueError, match='ROADMAP'):
-    t_fused.fused_train('NORMAL', **args, **change)
+  for fn in (t_fused.fused_train, t_fused.fused_train_reference):
+    with pytest.raises(ValueError, match=r'n_valid must be in \[0, 70\]'):
+      fn('NORMAL', **args, **change)
 
 
 def test_unknown_precision_raises():

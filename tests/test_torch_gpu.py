@@ -19,6 +19,7 @@ import torch
 import bayesnf_torch
 from bayesnf_torch.models import field
 from bayesnf_torch.ops import fused_mlp
+from bayesnf_torch.parallel import mesh as mesh_lib
 
 DATA = pathlib.Path(__file__).resolve().parent / 'test_data'
 # fp32 sums over fan-in <= 1024 taken in another order than torch.matmul.
@@ -426,3 +427,93 @@ def test_count_fit_on_cuda_kernel_matches_torch_backend(cuda, cls, model,
   assert fused_mlp.fused_field_mlp_t.launches == 1
   assert bool(torch.isfinite(means).all())
   assert all(torch.equal(q, torch.round(q)) for q in quantiles)
+
+
+def _junk_padded(args, rows=13):
+  """`args` with `rows` junk rows appended to x (9.9), the seasonal rows
+  (-9.9) and y (NaN), in whatever layout they have."""
+
+  def pad(t, value):
+    return torch.cat([t, torch.full(t.shape[:-1] + (rows,), value,
+                                    device=t.device)], -1).contiguous()
+
+  return dict(args, x_t=pad(args['x_t'], 9.9),
+              seasonal_t=pad(args['seasonal_t'], -9.9),
+              y=pad(args['y'], float('nan')))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('precision', ['f32', 'bf16'])
+@pytest.mark.parametrize('distribution', ['NORMAL', 'NB', 'ZINB'])
+@pytest.mark.parametrize('groups', [None, 2], ids=['shared', 'grouped-rep3'])
+def test_train_kernel_n_valid_ignores_the_rows_past_it(cuda, groups,
+                                                       distribution,
+                                                       precision):
+  # K1 stage 4: rows past n_valid count for nothing, NaN targets included,
+  # bit for bit the call on the unpadded rows; against the plain version
+  # with n_valid at the bounds of the stage's other tests.
+  args = _train_inputs(2, 64, 333, 6, cuda, groups=groups)
+  if distribution != 'NORMAL':
+    args = _with_counts(args, distribution)
+  junk = _junk_padded(args)
+  before = fused_mlp.fused_train.launches
+  got = fused_mlp.fused_train(**junk, n_valid=333, precision=precision)
+  want = fused_mlp.fused_train(**args, precision=precision)
+  torch.cuda.synchronize()
+  assert fused_mlp.fused_train.launches == before + 2
+  assert all(torch.equal(a, b) for a, b in zip(_flat(got), _flat(want)))
+  plain = fused_mlp.fused_train_reference(**junk, n_valid=333,
+                                          precision=precision)
+  loss_rtol, leaf_tol = ((1e-4, 2e-4) if distribution == 'NORMAL'
+                         and precision == 'f32' else (1e-3, 2e-3))
+  torch.testing.assert_close(got[0], plain[0], rtol=loss_rtol, atol=0)
+  for g, w in zip(_flat(got)[1:], _flat(plain)[1:]):
+    assert (g - w).abs().max().item() <= leaf_tol * w.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_auto_fits_a_model_k1_does_not_take_on_torch(cuda):
+  # Nine inputs: K1 holds at most eight, so 'auto' resolves to 'torch'
+  # from the shapes, before any launch; explicit 'kernel' raises.
+  rng = np.random.default_rng(0)
+  cols = [f'x{i}' for i in range(9)]
+  table = pd.DataFrame(rng.normal(size=(60, 10)), columns=cols + ['y'])
+  kwargs = dict(feature_cols=cols, target_col='y', timetype='float',
+                width=16, depth=2)
+  fused_mlp.fused_train.launches = 0
+  est = bayesnf_torch.BayesianNeuralFieldMAP(**kwargs).fit(
+      table, seed=0, ensemble_size=2, num_epochs=3, device=cuda)
+  assert fused_mlp.fused_train.launches == 0
+  assert np.isfinite(est.losses_).all()
+  with pytest.raises(ValueError, match='1 to 8 inputs'):
+    bayesnf_torch.BayesianNeuralFieldMAP(**kwargs).fit(
+        table, seed=0, ensemble_size=2, num_epochs=1, device=cuda,
+        backend='kernel')
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('batch_size', [None, 30], ids=['full', 'minibatch'])
+def test_mesh_fit_on_one_card_matches_torch_backend(cuda, batch_size):
+  # A (1, 2) mesh of the one card, 99 rows: 50 / 49, so the second shard's
+  # K1 call masks a padded row through n_valid. Two K1 calls a step.
+  table = pd.read_csv(DATA / 'chickenpox.8.train.csv', index_col=0,
+                      parse_dates=['datetime']).iloc[:99]
+  mesh = mesh_lib.default_mesh([cuda] * 2, data_devices=2)
+  steps = 2 * (1 if batch_size is None else 3)
+  fits = []
+  for backend in ('kernel', 'torch'):
+    fused_mlp.fused_train.launches = 0
+    fits.append(bayesnf_torch.BayesianNeuralFieldMAP(
+        **_chickenpox_kwargs()).fit(
+            table, seed=0, ensemble_size=4, num_epochs=2,
+            batch_size=batch_size, mesh=mesh, backend=backend))
+    assert fused_mlp.fused_train.launches == (
+        2 * steps if backend == 'kernel' else 0)
+  np.testing.assert_allclose(fits[0].losses_, fits[1].losses_, rtol=1e-4)
+  assert fits[0].params_[7].shape[:2] == (2, 2)
+  means, _ = fits[0].predict(table, quantiles=(0.5,))
+  alone = fits[0].mesh_
+  fits[0].mesh_ = None
+  want, _ = fits[0].predict(table, quantiles=(0.5,))
+  fits[0].mesh_ = alone
+  torch.testing.assert_close(means, want, rtol=2e-5, atol=1e-4)

@@ -454,14 +454,16 @@ def test_minibatch_fit_takes_n_over_b_steps_per_epoch(cls):
   assert means.shape == (1, 3, len(table))
 
 
-@pytest.mark.parametrize('change', [
-    dict(mesh=object()),
-    dict(checkpoint_dir='ckpt'),
-    dict(stream_chunk_steps=4),
+@pytest.mark.parametrize('change,error,match', [
+    # A mesh is ported (tests/test_torch_parallel.py); what is not the
+    # port's `Mesh` is refused.
+    (dict(mesh=object()), TypeError, 'bayesnf_torch.parallel.mesh.Mesh'),
+    (dict(checkpoint_dir='ckpt'), NotImplementedError, 'ROADMAP'),
+    (dict(stream_chunk_steps=4), NotImplementedError, 'ROADMAP'),
 ], ids=['mesh', 'checkpoint', 'stream'])
-def test_fit_refuses_what_is_not_ported(change):
+def test_fit_refuses_what_is_not_ported(change, error, match):
   est = bayesnf_torch.BayesianNeuralFieldMAP(**ESTIMATOR_KWARGS)
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
+  with pytest.raises(error, match=match):
     est.fit(_table(), seed=0, ensemble_size=2, num_epochs=1, device='cpu',
             **change)
 

@@ -421,8 +421,16 @@ def test_load_checks_format_class_and_device(tmp_path, monkeypatch):
 
 
 def test_fit_mesh_is_ignored(tmp_path):
+  # A fit mesh of another device count than the CPU's one is ignored: the
+  # estimator loads meshless, as the JAX package's does; one of 1 x 1 is
+  # rebuilt (tests/test_torch_parallel.py covers meshes of several).
   path = _rewrite_spec(tmp_path, fit_mesh={'ens': 8, 'data': 1})
   port = bayesnf_torch.BayesianNeuralFieldEstimator.load(path, device='cpu')
+  assert port.params_[0].shape == (1, 4)
+  assert port.mesh_ is None
+  path = _rewrite_spec(tmp_path, fit_mesh={'ens': 1, 'data': 1})
+  port = bayesnf_torch.BayesianNeuralFieldEstimator.load(path, device='cpu')
+  assert port.mesh_.shape == {'ens': 1, 'data': 1}
   assert port.params_[0].shape == (1, 4)
 
 

@@ -326,8 +326,12 @@ def test_vi_refusals_and_errors():
   est = bayesnf_torch.BayesianNeuralFieldVI(**ESTIMATOR_KWARGS)
   with pytest.raises(ValueError, match='No fitted surrogate'):
     est.resample_posterior(seed=0)
-  for change in (dict(mesh=object()), dict(checkpoint_dir='ckpt'),
-                 dict(stream_chunk_steps=2)):
+  # A mesh is ported (tests/test_torch_parallel.py); what is not the port's
+  # `Mesh` is refused.
+  with pytest.raises(TypeError, match='bayesnf_torch.parallel.mesh.Mesh'):
+    est.fit(_table(), seed=0, ensemble_size=2, num_epochs=1, device='cpu',
+            mesh=object())
+  for change in (dict(checkpoint_dir='ckpt'), dict(stream_chunk_steps=2)):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
       est.fit(_table(), seed=0, ensemble_size=2, num_epochs=1, device='cpu',
               **change)
