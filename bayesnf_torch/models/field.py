@@ -399,8 +399,9 @@ def mlp_t(depth, h0_groups, weights, biases, scales_raw, logit,
     logit: (E,) activation logits.
     precision: 'f32' | 'highest' (`torch.matmul`) | 'bf16'
       (`mixed.matmul_bf16` on every layer, as the JAX package's XLA path).
-    k1_sites: under 'bf16', round where the K1 kernel rounds instead: a
-      weight gradient with one column (the output layer's) stays fp32.
+    k1_sites: under 'bf16', round where the features-major kernels (K1,
+      K2 and its backward) round instead: a weight gradient with one column
+      (the output layer's) stays fp32.
 
   Returns:
     (E, N) predictions.
@@ -432,6 +433,111 @@ def apply_field_t(
   return mlp_t(
       config.depth,
       encode_t_groups(config, params, x_t, seasonal_t),
+      weights,
+      biases,
+      params[IDX_LAYER_SCALES],
+      params[IDX_ACTIVATION_LOGIT],
+      precision,
+  )
+
+
+def encode(
+    config: FieldConfig,
+    params: tuple,
+    x: torch.Tensor,
+    seasonal: torch.Tensor,
+) -> torch.Tensor:
+  """Row-major encode: the JAX package's `encode` with the member axis
+  written out.
+
+  Args:
+    config: model config.
+    params: flat parameter tuple, each leaf with one leading member axis E.
+    x: (N, D) raw inputs shared by every member, or (G, N, D) grouped (see
+      :func:`grouped`; G = E: one row set per member).
+    seasonal: (N, 2F) seasonal features of the time column, or (G', N, 2F).
+
+  Returns:
+    (E, N, encoded_dim) encoded features.
+  """
+  lsa = params[IDX_LOG_SCALE_ADJ]
+  e, d = lsa.shape
+  x4 = grouped(x, e, 2)  # (G, 1, N, D)
+  n = x4.shape[-2]
+  scales = torch.tensor(
+      tuple(config.input_scales), dtype=x.dtype, device=x.device
+  )
+  divisor = (scales * torch.exp(lsa)).reshape(x4.shape[0], -1, 1, d)
+  scaled_x = (x4 / divisor).reshape(e, n, d)
+  group_scales = special.softplus(params[IDX_FEATURE_SCALES])  # (E, G)
+
+  groups = [scaled_x]
+  for i, degree in enumerate(config.fourier_degrees):
+    if degree > 0:
+      groups.append(feat_lib.fourier_features(scaled_x[..., i], degree))
+  out = [g * group_scales[:, i, None, None] for i, g in enumerate(groups)]
+  if config.seasonal_frequencies:
+    s4 = grouped(seasonal, e, 2)  # (G', 1, N, 2F)
+    gs = group_scales[:, len(out)].reshape(s4.shape[0], -1, 1, 1)
+    out.append((s4 * gs).reshape(e, n, -1))
+  if config.interactions:
+    inter_idx = torch.tensor(tuple(config.interactions), device=x.device)
+    out.append(torch.prod(scaled_x[:, :, inter_idx], dim=-1)
+               * group_scales[:, len(out), None, None])
+  return torch.cat(out, dim=-1)
+
+
+def mlp(depth, h0, weights, biases, scales_raw, logit,
+        precision='f32') -> torch.Tensor:
+  """Row-major field MLP, plain PyTorch: one matrix product per layer (the
+  plain version of the K4a kernel, `ops/fused_mlp.fused_field_mlp`).
+
+  Args:
+    depth: hidden layers.
+    h0: (E, N, F) encoded features.
+    weights: depth + 1 tensors (E, fan_in, fan_out); the last has fan_out 1.
+    biases: depth + 1 tensors (E, fan_out).
+    scales_raw: (E, depth + 1) pre-softplus layer scales.
+    logit: (E,) activation logits.
+    precision: 'f32' | 'highest' (`torch.matmul`) | 'bf16'
+      (`mixed.matmul_bf16`), rounded where the row-major Pallas kernels
+      round: a product whose result has a last dimension of 1 stays fp32.
+      So the output layer's forward h @ W_out and its weight gradient keep
+      fp32, its dv @ W_out^T rounds, and with one encoded feature so does
+      nothing of the first layer's d h0.
+
+  Returns:
+    (E, N) predictions.
+  """
+  s = special.softplus(scales_raw)
+  w = torch.sigmoid(logit)[:, None, None]
+  h = h0
+  for l in range(depth + 1):
+    fan_in, fan_out = weights[l].shape[-2:]
+    z = mixed.matmul(
+        h * (1.0 / math.sqrt(fan_in)), weights[l], precision,
+        exact_da=fan_in == 1, exact_out=fan_out == 1, exact_db=fan_out == 1)
+    z = s[:, l, None, None] * (z + biases[l][:, None, :])
+    if l < depth:
+      h = blended_act(z, w)
+  return z[..., 0]
+
+
+def apply_field(
+    config: FieldConfig,
+    params: tuple,
+    x: torch.Tensor,
+    seasonal: torch.Tensor,
+    precision: str = 'f32',
+) -> torch.Tensor:
+  """Row-major forward, plain PyTorch: (N, D) shared or (G, N, D) grouped
+  inputs -> (E, N), as `jax.vmap` of the JAX package's `apply_field` over
+  members. Under 'bf16' the products round where the row-major kernels
+  round (:func:`mlp`), where the JAX function's XLA path rounds them all."""
+  weights, biases = dense_params(config, params)
+  return mlp(
+      config.depth,
+      encode(config, params, x, seasonal),
       weights,
       biases,
       params[IDX_LAYER_SCALES],

@@ -1,15 +1,30 @@
-// Fused ensemble field-MLP forward, features-major layout, for Hopper (sm_90a).
+// Fused ensemble field-MLP forward for Hopper (sm_90a), in both layouts of
+// the JAX package.
 //
-// Replaces the Pallas TPU kernel `_forward_kernel_t` reached through
-// `fused_field_mlp_t` / `_forward_t` in bayesnf_tpu/ops/fused_mlp.py. Per
-// ensemble member e and row n it computes
+// Replaces the Pallas TPU kernels `_forward_kernel_t` (K2, features-major,
+// reached through `fused_field_mlp_t` / `_forward_t`) and `_forward_kernel`
+// (K4a, row-major, through `fused_field_mlp` / `_forward`) in
+// bayesnf_tpu/ops/fused_mlp.py. Per ensemble member e and row n it computes
 //
-//   h_0 = concat(feature groups)                          (F rows)
+//   h_0 = the encoded features of the row                 (F values)
 //   z_l = s_l * (W_l^T (h_l / sqrt(fan_in_l)) + b_l),  h_{l+1} = act(z_l)
 //   pred = s_out * (W_out^T (h_depth / sqrt(width)) + b_out)
 //
 // with s = softplus(scales_raw), act(z) = w*elu(z) + (1-w)*tanh(z) and
-// w = sigmoid(logit), all in fp32 (FMA, no TF32, no fast-math intrinsics).
+// w = sigmoid(logit), in fp32 (FMA, no TF32, no fast-math intrinsics). h_0 is
+// read features-major, (E, F, N), or row-major, (E, N, F): a row-major tile
+// is one contiguous TR x F block. Only that load differs between the layouts.
+//
+// Precision. Under 'bf16' a product takes its operands rounded to bf16
+// (nearest even), multiplies them exactly and sums in fp32, where the TPU
+// kernel casts: every product of the features-major forward, and every one of
+// the row-major forward but the output layer's h @ W_out, whose result has a
+// last dimension of 1 (`_mm`, `_mm_t`). Each operand is rounded once: the
+// weights of a rounded product into copies at the start of the call
+// (`round_bf16_kernel`), a layer's input where it is written to shared
+// memory (bit l of `round_in_mask`). The FMAs stay on the fp32 pipe;
+// precision and layout are template parameters, so the fp32 features-major
+// instantiations are the code they were.
 //
 // What bounds it: at the serving path's shapes (64 members x 38,096 rows,
 // width 512, depth 2, F = 49) one predict is ~1.4 TFLOP of fp32 FMA, so the
@@ -31,48 +46,30 @@
 //     8*TR/4 FMAs;
 //   - the output layer (fan_out 1) reduces across the width per row in a fixed
 //     order (deterministic), and only rows < n_rows are written.
-// Making it fast (wgmma, TMA, bf16 operands) is later work.
+// Making it fast (wgmma, TMA, tensor-core bf16) is later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "field_mlp.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowGroups = 4;                        // threads along rows
-constexpr int kColGroups = kThreads / kRowGroups;    // 64 along columns
-constexpr int kColsPerPass = 8 * kColGroups;         // 512 output columns
-constexpr int kKTile = 8;                            // W rows per staged tile
-constexpr int kPrefetch = kKTile * kColsPerPass / kThreads;  // 16 per thread
-constexpr int kMaxLayers = 9;                        // depth <= 8, + output
-
 struct MlpArgs {
-  const float* h0;                 // (E, F, N)
-  const float* w[kMaxLayers];      // (E, fan_in_l, fan_out_l)
+  const float* h0;                 // (E, F, N) or (E, N, F)
+  const float* w[kMaxLayers];      // (E, fan_in_l, fan_out_l); bf16 copies
+                                   // for the rounded products
   const float* b[kMaxLayers];      // (E, fan_out_l)
   const float* scales_raw;         // (E, depth + 1)
   const float* logit;              // (E,)
   float* out;                      // (E, N)
   float rsqrt[kMaxLayers];         // 1/sqrt(fan_in_l), rounded from double
+  unsigned round_in_mask;          // bit l: layer l's input is rounded
   int depth;
   int num_features;
   int width;
   int n_rows;
 };
-
-__device__ __forceinline__ float softplus(float x) {
-  // jax.nn.softplus: logaddexp(x, 0).
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-__device__ __forceinline__ float blended_act(float z, float w) {
-  const float q = expf(fminf(z, 0.f));
-  const float elu = z > 0.f ? z : q - 1.f;
-  return w * elu + (1.f - w) * tanhf(z);
-}
 
 // Loads W[k0:k0+kKTile, j0:j0+kColsPerPass] (zero outside the matrix) into
 // registers; consecutive threads read consecutive columns.
@@ -90,9 +87,9 @@ __device__ __forceinline__ void load_w_tile(float (&pre)[kPrefetch],
   }
 }
 
-template <int TR>
+template <int TR, bool kRowMajor, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
-    fused_mlp_t_fwd_kernel(const MlpArgs args) {
+    fused_mlp_fwd_kernel(const MlpArgs args) {
   constexpr int RT = TR / kRowGroups;  // rows per thread, a multiple of 4
   constexpr int LDH = TR + 4;          // padded row stride of the buffers
   static_assert(RT % 4 == 0, "rows per thread must allow float4 loads");
@@ -114,14 +111,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float wgt = sigmoid(args.logit[e]);
 
   // h_0 / sqrt(F) for this tile; rows past n_rows are zero and never stored.
+  // A row-major tile is read in its own order (consecutive threads on
+  // consecutive features of a row).
   {
     const int f = args.num_features;
     const float* h0 = args.h0 + (size_t)e * f * n;
     const float rs = args.rsqrt[0];
+    const bool round = args.round_in_mask & 1u;
     for (int i = tid; i < f * TR; i += kThreads) {
-      const int k = i / TR, r = i % TR;
+      const int k = kRowMajor ? i % f : i / TR;
+      const int r = kRowMajor ? i / f : i % TR;
       const int row = row0 + r;
-      bufs[0][k * LDH + r] = row < n ? h0[(size_t)k * n + row] * rs : 0.f;
+      const size_t at = kRowMajor ? (size_t)row * f + k : (size_t)k * n + row;
+      bufs[0][k * LDH + r] =
+          maybe_round<kBf16>(row < n ? h0[at] * rs : 0.f, round);
     }
   }
   __syncthreads();
@@ -132,6 +135,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float* b = args.b[l] + (size_t)e * width;
     const float s = softplus(scales_raw[l]);
     const float rs_next = args.rsqrt[l + 1];
+    const bool round_next = (args.round_in_mask >> (l + 1)) & 1u;
     const float* hin = bufs[l & 1];
     float* hout = bufs[(l + 1) & 1];
 
@@ -190,7 +194,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           float* dst = hout + j * LDH + r0;
 #pragma unroll
           for (int i = 0; i < RT; ++i) {
-            dst[i] = blended_act(s * (acc[i][c] + bj), wgt) * rs_next;
+            dst[i] = maybe_round<kBf16>(
+                blended_act(s * (acc[i][c] + bj), wgt) * rs_next, round_next);
           }
         }
       }
@@ -225,16 +230,34 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int TR>
+template <int TR, bool kRowMajor, bool kBf16>
 cudaError_t launch(const MlpArgs& args, int num_members, size_t smem_bytes,
                    cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_t_fwd_kernel<TR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_mlp_fwd_kernel<TR, kRowMajor, kBf16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_bytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((args.n_rows + TR - 1) / TR, num_members);
-  fused_mlp_t_fwd_kernel<TR><<<grid, kThreads, smem_bytes, stream>>>(args);
+  fused_mlp_fwd_kernel<TR, kRowMajor, kBf16>
+      <<<grid, kThreads, smem_bytes, stream>>>(args);
   return cudaGetLastError();
+}
+
+template <bool kRowMajor, bool kBf16>
+cudaError_t launch_tile_rows(const MlpArgs& args, int num_members,
+                             int tile_rows, size_t smem_bytes,
+                             cudaStream_t stream) {
+  switch (tile_rows) {
+    case 32:
+      return launch<32, kRowMajor, kBf16>(args, num_members, smem_bytes,
+                                          stream);
+    case 16:
+      return launch<16, kRowMajor, kBf16>(args, num_members, smem_bytes,
+                                          stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -243,32 +266,51 @@ extern "C" {
 
 // Shared memory one block needs (bytes); the Python wrapper picks tile_rows
 // with it.
-size_t bnf_fused_mlp_t_fwd_smem_bytes(int tile_rows, int num_features,
-                                      int width) {
+size_t bnf_fused_mlp_fwd_smem_bytes(int tile_rows, int num_features,
+                                    int width) {
   const int kmax = num_features > width ? num_features : width;
   return (2 * (size_t)kmax * (tile_rows + 4) + (size_t)kKTile * kColsPerPass) *
          sizeof(float);
 }
 
-// Launches the forward on `stream`. Pointers are device pointers to
-// contiguous float32 tensors; `weights`/`biases` are host arrays of depth + 1
-// device pointers; `rsqrts` is a host array of depth + 1 floats. Returns the
-// launch's cudaError_t (0 on success).
-int bnf_fused_mlp_t_fwd(const void* h0, const void* const* weights,
-                        const void* const* biases, const void* scales_raw,
-                        const void* logit, void* out, const float* rsqrts,
-                        int depth, int num_members, int num_features, int width,
-                        int n_rows, int tile_rows, void* stream) {
+// Launches the forward on `stream`: `layout` 0 reads h0 as (E, F, N)
+// (features-major, K2), 1 as (E, N, F) (row-major, K4a); `precision` 0 is
+// fp32, 1 bf16. Pointers are device pointers to contiguous float32 tensors;
+// `weights`/`biases` are host arrays of depth + 1 device pointers, and
+// `weights16` (read under bf16 only) host pointers to buffers shaped like the
+// weights that receive the rounded copies; `rsqrts` is a host array of
+// depth + 1 floats. Returns the first launch's cudaError_t that is not
+// cudaSuccess, or 0.
+int bnf_fused_mlp_fwd(const void* h0, const void* const* weights,
+                      const void* const* biases, const void* scales_raw,
+                      const void* logit, void* out, const float* rsqrts,
+                      void* const* weights16, int layout, int precision,
+                      int depth, int num_members, int num_features, int width,
+                      int n_rows, int tile_rows, void* stream) {
   if (depth < 0 || depth + 1 > kMaxLayers || num_members < 1 ||
-      num_members > 65535 || n_rows < 1 || num_features < 1) {
+      num_members > 65535 || n_rows < 1 || num_features < 1 || layout < 0 ||
+      layout > 1 || precision < 0 || precision > 1 ||
+      (precision == 1 && weights16 == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool row_major = layout == 1, bf16 = precision == 1;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   MlpArgs args = {};
   args.h0 = static_cast<const float*>(h0);
   for (int l = 0; l <= depth; ++l) {
+    const int fan_in = l == 0 ? num_features : width;
+    const int fan_out = l == depth ? 1 : width;
     args.w[l] = static_cast<const float*>(weights[l]);
     args.b[l] = static_cast<const float*>(biases[l]);
     args.rsqrt[l] = rsqrts[l];
+    if (bf16 && rounds_forward(row_major, fan_out)) {
+      float* copy = static_cast<float*>(weights16[l]);
+      const cudaError_t err = launch_round_bf16(
+          args.w[l], copy, (size_t)num_members * fan_in * fan_out, s);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      args.w[l] = copy;
+      args.round_in_mask |= 1u << l;
+    }
   }
   args.scales_raw = static_cast<const float*>(scales_raw);
   args.logit = static_cast<const float*>(logit);
@@ -278,16 +320,20 @@ int bnf_fused_mlp_t_fwd(const void* h0, const void* const* weights,
   args.width = width;
   args.n_rows = n_rows;
   const size_t smem =
-      bnf_fused_mlp_t_fwd_smem_bytes(tile_rows, num_features, width);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tile_rows) {
-    case 32:
-      return static_cast<int>(launch<32>(args, num_members, smem, s));
-    case 16:
-      return static_cast<int>(launch<16>(args, num_members, smem, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      bnf_fused_mlp_fwd_smem_bytes(tile_rows, num_features, width);
+  cudaError_t err;
+  if (row_major) {
+    err = bf16 ? launch_tile_rows<true, true>(args, num_members, tile_rows,
+                                              smem, s)
+               : launch_tile_rows<true, false>(args, num_members, tile_rows,
+                                               smem, s);
+  } else {
+    err = bf16 ? launch_tile_rows<false, true>(args, num_members, tile_rows,
+                                               smem, s)
+               : launch_tile_rows<false, false>(args, num_members, tile_rows,
+                                                smem, s);
   }
+  return static_cast<int>(err);
 }
 
 const char* bnf_cuda_error_string(int err) {

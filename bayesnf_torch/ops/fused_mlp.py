@@ -1,15 +1,21 @@
-"""Fused ensemble field-MLP kernels (counterparts of K2, the features-major
-forward, and K1, the fused training objective, in `bayesnf_tpu/ops/fused_mlp.py`).
+"""Fused ensemble field-MLP kernels (counterparts of the five Pallas kernels
+of `bayesnf_tpu/ops/fused_mlp.py`).
 
-K2, per ensemble member e:
+The field MLP, per ensemble member e:
 
-    h_0 = concat(feature groups)                       (E, F, N)
+    h_0 = the encoded features                         (F per row)
     for l in 0..depth-1:
         z_l = s_l * (W_l^T (h_l / sqrt(fan_in)) + b_l)
         h_{l+1} = w * elu(z_l) + (1 - w) * tanh(z_l)
     pred = s_out * (W_out^T (h_depth / sqrt(width)) + b_out)[0]
 
 with s_l = softplus(layer_scales_raw[l]) and w = sigmoid(activation_logit).
+
+`fused_field_mlp_t` takes h_0 features-major, as (E, f_g, N) feature groups
+(K2 forward, K3 backward), `fused_field_mlp` row-major, as (E, N, F) (K4a
+forward, K4b backward). Both are differentiable: their backward kernels
+recompute the forward and return the gradient of every input, as the JAX
+package's custom VJPs do.
 
 K1 computes, from the raw inputs, the encode, the same MLP, the negative
 log-likelihood (NORMAL, NB or ZINB) summed over rows (or over the first
@@ -18,13 +24,12 @@ respect to every learned input (see `fused_train`). Its data inputs are shared b
 member, or stored once per group of `rep` consecutive members (rep = 1: one
 minibatch per member; rep = S: a VI member's minibatch feeds its S draws).
 
-`fused_field_mlp_t` and `fused_train` launch the hand-written CUDA kernels
-(`csrc/fused_mlp_fwd.cu`, which replaces the Pallas kernel
-`_forward_kernel_t`, and `csrc/fused_train.cu`, which replaces
-`_train_kernel_raw`) on CUDA tensors, and compute their plain PyTorch
-versions, `fused_field_mlp_t_reference` and `fused_train_reference`, on CPU
-tensors. They never fall back: on a CUDA tensor each launches its kernel or
-raises.
+On CUDA tensors the entry points launch the hand-written CUDA kernels
+(`csrc/fused_mlp_fwd.cu`: K2 and K4a; `csrc/fused_mlp_bwd.cu`: K3 and K4b;
+`csrc/fused_train.cu`: K1), and on CPU tensors they compute their plain
+PyTorch versions (`fused_field_mlp_t_reference`, `fused_field_mlp_reference`,
+`fused_train_reference`). They never fall back: on a CUDA tensor each
+launches its kernel or raises, forward and backward alike.
 """
 
 import ctypes
@@ -32,6 +37,7 @@ import functools
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from bayesnf_torch.models import field as field_lib
 from bayesnf_torch.models import likelihoods
@@ -39,6 +45,7 @@ from bayesnf_torch.ops import _build
 from bayesnf_torch.ops import mixed
 
 _LIB_NAME = 'fused_mlp_fwd'
+_BWD_LIB_NAME = 'fused_mlp_bwd'
 _TRAIN_LIB_NAME = 'fused_train'
 MAX_DEPTH = 8  # kMaxLayers - 1 in the kernel sources.
 MAX_MEMBERS = 65535  # gridDim.y.
@@ -54,15 +61,20 @@ MAX_PARTIALS = 32
 LIKELIHOOD_CODES = {'NORMAL': 0, 'NB': 1, 'ZINB': 2}
 # Its precision codes: 'highest' runs the fp32 kernel (see `ops/mixed.py`).
 PRECISION_CODES = {'f32': 0, 'highest': 0, 'bf16': 1}
-# Global scratch one `fused_train` call may hold; rows are processed in
-# chunks that fit it.
+# The layouts of h0 in `fused_mlp_fwd.cu` and `fused_mlp_bwd.cu`:
+# features-major (E, F, N) and row-major (E, N, F).
+LAYOUT_CODES = {'features': 0, 'rows': 1}
+# Global scratch one `fused_train` call, or one backward of the field MLP,
+# may hold; rows are processed in chunks that fit it.
 TRAIN_SCRATCH_BYTES = 2 << 30
 
 
 def fused_field_mlp_t_reference(
-    depth, h0_groups, weights, biases, scales_raw, logit
+    depth, h0_groups, weights, biases, scales_raw, logit, precision='f32'
 ) -> torch.Tensor:
-  """Plain PyTorch forward (`field.mlp_t`): one `torch.matmul` per layer.
+  """Plain PyTorch K2 (`field.mlp_t`): one `torch.matmul` per layer. Under
+  'bf16' it rounds where the features-major kernels round
+  (`k1_sites=True`), so autograd through it is the plain K3.
 
   Args:
     depth: hidden layers.
@@ -71,67 +83,179 @@ def fused_field_mlp_t_reference(
     biases: depth + 1 tensors (E, fan_out).
     scales_raw: (E, depth + 1) pre-softplus layer scales.
     logit: (E,) activation logits.
+    precision: 'f32' | 'highest' | 'bf16'.
 
   Returns:
     (E, N) predictions.
   """
-  return field_lib.mlp_t(depth, h0_groups, weights, biases, scales_raw, logit)
+  return field_lib.mlp_t(depth, h0_groups, weights, biases, scales_raw, logit,
+                         precision, k1_sites=True)
 
 
-def pick_tile_rows(num_features: int, width: int) -> int:
-  """Rows per block: the largest instantiated tile whose buffers fit.
+def fused_field_mlp_reference(
+    depth, h0, weights, biases, scales_raw, logit, precision='f32'
+) -> torch.Tensor:
+  """Plain PyTorch K4a (`field.mlp`), row-major: (E, N, F) -> (E, N); its
+  'bf16' sites are the row-major kernels' (the output layer's h @ W_out and
+  weight gradient stay fp32)."""
+  return field_lib.mlp(depth, h0, weights, biases, scales_raw, logit,
+                       precision)
+
+
+def _vjp_reference(forward, inputs, g):
+  """Autograd of `forward(*inputs)` against the cotangent g, in true fp32;
+  an input the forward does not read (the logit at depth 0) gets zeros."""
+  leaves = [t.detach().requires_grad_(True) for t in inputs]
+  with torch.enable_grad(), mixed.fp32_matmuls():
+    return torch.autograd.grad(forward(*leaves), leaves, g, allow_unused=True,
+                               materialize_grads=True)
+
+
+def _split_grads(grads, num_groups, depth):
+  num_w = depth + 1
+  return (tuple(grads[:num_groups]),
+          tuple(grads[num_groups : num_groups + num_w]),
+          tuple(grads[num_groups + num_w : num_groups + 2 * num_w]),
+          grads[-2], grads[-1])
+
+
+def fused_field_mlp_t_vjp_reference(
+    depth, h0_groups, weights, biases, scales_raw, logit, g, precision='f32'
+):
+  """Plain K3: the JAX package's `_forward_t_bwd` output, by autograd
+  through :func:`fused_field_mlp_t_reference`.
+
+  Returns:
+    (dh0 per group, dweights, dbiases, dscales_raw, dlogit), each shaped
+    like its input.
+  """
+  num_g, num_w = len(h0_groups), depth + 1
+
+  def forward(*t):
+    return fused_field_mlp_t_reference(
+        depth, t[:num_g], t[num_g : num_g + num_w],
+        t[num_g + num_w : num_g + 2 * num_w], t[-2], t[-1], precision)
+
+  return _split_grads(_vjp_reference(
+      forward, (*h0_groups, *weights, *biases, scales_raw, logit), g),
+                      num_g, depth)
+
+
+def fused_field_mlp_vjp_reference(
+    depth, h0, weights, biases, scales_raw, logit, g, precision='f32'
+):
+  """Plain K4b: the JAX package's `_forward_bwd` output, by autograd through
+  :func:`fused_field_mlp_reference`.
+
+  Returns:
+    (dh0, dweights, dbiases, dscales_raw, dlogit), each shaped like its
+    input.
+  """
+  num_w = depth + 1
+
+  def forward(h, *t):
+    return fused_field_mlp_reference(depth, h, t[:num_w], t[num_w:2 * num_w],
+                                     t[-2], t[-1], precision)
+
+  dh0, *rest = _split_grads(_vjp_reference(
+      forward, (h0, *weights, *biases, scales_raw, logit), g), 1, depth)
+  return (dh0[0], *rest)
+
+
+def pick_tile_rows(num_features: int, width: int,
+                   backward: bool = False) -> int:
+  """Rows per block of the forward (or, with `backward`, of the backward's
+  tile kernel): the largest instantiated tile whose buffers fit.
 
   Raises:
     ValueError: if even the smallest tile does not fit in shared memory.
   """
-  fn = _lib().bnf_fused_mlp_t_fwd_smem_bytes
+  fn = (_bwd_lib().bnf_fused_mlp_bwd_smem_bytes if backward
+        else _lib().bnf_fused_mlp_fwd_smem_bytes)
   for tile_rows in TILE_ROWS:
     if fn(tile_rows, num_features, width) <= MAX_SHARED_BYTES:
       return tile_rows
   raise ValueError(
-      f'fused_field_mlp_t: width {width} with {num_features} input features '
-      f'does not fit a {TILE_ROWS[-1]}-row tile in {MAX_SHARED_BYTES} bytes '
-      'of shared memory.'
+      f'fused field MLP {"backward" if backward else "forward"}: width '
+      f'{width} with {num_features} input features does not fit a '
+      f'{TILE_ROWS[-1]}-row tile in {MAX_SHARED_BYTES} bytes of shared '
+      'memory.'
   )
+
+
+def _declare_common(lib):
+  lib.bnf_cuda_error_string.argtypes = [ctypes.c_int]
+  lib.bnf_cuda_error_string.restype = ctypes.c_char_p
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
   lib = _build.load_library(_LIB_NAME)
-  lib.bnf_fused_mlp_t_fwd.argtypes = [
-      ctypes.c_void_p,  # h0
-      ctypes.POINTER(ctypes.c_void_p),  # weights
-      ctypes.POINTER(ctypes.c_void_p),  # biases
-      ctypes.c_void_p,  # scales_raw
-      ctypes.c_void_p,  # logit
-      ctypes.c_void_p,  # out
+  ptr, ptrs, i32 = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int
+  lib.bnf_fused_mlp_fwd.argtypes = [
+      ptr, ptrs, ptrs,  # h0, weights, biases
+      ptr, ptr, ptr,  # scales_raw, logit, out
       ctypes.POINTER(ctypes.c_float),  # rsqrts
-      ctypes.c_int,  # depth
-      ctypes.c_int,  # num_members
-      ctypes.c_int,  # num_features
-      ctypes.c_int,  # width
-      ctypes.c_int,  # n_rows
-      ctypes.c_int,  # tile_rows
-      ctypes.c_void_p,  # stream
+      ptrs,  # buffers for the bf16-rounded weights (precision code 1)
+      i32, i32,  # layout, precision
+      i32, i32, i32, i32, i32, i32,  # depth, members, features, width, rows, tile
+      ptr,  # stream
   ]
-  lib.bnf_fused_mlp_t_fwd.restype = ctypes.c_int
-  lib.bnf_fused_mlp_t_fwd_smem_bytes.argtypes = [ctypes.c_int] * 3
-  lib.bnf_fused_mlp_t_fwd_smem_bytes.restype = ctypes.c_size_t
-  lib.bnf_cuda_error_string.argtypes = [ctypes.c_int]
-  lib.bnf_cuda_error_string.restype = ctypes.c_char_p
+  lib.bnf_fused_mlp_fwd.restype = ctypes.c_int
+  lib.bnf_fused_mlp_fwd_smem_bytes.argtypes = [i32] * 3
+  lib.bnf_fused_mlp_fwd_smem_bytes.restype = ctypes.c_size_t
+  _declare_common(lib)
+  return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+  lib = _build.load_library(_BWD_LIB_NAME)
+  ptr, ptrs, i32 = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int
+  lib.bnf_fused_mlp_bwd.argtypes = [
+      ptr, ptr, ptrs, ptrs,  # h0, g, weights, biases
+      ptr, ptr, ptr,  # scales_raw, logit, dh0
+      ptrs, ptrs, ptr, ptr,  # dweights, dbiases, dscales, dlogit
+      ptr,  # scratch
+      ptrs,  # buffers for the bf16-rounded weights (precision code 1)
+      ctypes.POINTER(ctypes.c_float),  # rsqrts
+      i32, i32,  # layout, precision
+      i32, i32, i32, i32, i32,  # depth, members, features, width, rows
+      i32, i32,  # tile_rows, chunk_rows
+      ptr,  # stream
+  ]
+  lib.bnf_fused_mlp_bwd.restype = ctypes.c_int
+  lib.bnf_fused_mlp_bwd_smem_bytes.argtypes = [i32] * 3
+  lib.bnf_fused_mlp_bwd_smem_bytes.restype = ctypes.c_size_t
+  lib.bnf_fused_mlp_bwd_scratch_bytes.argtypes = [i32] * 7
+  lib.bnf_fused_mlp_bwd_scratch_bytes.restype = ctypes.c_size_t
+  _declare_common(lib)
   return lib
 
 
 def check_forward_shape(depth):
-  """Raises ValueError for a depth K2 does not take (above MAX_DEPTH); its
-  width limit is `pick_tile_rows`'."""
+  """Raises ValueError for a depth the field-MLP kernels do not take (above
+  MAX_DEPTH); their width limit is `pick_tile_rows`'."""
   if not 0 <= depth <= MAX_DEPTH:
     raise ValueError(f'depth must be in [0, {MAX_DEPTH}], got {depth}.')
 
 
-def _check_inputs(depth, h0, weights, biases, scales_raw, logit):
-  """Raises ValueError on anything the kernel does not take."""
-  e, f, _ = h0.shape
+def _dims(h0, layout):
+  """(members E, features F, rows N) of h0 in `layout`."""
+  if layout == 'features':
+    return tuple(h0.shape)
+  e, n, f = h0.shape
+  return e, f, n
+
+
+def _check_inputs(depth, h0, weights, biases, scales_raw, logit,
+                  layout='features'):
+  """Raises ValueError on anything the kernels do not take.
+
+  Returns:
+    the width (at depth 0, F).
+  """
+  e, f, _ = _dims(h0, layout)
   check_forward_shape(depth)
   if len(weights) != depth + 1 or len(biases) != depth + 1:
     raise ValueError(
@@ -164,67 +288,279 @@ def _check_inputs(depth, h0, weights, biases, scales_raw, logit):
   return width
 
 
-def fused_field_mlp_t(
-    depth, h0_groups, weights, biases, scales_raw, logit
-) -> torch.Tensor:
-  """Fused forward: (E, f_g, N) feature groups -> (E, N) predictions.
+def _ptrs(ts):
+  return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
-  Takes the JAX package's layout and arguments (without its TPU-only `tile`
-  and `precision`). On CPU tensors it returns
-  :func:`fused_field_mlp_t_reference`; on CUDA tensors it launches the
-  kernel on the current stream and counts the launch in
-  `fused_field_mlp_t.launches`.
 
-  Raises:
-    ValueError: on shapes, dtypes, devices or layouts the kernel does not
-      take, or a width whose tile does not fit in shared memory.
-    RuntimeError: if the kernel fails to build or to launch.
-  """
-  tensors = (*h0_groups, *weights, *biases, scales_raw, logit)
-  if all(t.device.type == 'cpu' for t in tensors):
-    return fused_field_mlp_t_reference(
-        depth, h0_groups, weights, biases, scales_raw, logit
+def _rsqrts(fan_ins):
+  # 1/sqrt(fan_in) in double, rounded to float32 (as the JAX package does).
+  return (ctypes.c_float * len(fan_ins))(
+      *[1.0 / math.sqrt(fi) for fi in fan_ins])
+
+
+def _raise_on(err, lib, what):
+  if err != 0:
+    raise RuntimeError(
+        f'{what} kernel launch failed: CUDA error {err} '
+        f'({lib.bnf_cuda_error_string(err).decode()}).'
     )
-  if h0_groups[0].device.type != 'cuda':
-    raise ValueError(
-        f'fused_field_mlp_t runs on CUDA or CPU tensors, got '
-        f'{h0_groups[0].device}.'
-    )
-  # The kernel reads one (E, F, N) buffer, so several groups are joined
-  # here: one extra copy of the encoded inputs (E * F * N floats), small
-  # beside the kernel's E * N * width^2 FMAs.
-  h0 = h0_groups[0] if len(h0_groups) == 1 else torch.cat(tuple(h0_groups), 1)
-  width = _check_inputs(depth, h0, weights, biases, scales_raw, logit)
-  e, f, n = h0.shape
+
+
+def _entry(layout):
+  return fused_field_mlp_t if layout == 'features' else fused_field_mlp
+
+
+def _launch_forward(layout, depth, precision, h0, weights, biases,
+                    scales_raw, logit):
+  """One K2 (features-major) or K4a (row-major) call on the current stream."""
+  width = _check_inputs(depth, h0, weights, biases, scales_raw, logit, layout)
+  e, f, n = _dims(h0, layout)
   out = torch.empty((e, n), dtype=torch.float32, device=h0.device)
   if n == 0:
     return out
   tile_rows = pick_tile_rows(f, width)
-  fan_ins = [f] + [width] * depth
-  # 1/sqrt(fan_in) in double, rounded to float32 (as the JAX package does).
-  rsqrts = (ctypes.c_float * (depth + 1))(
-      *[1.0 / math.sqrt(fi) for fi in fan_ins]
-  )
-  w_ptrs = (ctypes.c_void_p * (depth + 1))(*[w.data_ptr() for w in weights])
-  b_ptrs = (ctypes.c_void_p * (depth + 1))(*[b.data_ptr() for b in biases])
+  code = PRECISION_CODES[precision]
+  # Under 'bf16' the kernel writes the rounded weights here (held until the
+  # call returns; later allocations on the stream are ordered after it).
+  weights16 = [torch.empty_like(w) for w in weights] if code else None
   lib = _lib()
   with torch.cuda.device(h0.device):
-    stream = torch.cuda.current_stream().cuda_stream
-    err = lib.bnf_fused_mlp_t_fwd(
-        h0.data_ptr(), w_ptrs, b_ptrs, scales_raw.data_ptr(),
-        logit.data_ptr(), out.data_ptr(), rsqrts, depth, e, f, width, n,
-        tile_rows, stream,
+    err = lib.bnf_fused_mlp_fwd(
+        h0.data_ptr(), _ptrs(weights), _ptrs(biases), scales_raw.data_ptr(),
+        logit.data_ptr(), out.data_ptr(), _rsqrts([f] + [width] * depth),
+        _ptrs(weights16) if code else None, LAYOUT_CODES[layout], code,
+        depth, e, f, width, n, tile_rows,
+        torch.cuda.current_stream().cuda_stream,
     )
-  if err != 0:
-    raise RuntimeError(
-        f'fused_field_mlp_t kernel launch failed: CUDA error {err} '
-        f'({lib.bnf_cuda_error_string(err).decode()}).'
-    )
-  fused_field_mlp_t.launches += 1
+  _raise_on(err, lib, _entry(layout).__name__)
+  _entry(layout).launches += 1
   return out
 
 
+def _launch_backward(layout, depth, precision, h0, weights, biases,
+                     scales_raw, logit, g):
+  """One K3 (features-major) or K4b (row-major) call on the current stream.
+
+  Returns:
+    (dh0 laid out as h0, dweights, dbiases, dscales_raw, dlogit).
+  """
+  width = _check_inputs(depth, h0, weights, biases, scales_raw, logit, layout)
+  e, f, n = _dims(h0, layout)
+  if tuple(g.shape) != (e, n) or g.dtype != torch.float32 or (
+      g.device != h0.device):
+    raise ValueError(
+        f'The cotangent must be a float32 ({e}, {n}) tensor on {h0.device}; '
+        f'got {g.dtype} {tuple(g.shape)} on {g.device}.')
+  outs = (torch.empty_like(h0), tuple(torch.empty_like(w) for w in weights),
+          tuple(torch.empty_like(b) for b in biases),
+          torch.empty_like(scales_raw), torch.empty_like(logit))
+  if n == 0:
+    for t in (outs[0], *outs[1], *outs[2], *outs[3:]):
+      t.zero_()
+    return outs
+  tile_rows = pick_tile_rows(f, width, backward=True)
+  lib = _bwd_lib()
+  scratch_bytes = functools.partial(lib.bnf_fused_mlp_bwd_scratch_bytes, e,
+                                    f, width, depth)
+  # Rows per chunk: as many whole tiles as the scratch budget holds.
+  per_row = scratch_bytes(1, 0, tile_rows)
+  chunk_rows = max(1, TRAIN_SCRATCH_BYTES // per_row // tile_rows) * tile_rows
+  chunk_rows = min(chunk_rows, -(-n // tile_rows) * tile_rows)
+  scratch = torch.empty(scratch_bytes(chunk_rows, n, tile_rows) // 4,
+                        dtype=torch.float32, device=h0.device)
+  code = PRECISION_CODES[precision]
+  weights16 = [torch.empty_like(w) for w in weights] if code else None
+  dh0, dws, dbs, dscales, dlogit = outs
+  with torch.cuda.device(h0.device):
+    err = lib.bnf_fused_mlp_bwd(
+        h0.data_ptr(), g.data_ptr(), _ptrs(weights), _ptrs(biases),
+        scales_raw.data_ptr(), logit.data_ptr(), dh0.data_ptr(), _ptrs(dws),
+        _ptrs(dbs), dscales.data_ptr(), dlogit.data_ptr(), scratch.data_ptr(),
+        _ptrs(weights16) if code else None, _rsqrts([f] + [width] * depth),
+        LAYOUT_CODES[layout], code, depth, e, f, width, n, tile_rows,
+        chunk_rows, torch.cuda.current_stream().cuda_stream,
+    )
+  _raise_on(err, lib, f'{_entry(layout).__name__} backward')
+  _entry(layout).bwd_launches += 1
+  return outs
+
+
+class _FusedFieldMlp(torch.autograd.Function):
+  """The field MLP on CUDA tensors: the forward kernel, and the backward
+  kernel for the gradient of every input. It saves only its inputs (the JAX
+  package's residuals) and recomputes the forward in the backward."""
+
+  @staticmethod
+  def forward(ctx, layout, depth, precision, num_groups, *tensors):
+    ctx.args = (layout, depth, precision, num_groups)
+    ctx.save_for_backward(*tensors)
+    return _launch_forward(layout, depth, precision,
+                           _join(layout, tensors[:num_groups]),
+                           *_unpack(depth, tensors[num_groups:]))
+
+  @staticmethod
+  @once_differentiable
+  def backward(ctx, g):
+    layout, depth, precision, num_groups = ctx.args
+    tensors = ctx.saved_tensors
+    dh0, dws, dbs, dscales, dlogit = _backward(
+        layout, depth, precision, tensors[:num_groups],
+        *_unpack(depth, tensors[num_groups:]), g.contiguous())
+    return (None, None, None, None, *dh0, *dws, *dbs, dscales, dlogit)
+
+
+def _backward(layout, depth, precision, h0_groups, weights, biases,
+              scales_raw, logit, g):
+  """K3 or K4b on CUDA tensors; dh0 as a tuple of the groups' gradients."""
+  dh0, *rest = _launch_backward(layout, depth, precision,
+                                _join(layout, h0_groups), weights, biases,
+                                scales_raw, logit, g)
+  if layout == 'features':
+    return (dh0.split([t.shape[1] for t in h0_groups], dim=1), *rest)
+  return ((dh0,), *rest)
+
+
+def _join(layout, h0_groups):
+  """The kernels read one h0 buffer: several features-major groups are
+  joined here, one extra copy of the encoded inputs (E * F * N floats),
+  small beside the kernels' E * N * width^2 FMAs."""
+  if len(h0_groups) == 1:
+    return h0_groups[0]
+  return torch.cat(tuple(h0_groups), 1 if layout == 'features' else 2)
+
+
+def _unpack(depth, params):
+  """(weights, biases, scales_raw, logit) of the flat parameter tensors."""
+  num_w = depth + 1
+  return params[:num_w], params[num_w : 2 * num_w], params[-2], params[-1]
+
+
+def _on_cuda(layout, precision, tensors):
+  """False for CPU tensors (the plain versions' case), True for CUDA ones.
+
+  Raises:
+    ValueError: on an unknown precision, or tensors on another device.
+  """
+  mixed.check_precision(precision)
+  if all(t.device.type == 'cpu' for t in tensors):
+    return False
+  if tensors[0].device.type != 'cuda':
+    raise ValueError(
+        f'{_entry(layout).__name__} runs on CUDA or CPU tensors, got '
+        f'{tensors[0].device}.'
+    )
+  return True
+
+
+def fused_field_mlp_t(
+    depth, h0_groups, weights, biases, scales_raw, logit, precision='f32'
+) -> torch.Tensor:
+  """Fused field MLP, features-major: (E, f_g, N) feature groups -> (E, N)
+  predictions; differentiable.
+
+  Takes the JAX package's layout and arguments (without its TPU-only
+  `tile`). On CPU tensors it returns :func:`fused_field_mlp_t_reference`
+  (which autograd differentiates). On CUDA tensors it launches K2 on the
+  current stream (counted in `fused_field_mlp_t.launches`), and autograd
+  through the result launches K3 (counted in
+  `fused_field_mlp_t.bwd_launches`), which returns the gradient of every
+  group, weight, bias, `scales_raw` and `logit` (the JAX package's
+  `_forward_t_bwd`); without a graph (as in predict) no K3 runs.
+
+  Args:
+    depth: hidden layers.
+    h0_groups: sequence of (E, f_g, N) feature-group tensors.
+    weights: depth + 1 tensors (E, fan_in, fan_out); the last has fan_out 1.
+    biases: depth + 1 tensors (E, fan_out).
+    scales_raw: (E, depth + 1) pre-softplus layer scales.
+    logit: (E,) activation logits.
+    precision: 'f32' | 'highest' (the same fp32 kernels) | 'bf16' (bf16
+      operands, exact products, fp32 sums: every product but the output
+      layer's weight gradient, as the TPU kernels).
+
+  Raises:
+    ValueError: on an unknown precision, or on CUDA on shapes, dtypes,
+      devices or layouts the kernels do not take, or a width whose tile does
+      not fit in shared memory.
+    RuntimeError: if a kernel fails to build or to launch.
+  """
+  tensors = (*h0_groups, *weights, *biases, scales_raw, logit)
+  if not _on_cuda('features', precision, tensors):
+    return fused_field_mlp_t_reference(depth, h0_groups, weights, biases,
+                                       scales_raw, logit, precision)
+  return _FusedFieldMlp.apply('features', depth, precision, len(h0_groups),
+                              *tensors)
+
+
 fused_field_mlp_t.launches = 0
+fused_field_mlp_t.bwd_launches = 0
+
+
+def fused_field_mlp_t_vjp(
+    depth, h0_groups, weights, biases, scales_raw, logit, g, precision='f32'
+):
+  """The backward of :func:`fused_field_mlp_t` for the cotangent g (E, N)
+  alone (the JAX package's `_forward_t_bwd`): on CUDA tensors one K3 call
+  (counted in `fused_field_mlp_t.bwd_launches`), on CPU tensors
+  :func:`fused_field_mlp_t_vjp_reference`.
+
+  Returns:
+    (dh0 per group, dweights, dbiases, dscales_raw, dlogit).
+  """
+  tensors = (*h0_groups, *weights, *biases, scales_raw, logit, g)
+  if not _on_cuda('features', precision, tensors):
+    return fused_field_mlp_t_vjp_reference(depth, h0_groups, weights, biases,
+                                           scales_raw, logit, g, precision)
+  return _backward('features', depth, precision, h0_groups, weights, biases,
+                   scales_raw, logit, g.contiguous())
+
+
+def fused_field_mlp(
+    depth, h0, weights, biases, scales_raw, logit, precision='f32'
+) -> torch.Tensor:
+  """Fused field MLP, row-major: (E, N, F) encoded features -> (E, N)
+  predictions; differentiable (the JAX package's `fused_field_mlp`, without
+  its TPU-only `tile`).
+
+  On CPU tensors it returns :func:`fused_field_mlp_reference`; on CUDA
+  tensors it launches K4a (`fused_field_mlp.launches`), and autograd through
+  the result launches K4b (`fused_field_mlp.bwd_launches`). Under 'bf16' the
+  products round where the row-major TPU kernels round: not the output
+  layer's h @ W_out or its weight gradient, nor, with F = 1, d h0.
+
+  Raises:
+    ValueError: as :func:`fused_field_mlp_t`.
+    RuntimeError: if a kernel fails to build or to launch.
+  """
+  tensors = (h0, *weights, *biases, scales_raw, logit)
+  if not _on_cuda('rows', precision, tensors):
+    return fused_field_mlp_reference(depth, h0, weights, biases, scales_raw,
+                                     logit, precision)
+  return _FusedFieldMlp.apply('rows', depth, precision, 1, *tensors)
+
+
+fused_field_mlp.launches = 0
+fused_field_mlp.bwd_launches = 0
+
+
+def fused_field_mlp_vjp(
+    depth, h0, weights, biases, scales_raw, logit, g, precision='f32'
+):
+  """The backward of :func:`fused_field_mlp` for the cotangent g (E, N)
+  alone (the JAX package's `_forward_bwd`): on CUDA tensors one K4b call
+  (`fused_field_mlp.bwd_launches`), on CPU tensors
+  :func:`fused_field_mlp_vjp_reference`.
+
+  Returns:
+    (dh0, dweights, dbiases, dscales_raw, dlogit).
+  """
+  tensors = (h0, *weights, *biases, scales_raw, logit, g)
+  if not _on_cuda('rows', precision, tensors):
+    return fused_field_mlp_vjp_reference(depth, h0, weights, biases,
+                                         scales_raw, logit, g, precision)
+  (dh0,), *rest = _backward('rows', depth, precision, (h0,), weights, biases,
+                            scales_raw, logit, g.contiguous())
+  return (dh0, *rest)
 
 
 # ---------------------------------------------------------------------------
@@ -343,8 +679,7 @@ def _train_lib() -> ctypes.CDLL:
   lib.bnf_fused_train_smem_bytes.restype = ctypes.c_size_t
   lib.bnf_fused_train_scratch_bytes.argtypes = [i32] * 10
   lib.bnf_fused_train_scratch_bytes.restype = ctypes.c_size_t
-  lib.bnf_cuda_error_string.argtypes = [ctypes.c_int]
-  lib.bnf_cuda_error_string.restype = ctypes.c_char_p
+  _declare_common(lib)
   return lib
 
 
@@ -532,11 +867,6 @@ def _launch_fused_train(
       dlogit=torch.empty_like(logit),
       dobs=torch.empty_like(obs_raw),
   )
-  fan_ins = [f] + [width] * depth
-
-  def ptr_array(ts):
-    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
-
   pairs = [int(i) for pair in interactions for i in pair]
   code = PRECISION_CODES[precision]
   # Under 'bf16' the kernel writes the rounded weights here (held until the
@@ -544,29 +874,24 @@ def _launch_fused_train(
   weights16 = [torch.empty_like(w) for w in weights] if code else None
   err = lib.bnf_fused_train(
       x_t.data_ptr(), seasonal_t.data_ptr(), y.data_ptr(),
-      ptr_array(weights), ptr_array(biases),
+      _ptrs(weights), _ptrs(biases),
       lsa_eff.data_ptr(), fs_raw.data_ptr(), scales_raw.data_ptr(),
       logit.data_ptr(), obs_raw.data_ptr(),
       out['losses'].data_ptr(), out['dlsa'].data_ptr(), out['dfs'].data_ptr(),
-      ptr_array(out['dweights']), ptr_array(out['dbiases']),
+      _ptrs(out['dweights']), _ptrs(out['dbiases']),
       out['dscales'].data_ptr(), out['dlogit'].data_ptr(),
       out['dobs'].data_ptr(), scratch.data_ptr(),
-      # 1/sqrt(fan_in) in double, rounded to float32 (as the JAX package).
-      (ctypes.c_float * (depth + 1))(*[1.0 / math.sqrt(fi) for fi in fan_ins]),
+      _rsqrts([f] + [width] * depth),
       (ctypes.c_int * d)(*[int(k) for k in fourier_degrees]),
       (ctypes.c_int * max(1, len(pairs)))(*pairs),
       *[v for rep, stride in layout for v in (stride, rep)],
       float(lik_scale), likelihood, code,
-      ptr_array(weights16) if code else None, depth, e, d, s2,
+      _ptrs(weights16) if code else None, depth, e, d, s2,
       len(interactions),
       width, n, n if n_valid is None else int(n_valid), tile_rows,
       chunk_rows, stream,
   )
-  if err != 0:
-    raise RuntimeError(
-        f'fused_train kernel launch failed: CUDA error {err} '
-        f'({lib.bnf_cuda_error_string(err).decode()}).'
-    )
+  _raise_on(err, lib, 'fused_train')
   return (out['losses'], out['dlsa'], out['dfs'], out['dweights'],
           out['dbiases'], out['dscales'], out['dlogit'], out['dobs'])
 

@@ -12,7 +12,8 @@ Every fit takes `precision`, one of `PRECISIONS`:
 
 `matmul_bf16` is the JAX package's `mixed.matmul_bf16`: forward a16 @ b16,
 backward da = g16 @ b16^T and db = a16^T @ g16 on the rounded cotangent,
-with the rounded operands kept for the backward. A product of two bf16
+with the rounded operands kept for the backward; each of the three products
+may instead stay fp32, where a kernel keeps it so. A product of two bf16
 values is exact in fp32, so `a16.float() @ b16.float()` computes "exact
 products, fp32 sums" on any device, provided the fp32 product itself is not
 demoted: `fp32_matmuls` pins that for the fit.
@@ -69,39 +70,53 @@ def _exact_product(a16, b16):
 
 
 class _MatmulBf16(torch.autograd.Function):
-  """a @ b (batched over leading axes) on bf16-rounded operands. With
-  `exact_da`, the backward's da = g @ b^T takes the fp32 g and b instead:
-  the K1 kernel keeps a weight gradient with one column in fp32."""
+  """a @ b (batched over leading axes), with each of its three products --
+  the forward a @ b, the backward's da = g @ b^T and db = a^T @ g -- either
+  on bf16-rounded operands (`round_*` True) or in fp32 on the unrounded
+  operands and cotangent. The JAX kernels keep a product in fp32 when its
+  result has a last dimension of 1, and the layouts put that 1 at different
+  sites (`field.mlp_t` and `field.mlp`)."""
 
   @staticmethod
-  def forward(ctx, a, b, exact_da):
+  def forward(ctx, a, b, round_out, round_da, round_db):
     a16, b16 = a.bfloat16(), b.bfloat16()  # round to nearest even
-    ctx.exact_da = exact_da
-    ctx.save_for_backward(a16, b16, b if exact_da else None)
-    return _exact_product(a16, b16)
+    ctx.sites = (round_da, round_db)
+    ctx.save_for_backward(a16, b16, None if round_db else a,
+                          None if round_da else b)
+    return _exact_product(a16, b16) if round_out else torch.matmul(a, b)
 
   @staticmethod
   def backward(ctx, g):
-    a16, b16, b = ctx.saved_tensors
+    a16, b16, a, b = ctx.saved_tensors
+    round_da, round_db = ctx.sites
     g16 = g.bfloat16()
-    if ctx.exact_da:
-      da = torch.matmul(g, b.transpose(-1, -2))
-    else:
+    if round_da:
       da = _exact_product(g16, b16.transpose(-1, -2))
-    return da, _exact_product(a16.transpose(-1, -2), g16), None
+    else:
+      da = torch.matmul(g, b.transpose(-1, -2))
+    if round_db:
+      db = _exact_product(a16.transpose(-1, -2), g16)
+    else:
+      db = torch.matmul(a.transpose(-1, -2), g)
+    return da, db, None, None, None
 
 
-def matmul_bf16(a: torch.Tensor, b: torch.Tensor,
-                exact_da: bool = False) -> torch.Tensor:
+def matmul_bf16(a: torch.Tensor, b: torch.Tensor, exact_da: bool = False,
+                exact_out: bool = False, exact_db: bool = False
+                ) -> torch.Tensor:
   """a @ b with bf16 operands and fp32 sums, forward and backward; a and b
-  may carry the same leading (member) axes."""
-  return _MatmulBf16.apply(a, b, exact_da)
+  may carry the same leading (member) axes. Each `exact_*` keeps one
+  product in fp32 instead: the forward (`exact_out`), da = g @ b^T
+  (`exact_da`; K1 keeps its one-column weight gradient so) or
+  db = a^T @ g (`exact_db`)."""
+  return _MatmulBf16.apply(a, b, not exact_out, not exact_da, not exact_db)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, precision: str = 'f32',
-           exact_da: bool = False) -> torch.Tensor:
+           exact_da: bool = False, exact_out: bool = False,
+           exact_db: bool = False) -> torch.Tensor:
   """a @ b at `precision`: `torch.matmul` for 'f32' and 'highest',
-  `matmul_bf16` (with `exact_da`) for 'bf16'."""
+  `matmul_bf16` (with its `exact_*` sites) for 'bf16'."""
   if precision == 'bf16':
-    return matmul_bf16(a, b, exact_da)
+    return matmul_bf16(a, b, exact_da, exact_out, exact_db)
   return torch.matmul(a, b)

@@ -7,14 +7,22 @@ Run from the root of a checkout, on a machine with one NVIDIA H100 and the
 CUDA toolkit (nvcc). It imports nothing of JAX. Phases, one line each:
 
 1. Refuse to run without CUDA; print the card's name and power limit.
-2. Build the K2 forward (`bayesnf_torch/ops/csrc/fused_mlp_fwd.cu`) and the
+2. Build the field MLP's forward (K2, K4a: `bayesnf_torch/ops/csrc/
+   fused_mlp_fwd.cu`) and backward (K3, K4b: `.../fused_mlp_bwd.cu`) and the
    K1 training kernel (`.../fused_train.cu`) with nvcc from the checkout's
-   sources, both compiles started together; print ptxas's registers, spills
-   and shared memory.
+   sources, the three compiles started together; print ptxas's registers,
+   spills and shared memory.
 3. Hold K2 against its plain PyTorch version on the card, at the serving
    path's shapes (64 members, 49 features, 4096 rows, width 512, depth 2)
    and at a ragged row count, widths 256 and 1024 and depths 1 and 3; time
    both with CUDA events.
+3b. The same for the rest of the field MLP's kernels: K2 at 'bf16'; K4a
+   (row-major) in fp32 and 'bf16'; K3 (K2's backward, every gradient leaf
+   against autograd through the plain forward) at that shape, a ragged row
+   count, widths 256 and 1024 (16-row tiles), depths 1 and 3 and 'bf16';
+   K4b (K4a's backward) at that shape, a ragged row count and 'bf16'. A
+   'bf16' kernel is held to the plain 'bf16' version and to the plain fp32
+   one.
 3t. Hold K1 against its plain PyTorch version (autograd) on the card: the
    loss and every gradient, at the training path's shapes (64 members,
    inputs (3, N), 16 seasonal rows, F = 49, width 512, depth 2, N = 8192)
@@ -78,7 +86,15 @@ CUDA toolkit (nvcc). It imports nothing of JAX. Phases, one line each:
    mesh-fitted estimator's row-parallel predict against the meshless
    predict of the same parameters. Member-steps/s (one card shows no
    data-parallel speed).
-12. A JSON line of the kernels, with each one's time, its plain version's,
+12. The differentiable field at full width: 64 members of width 512 and
+   depth 2 drawn by `init_params` from `--seed`, 8,192 rows of the hourly
+   table. The NORMAL loss and every parameter gradient by autograd through
+   `encode_t_groups` -> `fused_field_mlp_t` (K2 + K3), and through the
+   row-major `encode` -> `fused_field_mlp` (K4a + K4b), each held to K1's
+   `fused_train` on the same rows and parameters; then three Adam steps
+   (`map.adam_update`) on the K2 + K3 gradients and three on K1's from the
+   same parameters, whose losses must agree; ms per step of each path.
+13. A JSON line of the kernels, with each one's time, its plain version's,
    the least time the card could take for the same products and bytes
    (`bound_ms`) and the PyTorch call that computes the same function, if
    any (`library_ms`); then the last line,
@@ -180,7 +196,12 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
+START = time.perf_counter()
+
+
 def phase(name, **fields):
+  """Prints one phase line, with the seconds since the script started."""
+  fields['elapsed_s'] = f'{time.perf_counter() - START:.1f}'
   print(f'phase {name}: ' + ', '.join(f'{k}={v}' for k, v in fields.items()),
         flush=True)
 
@@ -234,16 +255,28 @@ def mlp_flops_per_row(f, width, depth):
       2 * f)
 
 
-def k2_bound(args, depth):
-  """K2's bound at `args`: its products, and each input read once and the
-  output written once."""
+def field_mlp_bound(args, depth, precision='f32', layout='features',
+                    backward=False):
+  """The field MLP's bound at `args` (K2, K4a; with `backward` K3, K4b): the
+  forward's products, three times as many for a backward (the recomputed
+  forward, the W dv products, the weight gradients' contraction over rows);
+  each input read once and each output written once. Under 'bf16' every
+  product runs on bf16 operands but those the kernels keep fp32: the output
+  layer's weight gradient, and row-major its forward h @ W_out."""
   e, _, n = args['h0_groups'][0].shape
   f = sum(g.shape[1] for g in args['h0_groups'])
   width = args['weights'][0].shape[-1]
-  nbytes = 4 * (sum(t.numel() for t in (*args['h0_groups'], *args['weights'],
-                                        *args['biases'], args['scales_raw'],
-                                        args['logit'])) + e * n)
-  return bound_ms(e * n * mlp_flops_per_row(f, width, depth), nbytes)
+  params = sum(t.numel() for t in (*args['weights'], *args['biases'],
+                                   args['scales_raw'], args['logit']))
+  h0 = e * f * n
+  # Backward: h0, g and the parameters in; dh0 and their gradients out.
+  nbytes = 4 * (2 * (h0 + params) + e * n if backward else h0 + params + e * n)
+  flops = (3 if backward else 1) * e * n * mlp_flops_per_row(f, width, depth)
+  if precision != 'bf16':
+    return bound_ms(flops, nbytes)
+  fan_in_out = args['weights'][-1].shape[1]
+  fp32_flops = 2 * e * n * fan_in_out * (backward + (layout == 'rows'))
+  return bound_ms(fp32_flops, nbytes, bf16_flops=flops - fp32_flops)
 
 
 def k1_bound(args, precision='f32'):
@@ -300,8 +333,116 @@ def check_kernel(seed):
           max_rel_err=f'{rel:.3e}',
           kernel_ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}')
     if name == 'main':
-      timing = (ms, plain_ms, k2_bound(args, depth))
+      timing = (ms, plain_ms, field_mlp_bound(args, depth))
   return (worst, *timing)
+
+
+# The field MLP's entry points by kernel row: (forward or backward entry,
+# its plain version, layout).
+FIELD_MLP_ROWS = {
+    'fused_field_mlp_t': (fused_mlp.fused_field_mlp_t,
+                          fused_mlp.fused_field_mlp_t_reference, 'features'),
+    'fused_field_mlp': (fused_mlp.fused_field_mlp,
+                        fused_mlp.fused_field_mlp_reference, 'rows'),
+    'fused_field_mlp_t_bwd': (fused_mlp.fused_field_mlp_t_vjp,
+                              fused_mlp.fused_field_mlp_t_vjp_reference,
+                              'features'),
+    'fused_field_mlp_bwd': (fused_mlp.fused_field_mlp_vjp,
+                            fused_mlp.fused_field_mlp_vjp_reference, 'rows'),
+}
+
+
+def flat_leaves(out):
+  """A forward's prediction, or a backward's gradients, as a list."""
+  if isinstance(out, torch.Tensor):
+    return [out]
+  dh0, dws, dbs, dscales, dlogit = out
+  dh0 = list(dh0) if isinstance(dh0, (tuple, list)) else [dh0]
+  return [*dh0, *dws, *dbs, dscales, dlogit]
+
+
+def check_field_mlp_kernels(seed):
+  """Phase 3b; returns {kernel row: {case: (max abs error, kernel ms, plain
+  ms, bound)}}."""
+  main_groups = (3, 10, 10, 10, 16)
+  main = (main_groups, CHUNK, 512, 2)
+  ragged = (main_groups, CHUNK - 3, 512, 2)
+  cases = [  # (kernel row, case, precision, groups, rows, width, depth)
+      ('fused_field_mlp_t', 'bf16', 'bf16', *main),
+      ('fused_field_mlp', 'main', 'f32', *main),
+      ('fused_field_mlp', 'bf16', 'bf16', *main),
+      ('fused_field_mlp_t_bwd', 'main', 'f32', *main),
+      ('fused_field_mlp_t_bwd', 'ragged', 'f32', *ragged),
+      ('fused_field_mlp_t_bwd', 'width256', 'f32', main_groups, CHUNK - 3,
+       256, 2),
+      ('fused_field_mlp_t_bwd', 'width1024', 'f32', main_groups, CHUNK - 3,
+       1024, 2),
+      ('fused_field_mlp_t_bwd', 'depth1', 'f32', main_groups, 1000, 512, 1),
+      ('fused_field_mlp_t_bwd', 'depth3', 'f32', main_groups, 1001, 512, 3),
+      ('fused_field_mlp_t_bwd', 'bf16', 'bf16', *main),
+      ('fused_field_mlp_bwd', 'main', 'f32', *main),
+      ('fused_field_mlp_bwd', 'ragged', 'f32', *ragged),
+      ('fused_field_mlp_bwd', 'bf16', 'bf16', *main),
+  ]
+  result, inputs = {}, {}
+  for row, case, precision, groups, n, width, depth in cases:
+    fn, plain, layout = FIELD_MLP_ROWS[row]
+    backward = row.endswith('_bwd')
+    # Cases of one shape share its inputs.
+    if (groups, n, width, depth) not in inputs:
+      inputs[groups, n, width, depth] = kernel_inputs(MEMBERS, groups, n,
+                                                      width, depth, seed)
+    args = inputs[groups, n, width, depth]
+    params = (args['weights'], args['biases'], args['scales_raw'],
+              args['logit'])
+    h0 = (args['h0_groups'] if layout == 'features' else
+          torch.cat(args['h0_groups'], 1).transpose(1, 2).contiguous())
+    extra = ()
+    if backward:
+      rng = np.random.default_rng(seed + 1)
+      extra = (torch.from_numpy(rng.normal(size=(MEMBERS, n)).astype(
+          np.float32)).cuda(),)
+    def call(f, p):  # Used within this iteration only.
+      return f(depth, h0, *params, *extra, precision=p)  # pylint: disable=cell-var-from-loop
+
+    got = flat_leaves(call(fn, precision))
+    torch.cuda.synchronize()
+    want = flat_leaves(call(plain, precision))
+    f32 = flat_leaves(call(plain, 'f32')) if precision == 'bf16' else want
+    tol = BF16_LEAF_TOL if precision == 'bf16' else TRAIN_LEAF_TOL
+    max_abs, worst, f32_worst = 0.0, 0.0, 0.0
+    for g, w, f in zip(got, want, f32):
+      assert g.shape == w.shape and bool(torch.isfinite(g).all()), (row, case)
+      err = (g - w).abs().max().item()
+      scale = w.abs().max().item()
+      max_abs = max(max_abs, err)
+      worst = max(worst, err / max(scale, 1e-30))
+      if not backward and precision == 'f32':
+        torch.testing.assert_close(g, w, **KERNEL_TOL)
+      else:
+        assert err <= tol * scale, (row, case, err, scale)
+      if precision == 'bf16':
+        # Against fp32: rtol plus a floor of the leaf's largest magnitude.
+        f_scale = f.abs().max().item()
+        off = (g - f).abs() - BF16_F32_TOL * f.abs()
+        assert off.max().item() <= BF16_F32_TOL * f_scale, (row, case)
+        f32_worst = max(f32_worst, (g - f).abs().max().item() / max(
+            f_scale, 1e-30))
+    reps = 5 if backward or width > 512 else 10
+    ms = cuda_ms(lambda: call(fn, precision), reps=reps)
+    plain_ms = cuda_ms(lambda: call(plain, precision), reps=3)
+    bound = field_mlp_bound(args, depth, precision, layout, backward)
+    tile = fused_mlp.pick_tile_rows(sum(groups), width, backward=backward)
+    phase('3b field-MLP-vs-plain', kernel=row, case=case, layout=layout,
+          precision=precision, members=MEMBERS, rows=n, width=width,
+          depth=depth, tile_rows=tile, max_abs_err=f'{max_abs:.3e}',
+          worst_leaf_rel=f'{worst:.3e}',
+          **({'vs_f32_worst_leaf_rel': f'{f32_worst:.3e}'}
+             if precision == 'bf16' else {}),
+          kernel_ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
+          bound_ms=f'{bound[0]:.4f}')
+    result.setdefault(row, {})[case] = (max_abs, ms, plain_ms, bound)
+  return result
 
 
 def train_kernel_inputs(members, n, width, depth, seed, degrees=(5, 5, 5),
@@ -1212,6 +1353,143 @@ def check_mesh_path(seed, f32_full_losses):
   return k1_launches, k2_launches
 
 
+# Phase 12: Adam steps on each path's gradients, at fit()'s learning rate.
+FIELD_STEPS = 3
+FIELD_LR = 0.005
+
+
+def check_differentiable_field(seed):
+  """Phase 12; returns {counter: launches} counted while it drove the two
+  differentiable paths and K1 beside them."""
+  table = bench_table(seed).iloc[:TRAIN_ROWS]
+  est = bench_estimator()
+  train = est.data_handler.get_train(table)
+  config = est._field_config(train.shape)  # pylint: disable=protected-access
+  d = config.num_inputs
+  aug = field_lib.aug_features(
+      config, torch.as_tensor(train, dtype=torch.float32, device='cuda'))
+  x, seasonal = aug[:, :d].contiguous(), aug[:, d:].contiguous()
+  x_t, seasonal_t = x.T.contiguous(), seasonal.T.contiguous()
+  y = torch.tensor(est.data_handler.get_target(table), dtype=torch.float32,
+                   device='cuda')
+  generator = torch.Generator(device='cuda').manual_seed(seed)
+  log_noise = math.log(float(np.std(table['y'])) / 2)
+  members = [field_lib.init_params(config, generator, 'cuda', log_noise)
+             for _ in range(MEMBERS)]
+  params = tuple(torch.stack(leaves) for leaves in zip(*members))
+  normal = likelihoods.LikelihoodDist.NORMAL
+
+  def mlp_args(p):
+    weights, biases = field_lib.dense_params(config, p)
+    return (config.depth, weights, biases, p[field_lib.IDX_LAYER_SCALES],
+            p[field_lib.IDX_ACTIVATION_LOGIT])
+
+  def autograd_step(forward):
+    def step(p):
+      leaves = [t.detach().requires_grad_(True) for t in p]
+      losses = -likelihoods.log_likelihood(normal, leaves, forward(leaves), y)
+      grads = torch.autograd.grad(losses.sum(), leaves, allow_unused=True,
+                                  materialize_grads=True)
+      return losses.detach(), list(grads)
+    return step
+
+  def features_major(p):
+    depth, weights, biases, scales, logit = mlp_args(p)
+    groups = field_lib.encode_t_groups(config, p, x_t, seasonal_t)
+    return fused_mlp.fused_field_mlp_t(depth, groups, weights, biases, scales,
+                                       logit)
+
+  def row_major(p):
+    depth, weights, biases, scales, logit = mlp_args(p)
+    h0 = field_lib.encode(config, p, x, seasonal)
+    return fused_mlp.fused_field_mlp(depth, h0, weights, biases, scales,
+                                     logit)
+
+  def k1_step(p):
+    depth, weights, biases, scales, logit = mlp_args(p)
+    losses, *grads = fused_mlp.fused_train(
+        'NORMAL', depth, 1.0, config.input_scales, config.fourier_degrees,
+        config.interactions, x_t, seasonal_t, weights, biases,
+        p[field_lib.IDX_LOG_SCALE_ADJ], p[field_lib.IDX_FEATURE_SCALES],
+        scales, logit, torch.stack(p[:3], -1).contiguous(), y)
+    return losses, field_lib.scatter_fused_train_grads(config, *grads)
+
+  steps = {'k2+k3': autograd_step(features_major),
+           'k4a+k4b': autograd_step(row_major), 'k1': k1_step}
+  counters = ((fused_mlp.fused_field_mlp_t, 'launches'),
+              (fused_mlp.fused_field_mlp_t, 'bwd_launches'),
+              (fused_mlp.fused_field_mlp, 'launches'),
+              (fused_mlp.fused_field_mlp, 'bwd_launches'),
+              (fused_mlp.fused_train, 'launches'))
+  torch.cuda.synchronize()
+  for fn, name in counters:
+    setattr(fn, name, 0)
+
+  results = {name: step(params) for name, step in steps.items()}
+  torch.cuda.synchronize()
+  want_losses, want_grads = results['k1']
+  names = [spec.name for spec in field_lib.param_specs(config)]
+  worst = {}
+  for path in ('k2+k3', 'k4a+k4b'):
+    losses, grads = results[path]
+    torch.testing.assert_close(losses, want_losses, rtol=TRAIN_LOSS_RTOL,
+                               atol=0)
+    worst[path] = (0.0, None)
+    for name, g, w in zip(names, grads, want_grads):
+      assert g.shape == w.shape and bool(torch.isfinite(g).all()), (path, name)
+      err = (g - w).abs().max().item()
+      scale = w.abs().max().item()
+      assert err <= TRAIN_LEAF_TOL * scale, (path, name, err, scale)
+      if err / max(scale, 1e-30) > worst[path][0]:
+        worst[path] = (err / max(scale, 1e-30), name)
+
+  # Adam from the same parameters on the K2 + K3 and on K1's gradients.
+  trajectories = {}
+  for path in ('k2+k3', 'k1'):
+    p, state, losses = params, map_lib.init_opt_state(params), []
+    for i in range(FIELD_STEPS + 1):
+      loss, grads = steps[path](p)
+      losses.append(loss)
+      if i < FIELD_STEPS:
+        updates, state = map_lib.adam_update(grads, state, FIELD_LR)
+        p = tuple(a + u for a, u in zip(p, updates))
+    trajectories[path] = torch.stack(losses)
+  torch.testing.assert_close(trajectories['k2+k3'], trajectories['k1'],
+                             rtol=TRAIN_LOSS_RTOL, atol=0)
+  mean_loss = trajectories['k1'].mean(dim=1)
+  assert mean_loss[-1] < mean_loss[0], mean_loss
+  launches = {f'{fn.__name__}.{name}': getattr(fn, name)
+              for fn, name in counters}
+
+  step_ms = {}
+  for path, step in steps.items():
+    times = []
+    for _ in range(3):
+      torch.cuda.synchronize()
+      start = time.perf_counter()
+      step(params)
+      torch.cuda.synchronize()
+      times.append((time.perf_counter() - start) * 1e3)
+    step_ms[path] = times
+  def rel(a, b):
+    return f'{((a - b).abs() / b.abs()).max().item():.3e}'
+
+  phase('12 differentiable-field', rows=TRAIN_ROWS, members=MEMBERS,
+        width=config.width, depth=config.depth,
+        encoded_dim=config.encoded_dim,
+        loss_rel_err_k2k3=rel(results['k2+k3'][0], want_losses),
+        loss_rel_err_k4=rel(results['k4a+k4b'][0], want_losses),
+        worst_leaf_k2k3=f'{worst["k2+k3"][1]}:{worst["k2+k3"][0]:.3e}',
+        worst_leaf_k4=f'{worst["k4a+k4b"][1]}:{worst["k4a+k4b"][0]:.3e}',
+        adam_steps=FIELD_STEPS,
+        adam_loss_rel_diff_max=rel(trajectories['k2+k3'], trajectories['k1']),
+        mean_loss_k1='/'.join(f'{v:.6g}' for v in mean_loss.tolist()),
+        **{f'step_ms_{path}': '/'.join(f'{t:.2f}' for t in times)
+           for path, times in step_ms.items()},
+        **{k.replace('.', '_'): v for k, v in launches.items()})
+  return launches
+
+
 def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -1232,8 +1510,9 @@ def main(argv=None):
         torch=torch.__version__, cuda=torch.version.cuda)
 
   # One nvcc per source, started together.
-  with concurrent.futures.ThreadPoolExecutor(2) as pool:
-    builds = list(pool.map(_build.build, ('fused_mlp_fwd', 'fused_train')))
+  sources = ('fused_mlp_fwd', 'fused_mlp_bwd', 'fused_train')
+  with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+    builds = list(pool.map(_build.build, sources))
   for path, seconds, report in builds:
     ptxas = [line.split(':', 1)[-1].strip() for line in report.splitlines()
              if 'registers' in line or 'spill' in line or 'Compiling' in line]
@@ -1241,7 +1520,10 @@ def main(argv=None):
           seconds=f'{seconds:.2f}', arch='sm_90a', ptxas=' | '.join(ptxas))
 
   max_err, ms, plain_ms, (k2_bound_ms, k2_bound_by) = check_kernel(args.seed)
+  mlp_cases = check_field_mlp_kernels(args.seed)
   train_cases = check_train_kernel(args.seed)
+  # The predict phases build no graph: they launch no K3.
+  fused_mlp.fused_field_mlp_t.bwd_launches = 0
   check_golden()
   launches = check_main_path(args.seed)
   train_launches, f32_losses = check_training_path(args.seed)
@@ -1251,6 +1533,29 @@ def main(argv=None):
   bf16_launches = check_bf16_path(args.seed, f32_losses)
   mesh_k1_launches, mesh_k2_launches = check_mesh_path(args.seed,
                                                        f32_losses['full'])
+  assert fused_mlp.fused_field_mlp_t.bwd_launches == 0
+  field_launches = check_differentiable_field(args.seed)
+
+  def case_fields(case):
+    """(max abs error, kernel ms, plain ms, bound) as JSON fields."""
+    return {'ms': case[1], 'plain_ms': case[2], 'bound_ms': case[3][0],
+            'bound_by': case[3][1], 'max_abs_err': case[0]}
+
+  def row(name, source, replaces, launches, cases):
+    """A kernel's JSON entry from its phase 3b cases."""
+    err, kernel_ms, plain, (bound, bound_by) = cases['main']
+    return {
+        'name': name, 'route': 'cuda',
+        'source': f'bayesnf_torch/ops/csrc/{source}',
+        'replaces': f'bayesnf_tpu/ops/fused_mlp.py:{replaces}',
+        'launches': launches, 'max_abs_err': err, 'ms': kernel_ms,
+        'plain_ms': plain, 'bound_ms': bound, 'bound_by': bound_by,
+        'library_ms': None,
+        # The other shapes and precisions of phase 3b: (kernel ms, plain ms,
+        # bound ms, max abs error against the plain version).
+        'cases': {case: case_fields(c) for case, c in cases.items()
+                  if case != 'main'},
+    }
 
   k1_bound_ms, k1_bound_by = train_cases['main'][3]
   print(json.dumps({'kernels': [{
@@ -1259,20 +1564,25 @@ def main(argv=None):
       'source': 'bayesnf_torch/ops/csrc/fused_mlp_fwd.cu',
       'replaces': 'bayesnf_tpu/ops/fused_mlp.py:488',
       'launches': (launches + vi_k2_launches + count_k2_launches
-                   + count_vi_k2_launches + mesh_k2_launches),
+                   + count_vi_k2_launches + mesh_k2_launches
+                   + field_launches['fused_field_mlp_t.launches']),
       'max_abs_err': max_err,
       'ms': ms,
       'plain_ms': plain_ms,
       'bound_ms': k2_bound_ms,
       'bound_by': k2_bound_by,
       'library_ms': None,
+      # K2 at precision 'bf16' (phase 3b, the main shape).
+      'cases': {case: case_fields(c)
+                for case, c in mlp_cases['fused_field_mlp_t'].items()},
   }, {
       'name': 'fused_train',
       'route': 'cuda',
       'source': 'bayesnf_torch/ops/csrc/fused_train.cu',
       'replaces': 'bayesnf_tpu/ops/fused_mlp.py:1412',
       'launches': (train_launches + vi_k1_launches + count_k1_launches
-                   + count_vi_k1_launches + mesh_k1_launches),
+                   + count_vi_k1_launches + mesh_k1_launches
+                   + field_launches['fused_train.launches']),
       'max_abs_err': max(train_cases['main'][0], train_cases['grouped'][0]),
       'ms': train_cases['main'][1],
       'plain_ms': train_cases['main'][2],
@@ -1287,7 +1597,8 @@ def main(argv=None):
                 for name, case in train_cases.items()
                 if name != 'main' and not name.endswith('bf16')},
       'launches_by_likelihood': {
-          'NORMAL': train_launches + vi_k1_launches + mesh_k1_launches,
+          'NORMAL': (train_launches + vi_k1_launches + mesh_k1_launches
+                     + field_launches['fused_train.launches']),
           'NB': count_k1_launches, 'ZINB': count_vi_k1_launches},
   }, {
       # K1 at precision 'bf16': the bf16 instantiations of the tile kernel
@@ -1308,7 +1619,17 @@ def main(argv=None):
                        'bound_ms': case[3][0], 'max_abs_err': case[0]}
                 for name, case in train_cases.items()
                 if name.endswith('bf16') and name != 'main-bf16'},
-  }]}), flush=True)
+  },
+      row('fused_field_mlp_t_bwd', 'fused_mlp_bwd.cu', 765,
+          field_launches['fused_field_mlp_t.bwd_launches'],
+          mlp_cases['fused_field_mlp_t_bwd']),
+      row('fused_field_mlp', 'fused_mlp_fwd.cu', 345,
+          field_launches['fused_field_mlp.launches'],
+          mlp_cases['fused_field_mlp']),
+      row('fused_field_mlp_bwd', 'fused_mlp_bwd.cu', 417,
+          field_launches['fused_field_mlp.bwd_launches'],
+          mlp_cases['fused_field_mlp_bwd']),
+  ]}), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}),
         flush=True)

@@ -19,6 +19,7 @@ import torch
 import bayesnf_torch
 from bayesnf_torch.models import field
 from bayesnf_torch.ops import fused_mlp
+from bayesnf_torch.ops import mixed
 from bayesnf_torch.parallel import mesh as mesh_lib
 
 DATA = pathlib.Path(__file__).resolve().parent / 'test_data'
@@ -517,3 +518,142 @@ def test_mesh_fit_on_one_card_matches_torch_backend(cuda, batch_size):
   want, _ = fits[0].predict(table, quantiles=(0.5,))
   fits[0].mesh_ = alone
   torch.testing.assert_close(means, want, rtol=2e-5, atol=1e-4)
+
+
+# The differentiable field MLP: K2 and K3 (features-major), K4a and K4b
+# (row-major). Each leaf of the backward within 2e-4 of its largest
+# magnitude (fp32 sums over rows and fan-ins in other orders); at 'bf16'
+# within 2e-3 of the plain 'bf16' version (fp32 values an ulp apart may
+# round to neighbouring bf16 values), and the prediction within 2e-2 of the
+# plain fp32 one.
+MLP_LEAF_TOL = {'f32': 2e-4, 'bf16': 2e-3}
+BF16_F32_TOL = 2e-2
+
+
+def _mlp_leaves(args, layout):
+  h0 = (args['h0_groups'] if layout == 'features'
+        else [torch.cat(args['h0_groups'], 1).transpose(1, 2).contiguous()])
+  return [t.detach().clone().requires_grad_(True) for t in (
+      *h0, *args['weights'], *args['biases'], args['scales_raw'],
+      args['logit'])]
+
+
+def _mlp_call(fn, layout, depth, leaves, precision):
+  num_g = len(leaves) - 2 * (depth + 1) - 2
+  num_w = depth + 1
+  h0 = leaves[:num_g] if layout == 'features' else leaves[0]
+  return fn(depth, h0, leaves[num_g : num_g + num_w],
+            leaves[num_g + num_w : num_g + 2 * num_w], leaves[-2],
+            leaves[-1], precision)
+
+
+def _assert_leaves_close(got, want, tol):
+  for g, w in zip(got, want):
+    assert g.shape == w.shape and bool(torch.isfinite(g).all())
+    assert (g - w).abs().max().item() <= tol * w.abs().max().item() + 1e-30
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('precision', ['f32', 'bf16'])
+@pytest.mark.parametrize('layout', ['features', 'rows'])
+@pytest.mark.parametrize('depth,width,n', [
+    (2, 64, 333), (1, 256, 70), (3, 32, 65), (0, 1, 40), (2, 1024, 17),
+])
+def test_field_mlp_kernels_and_their_gradients_match_plain(
+    cuda, layout, precision, depth, width, n):
+  # Autograd through the kernels' entry point on CUDA (K2 + K3, or K4a +
+  # K4b) against autograd through the plain versions.
+  args = _inputs(depth, (3, 10, 6), n, width, members=3, device=cuda)
+  fn, plain = {'features': (fused_mlp.fused_field_mlp_t,
+                            fused_mlp.fused_field_mlp_t_reference),
+               'rows': (fused_mlp.fused_field_mlp,
+                        fused_mlp.fused_field_mlp_reference)}[layout]
+  g = torch.as_tensor(np.random.default_rng(1).normal(size=(3, n)).astype(
+      np.float32), device=cuda)
+  results = {}
+  for name, f, prec in (('kernel', fn, precision), ('plain', plain, precision),
+                        ('f32', plain, 'f32')):
+    leaves = _mlp_leaves(args, layout)
+    before = (fn.launches, fn.bwd_launches)
+    with mixed.fp32_matmuls():
+      pred = _mlp_call(f, layout, depth, leaves, prec)
+      grads = torch.autograd.grad(pred, leaves, g, allow_unused=True,
+                                  materialize_grads=True)
+    torch.cuda.synchronize()
+    kernel = name == 'kernel'
+    assert (fn.launches, fn.bwd_launches) == (before[0] + kernel,
+                                              before[1] + kernel)
+    results[name] = [pred.detach(), *grads]
+  if precision == 'f32':
+    torch.testing.assert_close(results['kernel'][0], results['plain'][0],
+                               **KERNEL_TOL)
+  _assert_leaves_close(results['kernel'], results['plain'],
+                       MLP_LEAF_TOL[precision])
+  if precision == 'bf16':
+    # The prediction against fp32. (A gradient summed over these few rows,
+    # such as d logit, can cancel to far below its terms, and bf16 moves it
+    # further from fp32 in the plain version as well.)
+    got, want = results['kernel'][0], results['f32'][0]
+    off = (got - want).abs() - BF16_F32_TOL * want.abs()
+    assert off.max().item() <= BF16_F32_TOL * want.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_grad_through_fused_field_mlp_t_on_cuda_is_the_kernels(cuda):
+  # torch.autograd.grad through the features-major entry point on CUDA
+  # returns the gradients of the plain version (not a missing graph), and
+  # they are K3's: the same as its direct call, bit for bit.
+  args = _inputs(2, (3, 10, 6), 100, 64, members=2, device=cuda)
+  leaves = _mlp_leaves(args, 'features')
+  before = fused_mlp.fused_field_mlp_t.bwd_launches
+  pred = _mlp_call(fused_mlp.fused_field_mlp_t, 'features', 2, leaves, 'f32')
+  assert pred.grad_fn is not None
+  loss = (pred * torch.linspace(0.5, 1.5, 100, device=cuda)).sum()
+  grads = torch.autograd.grad(loss, leaves)
+  assert fused_mlp.fused_field_mlp_t.bwd_launches == before + 1
+  g = torch.linspace(0.5, 1.5, 100, device=cuda).expand(2, 100).contiguous()
+  dh0, dws, dbs, dscales, dlogit = fused_mlp.fused_field_mlp_t_vjp_reference(
+      2, args['h0_groups'], args['weights'], args['biases'],
+      args['scales_raw'], args['logit'], g)
+  _assert_leaves_close(grads, [*dh0, *dws, *dbs, dscales, dlogit], 2e-4)
+  before = fused_mlp.fused_field_mlp_t.bwd_launches
+  dh0, dws, dbs, dscales, dlogit = fused_mlp.fused_field_mlp_t_vjp(
+      2, args['h0_groups'], args['weights'], args['biases'],
+      args['scales_raw'], args['logit'], g)
+  assert fused_mlp.fused_field_mlp_t.bwd_launches == before + 1
+  assert all(torch.equal(a, b) for a, b in zip(
+      grads, (*dh0, *dws, *dbs, dscales, dlogit)))
+
+
+@pytest.mark.gpu
+def test_predict_launches_no_backward(cuda):
+  model = bayesnf_torch.BayesianNeuralFieldMAP.load(
+      str(DATA / 'bnf-map.chickenpox.8.port.npz'), device=cuda)
+  table = pd.read_csv(DATA / 'chickenpox.8.train.csv', index_col=0,
+                      parse_dates=['datetime'])
+  before = (fused_mlp.fused_field_mlp_t.launches,
+            fused_mlp.fused_field_mlp_t.bwd_launches)
+  means, _ = model.predict(table, quantiles=(0.5,))
+  assert means.grad_fn is None
+  assert (fused_mlp.fused_field_mlp_t.launches,
+          fused_mlp.fused_field_mlp_t.bwd_launches) == (before[0] + 1,
+                                                        before[1])
+
+
+@pytest.mark.gpu
+def test_field_mlp_refuses_what_it_cannot_take(cuda):
+  # Width 1,350 with 16-row tiles fits the forward's shared memory but not
+  # the backward's (which also stages its cotangent row); 4,096 fits
+  # neither. Both raise before any launch.
+  for fn, layout in ((fused_mlp.fused_field_mlp_t, 'features'),
+                     (fused_mlp.fused_field_mlp, 'rows')):
+    args = _inputs(1, (5,), 8, 4096, members=2, device=cuda)
+    with pytest.raises(ValueError, match='shared memory'):
+      _mlp_call(fn, layout, 1, _mlp_leaves(args, layout), 'f32')
+    args = _inputs(1, (5,), 8, 1350, members=2, device=cuda)
+    leaves = _mlp_leaves(args, layout)
+    pred = _mlp_call(fn, layout, 1, leaves, 'f32')
+    with pytest.raises(ValueError, match='backward: width 1350'):
+      torch.autograd.grad(pred.sum(), leaves)
+  with pytest.raises(ValueError, match='Unknown precision'):
+    _mlp_call(fused_mlp.fused_field_mlp, 'rows', 1, leaves, 'fp16')

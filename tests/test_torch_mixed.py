@@ -99,6 +99,32 @@ def test_exact_da_keeps_the_first_gradient_fp32():
   assert not torch.equal(da0, da1)
 
 
+@pytest.mark.parametrize('site', ['exact_out', 'exact_da', 'exact_db'])
+def test_each_product_can_stay_fp32(site):
+  # The row-major kernels keep the products whose result has a last
+  # dimension of 1 in fp32 (`field.mlp`): an exact site takes the unrounded
+  # operands and cotangent, the other two stay matmul_bf16's.
+  a, b, w = _inputs('batched')
+  results = []
+  for kwargs in ({}, {site: True}):
+    ta, tb = (torch.as_tensor(v).requires_grad_(True) for v in (a, b))
+    out = t_mixed.matmul_bf16(ta, tb, **kwargs)
+    (out * torch.as_tensor(w)).sum().backward()
+    results.append((out.detach(), ta.grad, tb.grad))
+  ta, tb, tw = (torch.as_tensor(v) for v in (a, b, w))
+  exact = {'exact_out': torch.matmul(ta, tb), 'exact_da': tw @ tb.mT,
+           'exact_db': ta.mT @ tw}
+  for name, rounded, got in zip(('exact_out', 'exact_da', 'exact_db'),
+                                *results):
+    if name == site:
+      assert torch.equal(got, exact[name]) and not torch.equal(got, rounded)
+    else:
+      assert torch.equal(got, rounded)
+  assert torch.equal(
+      t_mixed.matmul(ta, tb, 'bf16', **{site: True}),
+      t_mixed.matmul_bf16(ta, tb, **{site: True}))
+
+
 def test_highest_is_f32_and_unknown_precisions_raise():
   a, b, _ = _inputs('batched')
   ta, tb = torch.as_tensor(a), torch.as_tensor(b)
