@@ -20,8 +20,7 @@
 // in the TPU kernel. fp32 throughout (FMA, no TF32, no fast-math intrinsics).
 // The count likelihoods use the TPU kernel's math (`_likelihood_tile`):
 // log Gamma and digamma by shift-by-6 Stirling series, log softplus(pred)
-// clamped at -15. The likelihood is a template parameter of the tile kernel,
-// so the NORMAL instantiation is the same code as before the count models.
+// clamped at -15. The likelihood is a template parameter of the head kernel.
 //
 // What bounds it: at the training path's shapes (64 members x 38,096 rows,
 // width 512, depth 2, 49 encoded features) one call is ~4.2 TFLOP of fp32
@@ -30,42 +29,46 @@
 // bound by the SIMT fp32 pipe. Memory traffic is the scratch below, a few
 // GB per call.
 //
-// Design. The TPU kernel keeps a member's weights, the tile's activations and
-// the running weight gradients in VMEM across its sequential row tiles. A
-// Hopper block has 227 KB of shared memory, one width-512 weight matrix and
-// its gradient are 1 MiB each, and blocks run in no order. So one call runs,
-// for each chunk of rows (sized so the scratch stays under a budget the
-// wrapper sets):
-//   1. `train_tile_kernel`, grid (row tiles, members). A block encodes its TR
-//      rows into shared memory, runs the forward with two ping-pong buffers
-//      (as the K2 forward does), the loss, and the backward chain
-//      dh_l = W_l dv_l / sqrt(fan_in_l) with the same two buffers, then the
-//      encode backward. It writes to global scratch each layer's matmul input
-//      lhs_l = h_l / sqrt(fan_in_l), pre-activation z_l (read back by the same
-//      block in the backward) and pre-scale cotangent dv_l, in row-contiguous
-//      passes over shared memory, and per-tile partial sums of the scalar
-//      gradients (block reductions in a fixed order). Depth does not change
-//      its shared memory. The first layer's W dv has only F outputs (49 at
-//      the main shape), so it runs as one dot product per thread
-//      (`narrow_matmul`) rather than a 512-column pass that would leave most
-//      columns idle.
-//   2. `wgrad_kernel`: dW_l += sum over the chunk's rows of lhs_l dv_l^T,
-//      a hand-written 128 x 128-tile SIMT GEMM, one thread summing each
-//      output over rows in order.
-//   3. `rowdot_kernel`: db_l += sum_rows dv_l, and the output layer's
-//      dW_out += sum_rows lhs_depth dv_out, one warp per output.
-// and once at the end `finalize_kernel` sums the per-tile partials in tile
-// order and applies the scalar chain rules. Every reduction has a fixed
-// order and there are no atomics, so results are bitwise reproducible.
-// Padded rows of the ragged last tile read x = 0 and carry a zero loss
+// Design: layer by layer. The TPU kernel keeps a member's weights, the
+// tile's activations and the running weight gradients in VMEM across its
+// sequential row tiles. A Hopper block has 227 KB of shared memory and one
+// width-512 weight matrix is 1 MiB, so a block that carries a few rows
+// through every layer re-streams each weight for those few rows. Instead
+// each matrix product of a chunk of rows (sized so the scratch stays under
+// the wrapper's budget) is one GEMM over all of the chunk's rows, on the
+// register-tiled engine of `simt_gemm.cuh` (128 x 128 tiles, 8 x 8 per
+// thread, cp.async stages), with the elementwise work fused into its
+// epilogue. Activations live features-major in a global scratch
+// (E, features, ld). Per chunk:
+//   1. `encode_kernel`, one thread per (member, row): lhs_0 = h_0 / sqrt(F).
+//   2. `forward_kernel` for each hidden layer l: the product W_l^T lhs_l, its
+//      epilogue writing z_l and lhs_{l+1} = act(z_l) / sqrt(width).
+//   3. `head_kernel<likelihood>`, one thread per (member, row): pred, the
+//      likelihood's row terms, dv_out, and the last hidden layer's
+//      dv = (w_out dv_out / sqrt(width)) act'(z) s (at depth 0 instead
+//      dh_0 = w_out dv_out / sqrt(F)).
+//   4. `backward_kernel` for l = depth - 1 down to 1: dh = W_l dv_l /
+//      sqrt(fan_in_l), its epilogue writing dv_{l-1} = dh act'(z_{l-1})
+//      s_{l-1}; for l = 0 the same product, with F outputs, writes dh_0.
+//   5. `encode_backward_kernel`, one thread per (member, row): the lsa and
+//      fs gradients' rows from dh_0.
+//   6. `wgrad_kernel` (dW_l += lhs_l dv_l^T over the chunk's rows) and
+//      `rowdot_kernel` (db_l, and dW_out += lhs_depth dv_out), as before.
+// and once at the end `finalize_kernel` sums the per-tile partials in a fixed
+// order and applies the scalar chain rules. The scalar sums are per 128-row
+// tile (and per 128-column block of a layer's dz z and dh dact/dw sums), in
+// a fixed order within each; there are no atomics, so a call is bitwise
+// reproducible. Each product's outputs are one FMA chain in k order, so z,
+// lhs, dv and the weight and bias gradients do not depend on the tiling.
+// Rows of the last tile past the chunk read x = 0 and carry a zero loss
 // cotangent, so they add exactly zero to every sum. (A count likelihood
-// evaluated on a padded row could give inf or NaN, and 0 * NaN is NaN, so the
+// evaluated on such a row could give inf or NaN, and 0 * NaN is NaN, so the
 // count epilogue selects with the row's validity instead of multiplying.)
 //
 // Valid rows. `n_rows` is the rows' stride in x, seasonal and y; only rows
 // below `n_valid` <= n_rows count (the TPU kernel's dynamic `n_valid`, stage
 // 4: a row shard of a mesh fit holds its valid rows then padding). Rows at
-// n_valid and past it are treated as the ragged tile's padding: their
+// n_valid and past it are treated as the last tile's padding: their
 // inputs and targets are selected out (never read into a result, so a NaN
 // there cannot leak), they carry a zero cotangent, and the NORMAL loss
 // counts n_valid rows. Chunks and tiles still cover all n_rows rows.
@@ -75,8 +78,8 @@
 // reads group e / rep, as the TPU kernel's index maps do. rep = 1 is one row
 // set per member (minibatch MAP); rep = S serves a member's one minibatch to
 // all S of its Monte-Carlo draws (VI), with no S-fold copy of the batch.
-// Only these reads depend on it; the scratch and every later kernel work per
-// member already.
+// Only the encode, head and encode-backward kernels read them; the scratch
+// and every other kernel work per member already.
 //
 // Precision. Under 'bf16' every matrix product the TPU kernel casts (its
 // `_mm_t`, where the second operand's free dimension exceeds 1) takes its
@@ -85,23 +88,21 @@
 // output layer's included) and the hidden weight gradients. The output
 // layer's weight gradient, the bias gradients and every scalar partial stay
 // fp32, as do the parameters, the encode, the activations and the
-// likelihood. Each operand is rounded once, where it enters shared memory or
-// a staged tile, never in an FMA loop: the weights by `round_bf16_kernel`
-// into rounded copies at the start of the call, the tile's matmul inputs and
-// W dv cotangents where `train_tile_kernel<., ., true>` writes them to shared
-// memory (their scratch copies stay fp32: `rowdot_kernel` sums the fp32
-// lhs_depth, dv_l and dv_out), and the weight gradients' operands where
-// `wgrad_kernel<true>` stages them. The FMAs stay on the fp32 pipe (a
-// product of two bf16 values is exact in fp32), so the reduction orders, and
-// bitwise reproducibility, are those of the fp32 kernels; precision is a
-// template parameter, so the fp32 instantiations are the code they were.
-// Making it fast (wgmma with bf16 operands, TMA, keeping z_l on chip) is
-// later work.
+// likelihood; the scratch holds fp32 values. Each operand is rounded where a
+// product stages it: by the GEMM engine (kRound) for the hidden forwards and
+// W dv products, by `wgrad_kernel<true>` for the hidden weight gradients,
+// and by the head kernel, which reads its operands from registers, for the
+// output layer's forward and its W_out dv_out. The FMAs stay on the fp32 pipe,
+// so the reduction orders, and bitwise reproducibility, are those of the fp32
+// kernels. wgmma with bf16 operands is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "field_mlp.cuh"
+#include "simt_gemm.cuh"
 
 namespace {
 
@@ -110,6 +111,13 @@ constexpr int kMaxPairs = 32;
 constexpr int kMaxGroups = kMaxInputs + 3;
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kHalfLog2Pi = 0.9189385332046727f;
+// Rows per tile: the GEMMs' N tile, and one thread per row in the per-row
+// kernels. Chunks are whole tiles.
+constexpr int kRowTile = kSgTile;
+constexpr int kRowWarps = kRowTile / 32;
+// The output layer's forward sums each row's products in kHeadLanes strided
+// chains, then the chains in order.
+constexpr int kHeadLanes = 8;
 
 // The observation models, as the wrapper codes them.
 enum Lik : int { kNormal = 0, kNB = 1, kZINB = 2 };
@@ -118,16 +126,15 @@ enum Lik : int { kNormal = 0, kNB = 1, kZINB = 2 };
 //   kPartRR      NORMAL: sum (pred - y)^2 over valid rows;
 //                NB, ZINB: sum of the rows' log-probs
 //   kPartGV      sum g * v_out (g = d loss / d pred, v_out = pred / s_out)
-//   kPartLogit   sum dh * d act / d w over every hidden layer
-//   kPartDzz+l   sum dz_l * z_l, l < depth
 //   then num_inputs sums of d loss / d lsa, then num_groups sums
 //   <dh0_g, raw_g> (before the sigmoid(fs_raw) factor);
 //   NB and ZINB add two last ones: sum d lp / d r (the shape gradient's
 //   rows) and sum d lp / d obs2 (the zero-inflation gradient's rows).
+// And per (member, row tile, hidden layer l, 128-column block of z_l):
+//   sum dz_l * z_l and sum dh_{l+1} * d act / d w.
 constexpr int kPartRR = 0;
 constexpr int kPartGV = 1;
-constexpr int kPartLogit = 2;
-constexpr int kPartDzz = 3;
+constexpr int kPartEnc = 2;
 
 struct TrainArgs {
   const float* x;                  // (D, N) or (E / x_rep, D, N)
@@ -141,6 +148,7 @@ struct TrainArgs {
   int y_rep;
   const float* w[kMaxLayers];      // (E, fan_in_l, fan_out_l)
   const float* b[kMaxLayers];      // (E, fan_out_l)
+  bool w_vec[kMaxLayers];          // W_l allows 16-byte copies
   const float* lsa_eff;            // (E, D): lsa + log(input_scales)
   const float* fs_raw;             // (E, G)
   const float* scales_raw;         // (E, depth + 1)
@@ -149,7 +157,9 @@ struct TrainArgs {
   float* lhs[kMaxLayers];          // (E, fan_in_l, ld) chunk scratch
   float* z[kMaxLayers];            // (E, width, ld), l < depth
   float* dv[kMaxLayers];           // (E, fan_out_l, ld)
+  float* dh0;                      // (E, F, ld)
   float* partials;                 // (E, num_tiles, num_partials)
+  float* layer_partials;           // (E, num_tiles, depth, col_blocks, 2)
   float rsqrt[kMaxLayers];         // 1/sqrt(fan_in_l), rounded from double
   float lik_scale;
   int fourier_degree[kMaxInputs];
@@ -169,6 +179,7 @@ struct TrainArgs {
   int tile0;                       // global index of the chunk's first tile
   int num_tiles;                   // tiles over all N rows
   int num_partials;
+  int col_blocks;                  // 128-column blocks of a hidden layer
 };
 
 // log Gamma(x), x > 0, as `gammaln_stirling` in bayesnf_tpu/ops/special.py:
@@ -322,343 +333,408 @@ __device__ __forceinline__ void encode_row(const TrainArgs& args, int e,
   }
 }
 
-// kBf16: the 'bf16' precision. args.w then points at the bf16-rounded weight
-// copies, and the matmul inputs and W dv cotangents in shared memory are
-// rounded where they are written (see the header).
-template <int TR, int kLik, bool kBf16>
-__global__ void __launch_bounds__(kThreads, 1)
-    train_tile_kernel(const TrainArgs args) {
-  constexpr int RT = TR / kRowGroups;  // rows per thread, a multiple of 4
-  constexpr int LDH = TR + 4;          // padded row stride of the buffers
-  static_assert(RT % 4 == 0, "rows per thread must allow float4 loads");
-  static_assert(TR <= 32, "per-row phases run in warp 0");
+// Sums of `count` per-thread values over a row tile's kRowTile threads in a
+// fixed order (a shuffle tree per warp, then the warps in order), written
+// to out[0..count) by thread 0. `red` holds kMaxSums * kRowWarps floats.
+constexpr int kMaxSums = kMaxInputs + kMaxGroups;
+__device__ __forceinline__ void tile_sums(const float* vals, int count,
+                                          float* red, float* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int v = 0; v < count; ++v) {
+    const float s = warp_sum(vals[v]);
+    if (lane == 0) red[v * kRowWarps + warp] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int v = 0; v < count; ++v) {
+      float total = 0.f;
+      for (int w = 0; w < kRowWarps; ++w) total += red[v * kRowWarps + w];
+      out[v] = total;
+    }
+  }
+  __syncthreads();  // `red` is free again
+}
 
-  extern __shared__ __align__(16) float smem[];
-  const int depth = args.depth;
+// Member e's layer partials of (global) row tile `tile` and hidden layer l.
+__device__ __forceinline__ float* layer_partials(const TrainArgs& args, int e,
+                                                 int tile, int l) {
+  return args.layer_partials +
+         (((size_t)e * args.num_tiles + tile) * args.depth + l) *
+             args.col_blocks * 2;
+}
+
+// --- 1. Encode: lhs_0 = h_0 / sqrt(F), one thread per (row, member); grid
+// (row tiles of the chunk, members).
+__global__ void __launch_bounds__(kRowTile) encode_kernel(const TrainArgs args) {
+  const int e = blockIdx.y;
+  const int col = blockIdx.x * kRowTile + threadIdx.x;
+  const int row = args.row0 + col;
+  encode_row(args, e, row, row < args.n_valid,
+             args.lhs[0] + (size_t)e * args.num_features * args.ld + col,
+             args.ld, args.rsqrt[0]);
+}
+
+// --- 2. Hidden layer l's forward: z_l = s_l (W_l^T lhs_l + b_l) and
+// lhs_{l+1} = act(z_l) / sqrt(width); grid (width / 128, row tiles,
+// members).
+template <bool kRound>
+__global__ void __launch_bounds__(kThreads, 2)
+    forward_kernel(const TrainArgs args, int l) {
+  const int e = blockIdx.z;
   const int width = args.width;
-  const int f = args.num_features;
-  const int kmax = max(f, width);
-  float* bufs[2] = {smem, smem + kmax * LDH};
-  float* w_tile = smem + 2 * kmax * LDH;  // [kKTile][kLdw]
-  float* dv_out = w_tile + kKTile * kLdw;  // [TR]
-  float* red = dv_out + TR;                // [kWarps]
+  const int fan_in = l == 0 ? args.num_features : width;
+  const size_t ld = args.ld;
+  const float* b = args.b[l] + (size_t)e * width;
+  const float s = softplus(args.scales_raw[(size_t)e * (args.depth + 1) + l]);
+  const float wgt = sigmoid(args.logit[e]);
+  const float rs_next = args.rsqrt[l + 1];
+  float* zg = args.z[l] + (size_t)e * width * ld;
+  float* out = args.lhs[l + 1] + (size_t)e * width * ld;
+  simt_gemm<true, kRound>(
+      args.w[l] + (size_t)e * fan_in * width, width, args.w_vec[l],
+      args.lhs[l] + (size_t)e * fan_in * ld, (int)ld, width, fan_in,
+      [&](int c, int n, const float (&v)[4]) {
+        const float bj = __ldg(b + c);
+        float zz[4], h[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          zz[j] = s * (v[j] + bj);
+          h[j] = blended_act(zz[j], wgt) * rs_next;
+        }
+        *reinterpret_cast<float4*>(zg + c * ld + n) =
+            make_float4(zz[0], zz[1], zz[2], zz[3]);
+        *reinterpret_cast<float4*>(out + c * ld + n) =
+            make_float4(h[0], h[1], h[2], h[3]);
+      });
+}
 
+// --- 3. The output layer, the likelihood and the last hidden layer's
+// cotangent, one thread per (row, member); grid (row tiles, members).
+template <int kLik, bool kBf16>
+__global__ void __launch_bounds__(kRowTile) head_kernel(const TrainArgs args) {
+  __shared__ float red[kMaxSums * kRowWarps];
+  __shared__ float sums[4];
   const int tid = threadIdx.x;
   const int e = blockIdx.y;
-  const int col0 = blockIdx.x * TR;        // column in the chunk's scratch
-  const int grow0 = args.row0 + col0;      // first row of the tile
-  const int n_valid = args.n_valid;
+  const int col = blockIdx.x * kRowTile + tid;
+  const int row = args.row0 + col;
+  const int tile = args.tile0 + blockIdx.x;
+  const bool valid = row < args.n_valid;
+  const int depth = args.depth;
+  const int fan_in = depth ? args.width : args.num_features;
   const size_t ld = args.ld;
   const int num_w = depth + 1;
   const float* scales_raw = args.scales_raw + (size_t)e * num_w;
   const float wgt = sigmoid(args.logit[e]);
-  float* partials =
-      args.partials +
-      ((size_t)e * args.num_tiles + args.tile0 + blockIdx.x) * args.num_partials;
-
-  // --- Encode: h_0 / sqrt(F) into bufs[0], one row per thread of warp 0.
-  if (tid < TR) {
-    const int row = grow0 + tid;
-    encode_row(args, e, row, row < n_valid, bufs[0] + tid, LDH,
-               args.rsqrt[0]);
-  }
-  __syncthreads();
-  {
-    float* lhs = args.lhs[0] + (size_t)e * f * ld + col0;
-    for (int i = tid; i < f * TR; i += kThreads) {
-      float* h0 = bufs[0] + (i / TR) * LDH + i % TR;
-      lhs[(i / TR) * ld + i % TR] = *h0;
-      if constexpr (kBf16) *h0 = round_bf16(*h0);
-    }
-    // The rounded h_0 is read by other threads next (block_matmul starts
-    // with a barrier, the depth-0 output layer does not).
-    if constexpr (kBf16) __syncthreads();
-  }
-
-  // --- Forward; z_l and the next layer's input go to scratch.
-  int fan_in = f;
-  for (int l = 0; l < depth; ++l) {
-    const float* w = args.w[l] + (size_t)e * fan_in * width;
-    const float* b = args.b[l] + (size_t)e * width;
-    const float s = softplus(scales_raw[l]);
-    const float rs_next = args.rsqrt[l + 1];
-    float* hout = bufs[(l + 1) & 1];
-    float* zg = args.z[l] + (size_t)e * width * ld + col0;
-    float* lhs = args.lhs[l + 1] + (size_t)e * width * ld + col0;
-    block_matmul<TR, false>(
-        w, fan_in, width, width, bufs[l & 1], w_tile,
-        [&](int j, int r0, const float (&vals)[RT]) {
-          const float bj = __ldg(b + j);
-#pragma unroll
-          for (int i = 0; i < RT; ++i) hout[j * LDH + r0 + i] = s * (vals[i] + bj);
-        });
-    __syncthreads();
-    // z_l to scratch and h_{l+1} / sqrt(width) in its place, row-contiguous
-    // so that a warp's stores are whole 128-byte lines.
-    for (int i = tid; i < width * TR; i += kThreads) {
-      const int j = i / TR, r = i % TR;
-      const float zz = hout[j * LDH + r];
-      const float h = blended_act(zz, wgt) * rs_next;
-      zg[j * ld + r] = zz;
-      lhs[j * ld + r] = h;
-      hout[j * LDH + r] = kBf16 ? round_bf16(h) : h;
-    }
-    __syncthreads();
-    fan_in = width;
-  }
-
-  // --- Output layer (fixed-order reduction per row), loss and pred-cotangent.
   const float* w_out = args.w[depth] + (size_t)e * fan_in;
-  {
-    constexpr int G = kThreads / TR;
-    const float* hin = bufs[depth & 1];
-    const int r = tid % TR, g = tid / TR;
-    float part = 0.f;
-    for (int k = g; k < fan_in; k += G) part = fmaf(hin[k * LDH + r], __ldg(w_out + k), part);
-    w_tile[g * TR + r] = part;  // free: every warp passed the barrier above
-    __syncthreads();
-    if (tid < 32) {
-      float rr = 0.f, gv = 0.f;
-      [[maybe_unused]] float dr = 0.f, dp2 = 0.f;
-      if (tid < TR) {
-        float acc = 0.f;
+  auto wo = [&](int k) { return maybe_round<kBf16>(__ldg(w_out + k), true); };
+
+  // pred: kHeadLanes strided FMA chains over the inputs, then the chains in
+  // order.
+  const float* hin = args.lhs[depth] + (size_t)e * fan_in * ld + col;
+  float part[kHeadLanes];
 #pragma unroll
-        for (int q = 0; q < G; ++q) acc += w_tile[q * TR + tid];
-        const int row = grow0 + tid;
-        const float v_out = acc + args.b[depth][e];
-        const float s_out = softplus(scales_raw[depth]);
-        const float pred = s_out * v_out;
-        float gg;
-        if constexpr (kLik == kNormal) {
-          const float sigma = 0.01f + expf(args.obs_raw[(size_t)e * 3]);
-          const float inv_sigma2 = 1.f / (sigma * sigma);
-          const float* y =
-              group_rows(args.y, args.y_group_stride, args.y_rep, e);
-          const float res = row < n_valid ? pred - y[row] : 0.f;
-          gg = args.lik_scale * inv_sigma2 * res;
-          rr = res * res;
-        } else {
-          const bool valid = row < n_valid;
-          const float* y =
-              group_rows(args.y, args.y_group_stride, args.y_rep, e);
-          const float* obs = args.obs_raw + (size_t)e * 3;
-          float lp, g, dlp_dr, dlp_dp2;
-          count_likelihood_row<kLik>(pred, valid ? y[row] : 0.f, obs[1],
-                                     obs[2], &lp, &g, &dlp_dr, &dlp_dp2);
-          // Selected, not multiplied by the row mask: see the header.
-          gg = valid ? args.lik_scale * g : 0.f;
-          rr = valid ? lp : 0.f;
-          dr = valid ? dlp_dr : 0.f;
-          dp2 = valid ? dlp_dp2 : 0.f;
-        }
-        const float dvo = gg * s_out;
-        // Only the W_out dv_out product below reads the shared copy.
-        dv_out[tid] = kBf16 ? round_bf16(dvo) : dvo;
-        args.dv[depth][(size_t)e * ld + col0 + tid] = dvo;
-        gv = gg * v_out;
-      }
-      rr = warp_sum(rr);
-      gv = warp_sum(gv);
-      if constexpr (kLik != kNormal) {
-        dr = warp_sum(dr);
-        dp2 = warp_sum(dp2);
-      }
-      if (tid == 0) {
-        partials[kPartRR] = rr;
-        partials[kPartGV] = gv;
-        if constexpr (kLik != kNormal) {
-          partials[args.num_partials - 2] = dr;
-          partials[args.num_partials - 1] = dp2;
-        }
-      }
+  for (int q = 0; q < kHeadLanes; ++q) part[q] = 0.f;
+  int k = 0;
+  for (; k + kHeadLanes <= fan_in; k += kHeadLanes) {
+#pragma unroll
+    for (int q = 0; q < kHeadLanes; ++q) {
+      part[q] = fmaf(maybe_round<kBf16>(hin[(k + q) * ld], true), wo(k + q),
+                     part[q]);
     }
   }
-  __syncthreads();
-
-  // --- Backward. dh_depth = W_out dv_out / sqrt(fan_in), into the buffer that
-  // held the output layer's input (already in scratch for the dW sums).
-  float* cur = bufs[depth & 1];
-  {
-    const float rs = args.rsqrt[depth];
-    for (int i = tid; i < fan_in * TR; i += kThreads) {
-      const int k = i / TR, r = i % TR;
-      cur[k * LDH + r] = (__ldg(w_out + k) * dv_out[r]) * rs;
+#pragma unroll
+  for (int q = 0; q < kHeadLanes; ++q) {
+    if (k + q < fan_in) {
+      part[q] = fmaf(maybe_round<kBf16>(hin[(k + q) * ld], true), wo(k + q),
+                     part[q]);
     }
   }
-  __syncthreads();
+  float acc = 0.f;
+#pragma unroll
+  for (int q = 0; q < kHeadLanes; ++q) acc += part[q];
 
-  float dlogit = 0.f;
-  for (int l = depth - 1; l >= 0; --l) {
-    const float s = softplus(scales_raw[l]);
-    const float* zg = args.z[l] + (size_t)e * width * ld + col0;
-    float* dvg = args.dv[l] + (size_t)e * width * ld + col0;
-    float dzz = 0.f;
-    for (int i = tid; i < width * TR; i += kThreads) {
-      const int j = i / TR, r = i % TR;
-      const float z = zg[j * ld + r];
+  const float v_out = acc + args.b[depth][e];
+  const float s_out = softplus(scales_raw[depth]);
+  const float pred = s_out * v_out;
+  const float* y = group_rows(args.y, args.y_group_stride, args.y_rep, e);
+  float row_sums[4] = {0.f, 0.f, 0.f, 0.f};  // rr, gv, dr, dp2
+  float gg;
+  if constexpr (kLik == kNormal) {
+    const float sigma = 0.01f + expf(args.obs_raw[(size_t)e * 3]);
+    const float inv_sigma2 = 1.f / (sigma * sigma);
+    const float res = valid ? pred - y[row] : 0.f;
+    gg = args.lik_scale * inv_sigma2 * res;
+    row_sums[0] = res * res;
+  } else {
+    const float* obs = args.obs_raw + (size_t)e * 3;
+    float lp, g, dlp_dr, dlp_dp2;
+    count_likelihood_row<kLik>(pred, valid ? y[row] : 0.f, obs[1], obs[2],
+                               &lp, &g, &dlp_dr, &dlp_dp2);
+    // Selected, not multiplied by the row mask: see the header.
+    gg = valid ? args.lik_scale * g : 0.f;
+    row_sums[0] = valid ? lp : 0.f;
+    row_sums[2] = valid ? dlp_dr : 0.f;
+    row_sums[3] = valid ? dlp_dp2 : 0.f;
+  }
+  const float dvo = gg * s_out;
+  args.dv[depth][(size_t)e * ld + col] = dvo;
+  row_sums[1] = gg * v_out;
+  tile_sums(row_sums, kLik == kNormal ? 2 : 4, red, sums);
+  if (tid == 0) {
+    float* partials =
+        args.partials + ((size_t)e * args.num_tiles + tile) * args.num_partials;
+    partials[kPartRR] = sums[0];
+    partials[kPartGV] = sums[1];
+    if constexpr (kLik != kNormal) {
+      partials[args.num_partials - 2] = sums[2];
+      partials[args.num_partials - 1] = sums[3];
+    }
+  }
+
+  // dh_depth = W_out dv_out / sqrt(fan_in).
+  const float dvo_r = maybe_round<kBf16>(dvo, true);
+  const float rs = args.rsqrt[depth];
+  if (depth == 0) {
+    float* dh0 = args.dh0 + (size_t)e * fan_in * ld + col;
+    for (int c = 0; c < fan_in; ++c) dh0[c * ld] = (wo(c) * dvo_r) * rs;
+    return;
+  }
+  // The last hidden layer: dv = dh act'(z) s, with the column blocks' sums
+  // of dz z and dh dact/dw.
+  const int l = depth - 1;
+  const float s = softplus(scales_raw[l]);
+  const float* zg = args.z[l] + (size_t)e * fan_in * ld + col;
+  float* dvg = args.dv[l] + (size_t)e * fan_in * ld + col;
+  float* lp = layer_partials(args, e, tile, l);
+  for (int cb = 0; cb < args.col_blocks; ++cb) {
+    float dsum[2] = {0.f, 0.f};  // dz z, dh dact/dw
+    const int c_end = min(fan_in, (cb + 1) * kSgTile);
+    for (int c = cb * kSgTile; c < c_end; ++c) {
+      const float z = zg[c * ld];
       float dact_dz, dact_dw;
       blended_act_grad(z, wgt, &dact_dz, &dact_dw);
-      const float dh = cur[j * LDH + r];
-      dlogit += dh * dact_dw;
+      const float dh = (wo(c) * dvo_r) * rs;
+      dsum[1] += dh * dact_dw;
       const float dz = dh * dact_dz;
-      dzz += dz * z;
-      const float dv = dz * s;
-      // Only the W dv product reads the shared copy; db_l sums the fp32 one.
-      cur[j * LDH + r] = kBf16 ? round_bf16(dv) : dv;
-      dvg[j * ld + r] = dv;
+      dsum[0] += dz * z;
+      dvg[c * ld] = dz * s;
     }
-    dzz = block_sum(dzz, red);
-    if (tid == 0) partials[kPartDzz + l] = dzz;
-    __syncthreads();
-
-    // dh_l = W_l dv_l / sqrt(fan_in_l), W_l of shape (fan_in_l, width).
-    const int fi = l == 0 ? f : width;
-    const float* w = args.w[l] + (size_t)e * fi * width;
-    const float rs = args.rsqrt[l];
-    float* nxt = cur == bufs[0] ? bufs[1] : bufs[0];
-    if (fi <= kNarrowRows) {
-      narrow_matmul<TR>(w, width, fi, cur, nxt, rs);
-    } else {
-      block_matmul<TR, true>(
-          w, width, fi, width, cur, w_tile,
-          [&](int c, int r0, const float (&vals)[RT]) {
-#pragma unroll
-            for (int i = 0; i < RT; ++i) nxt[c * LDH + r0 + i] = vals[i] * rs;
-          });
-    }
-    __syncthreads();
-    cur = nxt;
-  }
-  dlogit = block_sum(dlogit, red);
-  if (tid == 0) partials[kPartLogit] = dlogit;
-
-  // --- Encode backward: cur holds d loss / d h_0 (F x TR).
-  if (tid < 32) {
-    const int d_in = args.num_inputs;
-    const int num_groups = args.num_groups;
-    float dsx[kMaxInputs];
-    float dfs[kMaxGroups];
-    for (int d = 0; d < kMaxInputs; ++d) dsx[d] = 0.f;
-    for (int g = 0; g < kMaxGroups; ++g) dfs[g] = 0.f;
-    float sx[kMaxInputs];
-    if (tid < TR) {
-      const int row = grow0 + tid;
-      const bool valid = row < n_valid;
-      const float* dh0 = cur + tid;
-      const float* fsr = args.fs_raw + (size_t)e * num_groups;
-      // The forward's buffers are overwritten by now: recompute sx, and the
-      // octave chains below, from the raw inputs.
-      scaled_inputs(args, e, row, valid, sx);
-      int k = 0, g = 0;
-      float fs = softplus(fsr[g]);
-      float acc = 0.f;
-      for (int d = 0; d < d_in; ++d) {
-        const float dg = dh0[(k + d) * LDH];
-        acc += dg * sx[d];
-        dsx[d] = dg * fs;
-      }
-      dfs[g++] = acc;
-      k += d_in;
-      for (int i = 0; i < d_in; ++i) {
-        const int deg = args.fourier_degree[i];
-        if (deg <= 0) continue;
-        fs = softplus(fsr[g]);
-        const float theta = kTwoPi * sx[i];
-        float c = cosf(theta), s = sinf(theta);
-        float dtheta = 0.f;
-        acc = 0.f;
-        for (int kk = 0; kk < deg; ++kk) {
-          const float dk = 1.f / (float)(kk + 1);
-          const float dgc = dh0[(k + kk) * LDH];
-          const float dgs = dh0[(k + deg + kk) * LDH];
-          acc += dgc * (c * dk);
-          acc += dgs * (s * dk);
-          const float coef = (float)(1 << kk) / (float)(kk + 1);
-          dtheta += coef * ((dgs * fs) * c - (dgc * fs) * s);
-          const float c2 = 2.f * c * c - 1.f;
-          s = 2.f * s * c;
-          c = c2;
-        }
-        dsx[i] += kTwoPi * dtheta;
-        dfs[g++] = acc;
-        k += 2 * deg;
-      }
-      if (args.num_seasonal > 0) {
-        const float* seasonal = group_rows(
-            args.seasonal, args.seasonal_group_stride, args.seasonal_rep, e);
-        acc = 0.f;
-        for (int q = 0; q < args.num_seasonal; ++q) {
-          const float v =
-              valid ? seasonal[(size_t)q * args.n_rows + row] : 0.f;
-          acc += dh0[(k + q) * LDH] * v;
-        }
-        dfs[g++] = acc;
-        k += args.num_seasonal;
-      }
-      if (args.num_pairs > 0) {
-        fs = softplus(fsr[g]);
-        acc = 0.f;
-        for (int p = 0; p < args.num_pairs; ++p) {
-          const int pa = args.pair_a[p], pb = args.pair_b[p];
-          const float dg = dh0[(k + p) * LDH];
-          acc += dg * (sx[pa] * sx[pb]);
-          const float dgs = dg * fs;
-          dsx[pa] += dgs * sx[pb];
-          dsx[pb] += dgs * sx[pa];
-        }
-        dfs[g++] = acc;
-      }
-      for (int d = 0; d < d_in; ++d) dsx[d] = dsx[d] * (-sx[d]);
-    }
-    float* out = partials + kPartDzz + depth;
-    for (int d = 0; d < d_in; ++d) {
-      const float v = warp_sum(dsx[d]);
-      if (tid == 0) out[d] = v;
-    }
-    for (int g = 0; g < num_groups; ++g) {
-      const float v = warp_sum(dfs[g]);
-      if (tid == 0) out[d_in + g] = v;
+    tile_sums(dsum, 2, red, sums);
+    if (tid == 0) {
+      lp[cb * 2] = sums[0];
+      lp[cb * 2 + 1] = sums[1];
     }
   }
 }
 
+// --- 4. dh = W_l dv_l / sqrt(fan_in_l) (W_l of shape (fan_in_l, width));
+// for l >= 1 the epilogue turns it into dv_{l-1} = dh act'(z_{l-1}) s_{l-1}
+// with the block's sums of dz z and dh dact/dw, for l = 0 it writes dh_0.
+// Grid (fan_in_l / 128, row tiles, members).
+template <bool kRound, bool kFirst>
+__global__ void __launch_bounds__(kThreads, 2)
+    backward_kernel(const TrainArgs args, int l) {
+  __shared__ float red[kWarps];
+  const int e = blockIdx.z;
+  const int width = args.width;
+  const int fan_in = kFirst ? args.num_features : width;
+  const size_t ld = args.ld;
+  const float rs = args.rsqrt[l];
+  const float* w = args.w[l] + (size_t)e * fan_in * width;
+  const float* dv = args.dv[l] + (size_t)e * width * ld;
+  if constexpr (kFirst) {
+    float* dh0 = args.dh0 + (size_t)e * fan_in * ld;
+    simt_gemm<false, kRound>(w, width, false, dv, (int)ld, fan_in, width,
+                             [&](int k, int n, const float (&v)[4]) {
+                               *reinterpret_cast<float4*>(dh0 + k * ld + n) =
+                                   make_float4(v[0] * rs, v[1] * rs, v[2] * rs,
+                                               v[3] * rs);
+                             });
+  } else {
+    const float s =
+        softplus(args.scales_raw[(size_t)e * (args.depth + 1) + l - 1]);
+    const float wgt = sigmoid(args.logit[e]);
+    const float* zg = args.z[l - 1] + (size_t)e * width * ld;
+    float* dvg = args.dv[l - 1] + (size_t)e * width * ld;
+    float dzz = 0.f, dlogit = 0.f;
+    simt_gemm<false, kRound>(
+        w, width, false, dv, (int)ld, fan_in, width,
+        [&](int k, int n, const float (&v)[4]) {
+          const float4 z4 = *reinterpret_cast<const float4*>(zg + k * ld + n);
+          const float z[4] = {z4.x, z4.y, z4.z, z4.w};
+          float out[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float dact_dz, dact_dw;
+            blended_act_grad(z[j], wgt, &dact_dz, &dact_dw);
+            const float dh = v[j] * rs;
+            dlogit += dh * dact_dw;
+            const float dz = dh * dact_dz;
+            dzz += dz * z[j];
+            out[j] = dz * s;
+          }
+          *reinterpret_cast<float4*>(dvg + k * ld + n) =
+              make_float4(out[0], out[1], out[2], out[3]);
+        });
+    dzz = block_sum(dzz, red);
+    dlogit = block_sum(dlogit, red);
+    if (threadIdx.x == 0) {
+      float* lp = layer_partials(args, e, args.tile0 + blockIdx.y, l - 1);
+      lp[blockIdx.x * 2] = dzz;
+      lp[blockIdx.x * 2 + 1] = dlogit;
+    }
+  }
+}
+
+// --- 5. Encode backward: the lsa and fs gradients' rows from dh_0, one
+// thread per (row, member); grid (row tiles, members).
+__global__ void __launch_bounds__(kRowTile)
+    encode_backward_kernel(const TrainArgs args) {
+  __shared__ float red[kMaxSums * kRowWarps];
+  __shared__ float sums[kMaxSums];
+  const int tid = threadIdx.x;
+  const int e = blockIdx.y;
+  const int col = blockIdx.x * kRowTile + tid;
+  const int row = args.row0 + col;
+  const bool valid = row < args.n_valid;
+  const int d_in = args.num_inputs;
+  const int num_groups = args.num_groups;
+  const size_t ld = args.ld;
+  const float* dh0 = args.dh0 + (size_t)e * args.num_features * ld + col;
+  const float* fsr = args.fs_raw + (size_t)e * num_groups;
+  float grads[kMaxSums];  // dsx (then d lsa) per input, then dfs per group
+  float* dsx = grads;
+  float* dfs = grads + d_in;
+  for (int i = 0; i < kMaxSums; ++i) grads[i] = 0.f;
+  float sx[kMaxInputs];
+  // Recompute sx, and the octave chains below, from the raw inputs.
+  scaled_inputs(args, e, row, valid, sx);
+  int k = 0, g = 0;
+  float fs = softplus(fsr[g]);
+  float acc = 0.f;
+  for (int d = 0; d < d_in; ++d) {
+    const float dg = dh0[(k + d) * ld];
+    acc += dg * sx[d];
+    dsx[d] = dg * fs;
+  }
+  dfs[g++] = acc;
+  k += d_in;
+  for (int i = 0; i < d_in; ++i) {
+    const int deg = args.fourier_degree[i];
+    if (deg <= 0) continue;
+    fs = softplus(fsr[g]);
+    const float theta = kTwoPi * sx[i];
+    float c = cosf(theta), s = sinf(theta);
+    float dtheta = 0.f;
+    acc = 0.f;
+    for (int kk = 0; kk < deg; ++kk) {
+      const float dk = 1.f / (float)(kk + 1);
+      const float dgc = dh0[(k + kk) * ld];
+      const float dgs = dh0[(k + deg + kk) * ld];
+      acc += dgc * (c * dk);
+      acc += dgs * (s * dk);
+      const float coef = (float)(1 << kk) / (float)(kk + 1);
+      dtheta += coef * ((dgs * fs) * c - (dgc * fs) * s);
+      const float c2 = 2.f * c * c - 1.f;
+      s = 2.f * s * c;
+      c = c2;
+    }
+    dsx[i] += kTwoPi * dtheta;
+    dfs[g++] = acc;
+    k += 2 * deg;
+  }
+  if (args.num_seasonal > 0) {
+    const float* seasonal = group_rows(
+        args.seasonal, args.seasonal_group_stride, args.seasonal_rep, e);
+    acc = 0.f;
+    for (int q = 0; q < args.num_seasonal; ++q) {
+      const float v = valid ? seasonal[(size_t)q * args.n_rows + row] : 0.f;
+      acc += dh0[(k + q) * ld] * v;
+    }
+    dfs[g++] = acc;
+    k += args.num_seasonal;
+  }
+  if (args.num_pairs > 0) {
+    fs = softplus(fsr[g]);
+    acc = 0.f;
+    for (int p = 0; p < args.num_pairs; ++p) {
+      const int pa = args.pair_a[p], pb = args.pair_b[p];
+      const float dg = dh0[(k + p) * ld];
+      acc += dg * (sx[pa] * sx[pb]);
+      const float dgs = dg * fs;
+      dsx[pa] += dgs * sx[pb];
+      dsx[pb] += dgs * sx[pa];
+    }
+    dfs[g++] = acc;
+  }
+  for (int d = 0; d < d_in; ++d) dsx[d] = dsx[d] * (-sx[d]);
+  tile_sums(grads, d_in + num_groups, red, sums);
+  if (tid == 0) {
+    float* out = args.partials +
+                 ((size_t)e * args.num_tiles + args.tile0 + blockIdx.x) *
+                     args.num_partials +
+                 kPartEnc;
+    for (int i = 0; i < d_in + num_groups; ++i) out[i] = sums[i];
+  }
+}
+
 struct FinalArgs {
-  const float* partials;   // (E, num_tiles, num_partials)
-  const float* fs_raw;     // (E, G)
-  const float* scales_raw; // (E, depth + 1)
-  const float* logit;      // (E,)
-  const float* obs_raw;    // (E, 3)
-  float* losses;           // (E,)
-  float* dlsa;             // (E, D)
-  float* dfs;              // (E, G)
-  float* dscales;          // (E, depth + 1)
-  float* dlogit;           // (E,)
-  float* dobs;             // (E, 3)
+  const float* partials;        // (E, num_tiles, num_partials)
+  const float* layer_partials;  // (E, num_tiles, depth, col_blocks, 2)
+  const float* fs_raw;          // (E, G)
+  const float* scales_raw;      // (E, depth + 1)
+  const float* logit;           // (E,)
+  const float* obs_raw;         // (E, 3)
+  float* losses;                // (E,)
+  float* dlsa;                  // (E, D)
+  float* dfs;                   // (E, G)
+  float* dscales;               // (E, depth + 1)
+  float* dlogit;                // (E,)
+  float* dobs;                  // (E, 3)
   float lik_scale;
-  int likelihood;          // Lik
-  int n_valid;             // rows that count
+  int likelihood;               // Lik
+  int n_valid;                  // rows that count
   int depth;
   int num_inputs;
   int num_groups;
   int num_tiles;
   int num_partials;
+  int col_blocks;
 };
 
 // One block of 32 threads per member: thread p sums partial p over the
-// tiles in order; thread 0 then applies the scalar chain rules.
+// tiles in order, and thread l < depth layer l's two sums over the tiles and
+// their column blocks in order; thread 0 then applies the scalar chain rules.
 __global__ void finalize_kernel(const FinalArgs args) {
   __shared__ float sums[32];
+  __shared__ float dzz[kMaxLayers];
+  __shared__ float dlg[kMaxLayers];
   const int e = blockIdx.x, p = threadIdx.x;
   const int np = args.num_partials;
+  const int depth = args.depth, d_in = args.num_inputs;
   if (p < np) {
     const float* src = args.partials + (size_t)e * args.num_tiles * np + p;
     float acc = 0.f;
     for (int t = 0; t < args.num_tiles; ++t) acc += src[(size_t)t * np];
     sums[p] = acc;
   }
+  if (p < depth) {
+    const int cbs = args.col_blocks;
+    float a = 0.f, b = 0.f;
+    for (int t = 0; t < args.num_tiles; ++t) {
+      const float* lp = args.layer_partials +
+                        (((size_t)e * args.num_tiles + t) * depth + p) * cbs * 2;
+      for (int cb = 0; cb < cbs; ++cb) {
+        a += lp[cb * 2];
+        b += lp[cb * 2 + 1];
+      }
+    }
+    dzz[p] = a;
+    dlg[p] = b;
+  }
   __syncthreads();
   if (p != 0) return;
-  const int depth = args.depth, d_in = args.num_inputs;
   const int num_w = depth + 1;
   const float* obs = args.obs_raw + (size_t)e * 3;
   float* dobs = args.dobs + (size_t)e * 3;
@@ -683,13 +759,15 @@ __global__ void finalize_kernel(const FinalArgs args) {
   }
   const float* raw = args.scales_raw + (size_t)e * num_w;
   float* dscales = args.dscales + (size_t)e * num_w;
+  float logit_sum = 0.f;
   for (int l = 0; l < depth; ++l) {
-    dscales[l] = sums[kPartDzz + l] / softplus(raw[l]) * sigmoid(raw[l]);
+    dscales[l] = dzz[l] / softplus(raw[l]) * sigmoid(raw[l]);
+    logit_sum += dlg[l];
   }
   dscales[depth] = sums[kPartGV] * sigmoid(raw[depth]);
   const float w = sigmoid(args.logit[e]);
-  args.dlogit[e] = sums[kPartLogit] * w * (1.f - w);
-  const float* enc = sums + kPartDzz + depth;
+  args.dlogit[e] = logit_sum * w * (1.f - w);
+  const float* enc = sums + kPartEnc;
   for (int d = 0; d < d_in; ++d) args.dlsa[(size_t)e * d_in + d] = enc[d];
   const float* fsr = args.fs_raw + (size_t)e * args.num_groups;
   for (int g = 0; g < args.num_groups; ++g) {
@@ -697,105 +775,109 @@ __global__ void finalize_kernel(const FinalArgs args) {
   }
 }
 
-int num_partials(int depth, int num_inputs, int num_groups, int likelihood) {
-  return kPartDzz + depth + num_inputs + num_groups +
-         (likelihood == kNormal ? 0 : 2);
+int num_partials(int num_inputs, int num_groups, int likelihood) {
+  return kPartEnc + num_inputs + num_groups + (likelihood == kNormal ? 0 : 2);
 }
+
+int col_blocks(int width) { return (width + kSgTile - 1) / kSgTile; }
 
 // Scratch floats per chunk row and member: lhs_l (F + depth * width), z_l
-// (depth * width), dv_l (depth * width + 1).
+// (depth * width), dv_l (depth * width + 1), dh_0 (F).
 size_t floats_per_row(int num_features, int width, int depth) {
-  return (size_t)num_features + 3 * (size_t)depth * width + 1;
+  return 2 * (size_t)num_features + 3 * (size_t)depth * width + 1;
 }
 
-template <int TR, int kLik, bool kBf16>
-cudaError_t launch_tile(const TrainArgs& args, int tiles, int members,
-                        size_t smem_bytes, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      train_tile_kernel<TR, kLik, kBf16>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes));
-  if (err != cudaSuccess) return err;
-  train_tile_kernel<TR, kLik, kBf16>
-      <<<dim3(tiles, members), kThreads, smem_bytes, stream>>>(args);
-  return cudaGetLastError();
-}
-
-template <int kLik, bool kBf16>
-cudaError_t launch_tile_rows(const TrainArgs& args, int tile_rows, int tiles,
-                             int members, size_t smem_bytes,
-                             cudaStream_t stream) {
-  switch (tile_rows) {
-    case 32:
-      return launch_tile<32, kLik, kBf16>(args, tiles, members, smem_bytes,
-                                          stream);
-    case 16:
-      return launch_tile<16, kLik, kBf16>(args, tiles, members, smem_bytes,
-                                          stream);
-    default:
-      return cudaErrorInvalidValue;
+template <int kLik>
+void launch_head(const TrainArgs& args, bool bf16, dim3 grid,
+                 cudaStream_t stream) {
+  if (bf16) {
+    head_kernel<kLik, true><<<grid, kRowTile, 0, stream>>>(args);
+  } else {
+    head_kernel<kLik, false><<<grid, kRowTile, 0, stream>>>(args);
   }
 }
 
-// The tile kernel of `likelihood` and precision kBf16: TR {32, 16} x
-// likelihood x precision, twelve instantiations.
-template <bool kBf16>
-cudaError_t launch_tile_likelihood(const TrainArgs& args, int likelihood,
-                                   int tile_rows, int tiles, int members,
-                                   size_t smem_bytes, cudaStream_t stream) {
+// One chunk's kernels 1-5 (see the header) over `tiles` row tiles.
+cudaError_t launch_chunk(const TrainArgs& args, int likelihood, bool bf16,
+                         int tiles, int members, cudaStream_t s) {
+  const int depth = args.depth, width = args.width;
+  const dim3 rows(tiles, members);
+  cudaError_t err;
+  encode_kernel<<<rows, kRowTile, 0, s>>>(args);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const dim3 hidden(col_blocks(width), tiles, members);
+  for (int l = 0; l < depth; ++l) {
+    if (bf16) {
+      forward_kernel<true><<<hidden, kThreads, 0, s>>>(args, l);
+    } else {
+      forward_kernel<false><<<hidden, kThreads, 0, s>>>(args, l);
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
   switch (likelihood) {
     case kNormal:
-      return launch_tile_rows<kNormal, kBf16>(args, tile_rows, tiles, members,
-                                              smem_bytes, stream);
+      launch_head<kNormal>(args, bf16, rows, s);
+      break;
     case kNB:
-      return launch_tile_rows<kNB, kBf16>(args, tile_rows, tiles, members,
-                                          smem_bytes, stream);
+      launch_head<kNB>(args, bf16, rows, s);
+      break;
     default:
-      return launch_tile_rows<kZINB, kBf16>(args, tile_rows, tiles, members,
-                                            smem_bytes, stream);
+      launch_head<kZINB>(args, bf16, rows, s);
   }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  for (int l = depth - 1; l >= 1; --l) {
+    if (bf16) {
+      backward_kernel<true, false><<<hidden, kThreads, 0, s>>>(args, l);
+    } else {
+      backward_kernel<false, false><<<hidden, kThreads, 0, s>>>(args, l);
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (depth > 0) {
+    const dim3 first(col_blocks(args.num_features), tiles, members);
+    if (bf16) {
+      backward_kernel<true, true><<<first, kThreads, 0, s>>>(args, 0);
+    } else {
+      backward_kernel<false, true><<<first, kThreads, 0, s>>>(args, 0);
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  encode_backward_kernel<<<rows, kRowTile, 0, s>>>(args);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory of one `train_tile_kernel` block (bytes); the wrapper picks
-// tile_rows with it.
-size_t bnf_fused_train_smem_bytes(int tile_rows, int num_features, int width) {
-  const int kmax = num_features > width ? num_features : width;
-  return (2 * (size_t)kmax * (tile_rows + 4) + (size_t)kKTile * kLdw +
-          tile_rows + kWarps) *
-         sizeof(float);
-}
-
 // Global scratch (bytes) for chunks of `chunk_rows` rows over `n_rows` rows.
 size_t bnf_fused_train_scratch_bytes(int members, int num_features, int width,
                                      int depth, int num_inputs, int num_groups,
-                                     int chunk_rows, int n_rows, int tile_rows,
+                                     int chunk_rows, int n_rows,
                                      int likelihood) {
-  const size_t tiles = (n_rows + tile_rows - 1) / tile_rows;
+  const size_t tiles = (n_rows + kRowTile - 1) / kRowTile;
   return ((size_t)members * chunk_rows *
               floats_per_row(num_features, width, depth) +
           (size_t)members * tiles *
-              num_partials(depth, num_inputs, num_groups, likelihood)) *
+              (num_partials(num_inputs, num_groups, likelihood) +
+               2 * (size_t)depth * col_blocks(width))) *
          sizeof(float);
 }
 
 // Loss and gradients of the training objective under `likelihood` (Lik:
 // 0 NORMAL, 1 NB, 2 ZINB) at `precision` (0 fp32, 1 bf16) on `stream`.
 // Pointers are device pointers to contiguous float32 tensors, except the
-// host arrays `weights`, `biases`, `dweights`, `dbiases`, `weights16` (depth
-// + 1 device pointers; `weights16`, buffers shaped like the weights that
-// receive their bf16-rounded copies, is read only under bf16), `rsqrts`
-// (depth + 1 floats), `fourier_degrees` (num_inputs ints) and `pairs` (2 *
-// num_pairs ints). `x`, `seasonal` and `y` hold one row set per group of
-// `*_rep` members, `*_group_stride` floats apart (stride 0 and rep 1 for a
-// set shared by every member). `scratch` holds
-// bnf_fused_train_scratch_bytes(...) bytes. `n_rows` is the rows' stride;
-// rows at index `n_valid` (0 <= n_valid <= n_rows) and past it count for
-// nothing. Returns the first launch's cudaError_t that is not cudaSuccess,
-// or 0.
+// host arrays `weights`, `biases`, `dweights`, `dbiases` (depth + 1 device
+// pointers), `rsqrts` (depth + 1 floats), `fourier_degrees` (num_inputs
+// ints) and `pairs` (2 * num_pairs ints). `x`, `seasonal` and `y` hold one
+// row set per group of `*_rep` members, `*_group_stride` floats apart
+// (stride 0 and rep 1 for a set shared by every member). `scratch` holds
+// bnf_fused_train_scratch_bytes(...) bytes and is 16-byte aligned;
+// `chunk_rows` is a positive multiple of kRowTile (128), at most 65,535
+// tiles (the GEMMs' gridDim.y).
+// `n_rows` is the rows' stride; rows at index `n_valid` (0 <= n_valid <=
+// n_rows) and past it count for nothing. Returns the first launch's
+// cudaError_t that is not cudaSuccess, or 0.
 int bnf_fused_train(const void* x, const void* seasonal, const void* y,
                     const void* const* weights, const void* const* biases,
                     const void* lsa_eff, const void* fs_raw,
@@ -807,20 +889,19 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
                     const int* pairs, size_t x_group_stride, int x_rep,
                     size_t seasonal_group_stride, int seasonal_rep,
                     size_t y_group_stride, int y_rep, float lik_scale,
-                    int likelihood, int precision,
-                    void* const* weights16, int depth, int members,
+                    int likelihood, int precision, int depth, int members,
                     int num_inputs, int num_seasonal, int num_pairs, int width,
-                    int n_rows, int n_valid, int tile_rows, int chunk_rows,
-                    void* stream) {
+                    int n_rows, int n_valid, int chunk_rows, void* stream) {
   if (depth < 0 || depth + 1 > kMaxLayers || members < 1 || members > 65535 ||
       n_rows < 1 || n_valid < 0 || n_valid > n_rows || num_inputs < 1 ||
-      num_inputs > kMaxInputs ||
-      num_pairs < 0 || num_pairs > kMaxPairs || num_seasonal < 0 ||
-      chunk_rows < tile_rows || chunk_rows % tile_rows != 0 || x_rep < 1 ||
-      members % x_rep != 0 || seasonal_rep < 1 || members % seasonal_rep != 0 ||
-      y_rep < 1 || members % y_rep != 0 || likelihood < kNormal ||
-      likelihood > kZINB || precision < 0 || precision > 1 ||
-      (precision == 1 && weights16 == nullptr)) {
+      num_inputs > kMaxInputs || num_pairs < 0 || num_pairs > kMaxPairs ||
+      num_seasonal < 0 || width < 1 || chunk_rows < kRowTile ||
+      chunk_rows % kRowTile != 0 || chunk_rows / kRowTile > 65535 ||
+      x_rep < 1 || members % x_rep != 0 ||
+      seasonal_rep < 1 || members % seasonal_rep != 0 || y_rep < 1 ||
+      members % y_rep != 0 || likelihood < kNormal || likelihood > kZINB ||
+      precision < 0 || precision > 1 ||
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool bf16 = precision == 1;
@@ -843,7 +924,7 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
     }
   }
   if (depth == 0) width = num_features;
-  const int np = num_partials(depth, num_inputs, num_groups, likelihood);
+  const int np = num_partials(num_inputs, num_groups, likelihood);
   if (np > 32) return static_cast<int>(cudaErrorInvalidValue);
 
   args.x = static_cast<const float*>(x);
@@ -858,6 +939,8 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
   for (int l = 0; l <= depth; ++l) {
     args.w[l] = static_cast<const float*>(weights[l]);
     args.b[l] = static_cast<const float*>(biases[l]);
+    args.w_vec[l] =
+        width % 4 == 0 && reinterpret_cast<uintptr_t>(weights[l]) % 16 == 0;
     args.rsqrt[l] = rsqrts[l];
   }
   args.lsa_eff = static_cast<const float*>(lsa_eff);
@@ -876,11 +959,13 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
   args.n_rows = n_rows;
   args.n_valid = n_valid;
   args.ld = chunk_rows;
-  args.num_tiles = (n_rows + tile_rows - 1) / tile_rows;
+  args.num_tiles = (n_rows + kRowTile - 1) / kRowTile;
   args.num_partials = np;
+  args.col_blocks = col_blocks(width);
 
   // Carve the scratch: lhs_0..lhs_depth, z_0..z_{depth-1}, dv_0..dv_depth,
-  // then the partials.
+  // dh_0, then the partials. Every slice is a multiple of kRowTile floats,
+  // so each stays 16-byte aligned.
   float* p = static_cast<float*>(scratch);
   const size_t rows = (size_t)members * chunk_rows;
   for (int l = 0; l <= depth; ++l) {
@@ -895,38 +980,25 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
     args.dv[l] = p;
     p += rows * (l == depth ? 1 : width);
   }
+  args.dh0 = p;
+  p += rows * num_features;
   args.partials = p;
+  p += (size_t)members * args.num_tiles * np;
+  args.layer_partials = p;
 
-  const size_t smem = bnf_fused_train_smem_bytes(tile_rows, num_features, width);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (bf16) {
-    // The tile kernel reads the rounded copies in place of the weights.
-    for (int l = 0; l <= depth; ++l) {
-      const size_t n = (size_t)members * (l == 0 ? num_features : width) *
-                       (l == depth ? 1 : width);
-      float* out = static_cast<float*>(weights16[l]);
-      const size_t blocks = (n + kThreads - 1) / kThreads;
-      round_bf16_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), kThreads,
-                          0, s>>>(args.w[l], out, n);
-      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-      args.w[l] = out;
-    }
-  }
   // The hidden weight gradients round their operands under bf16 where the
   // TPU kernel does: when dv_l has more than one column (width > 1).
   const bool round_wgrad = bf16 && width > 1;
   for (int row0 = 0; row0 < n_rows; row0 += chunk_rows) {
     const int chunk = n_rows - row0 < chunk_rows ? n_rows - row0 : chunk_rows;
-    const int tiles = (chunk + tile_rows - 1) / tile_rows;
-    const int len = tiles * tile_rows;
+    const int tiles = (chunk + kRowTile - 1) / kRowTile;
+    const int len = tiles * kRowTile;
     const int acc = row0 > 0;
     args.row0 = row0;
-    args.tile0 = row0 / tile_rows;
-    err = bf16 ? launch_tile_likelihood<true>(args, likelihood, tile_rows,
-                                              tiles, members, smem, s)
-               : launch_tile_likelihood<false>(args, likelihood, tile_rows,
-                                               tiles, members, smem, s);
+    args.tile0 = row0 / kRowTile;
+    err = launch_chunk(args, likelihood, bf16, tiles, members, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     int fan_in = num_features;
     for (int l = 0; l < depth; ++l) {
@@ -962,6 +1034,7 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
 
   FinalArgs fin = {};
   fin.partials = args.partials;
+  fin.layer_partials = args.layer_partials;
   fin.fs_raw = args.fs_raw;
   fin.scales_raw = args.scales_raw;
   fin.logit = args.logit;
@@ -980,6 +1053,7 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
   fin.num_groups = num_groups;
   fin.num_tiles = args.num_tiles;
   fin.num_partials = np;
+  fin.col_blocks = args.col_blocks;
   finalize_kernel<<<members, 32, 0, s>>>(fin);
   return static_cast<int>(cudaGetLastError());
 }

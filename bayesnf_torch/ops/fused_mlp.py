@@ -51,11 +51,15 @@ MAX_DEPTH = 8  # kMaxLayers - 1 in the kernel sources.
 MAX_MEMBERS = 65535  # gridDim.y.
 # Opt-in shared memory of one block on sm_90 (227 KB).
 MAX_SHARED_BYTES = 232448
-TILE_ROWS = (32, 16)  # The kernels' instantiations, largest first.
+TILE_ROWS = (32, 16)  # K2/K3's instantiations, largest first.
+# K1's row tile (kRowTile in csrc/fused_train.cu): its chunks are whole tiles,
+# at most gridDim.y of them (its GEMMs' grid).
+TRAIN_ROW_TILE = 128
+MAX_TRAIN_CHUNK_TILES = 65535
 MAX_INPUTS = 8  # kMaxInputs in csrc/fused_train.cu.
 MAX_PAIRS = 32  # kMaxPairs.
-# Per-tile partial sums: 3 + depth + inputs + groups, and for NB and ZINB
-# two more (`num_partials`).
+# K1's per-tile scalar partial sums: 2 + inputs + groups, and for NB and
+# ZINB two more (`num_partials`); its finalize sums one per thread of a warp.
 MAX_PARTIALS = 32
 # The kernel's likelihood codes (`Lik` in csrc/fused_train.cu).
 LIKELIHOOD_CODES = {'NORMAL': 0, 'NB': 1, 'ZINB': 2}
@@ -585,10 +589,11 @@ def _check_call(distribution, precision, n_valid, n):
     )
 
 
-def num_partials(depth, num_inputs, num_groups, distribution) -> int:
-  """Per-tile partial sums of a K1 call: the NORMAL ones, and for NB and
-  ZINB the sums behind the shape and zero-inflation gradients."""
-  return 3 + depth + num_inputs + num_groups + (distribution != 'NORMAL') * 2
+def num_partials(num_inputs, num_groups, distribution) -> int:
+  """Per-tile scalar partial sums of a K1 call: the NORMAL ones, and for NB
+  and ZINB the sums behind the shape and zero-inflation gradients (the
+  layers' sums of dz z and dh dact/dw are kept apart, per column block)."""
+  return 2 + num_inputs + num_groups + (distribution != 'NORMAL') * 2
 
 
 def _feature_layout(fourier_degrees, interactions, num_inputs, num_seasonal):
@@ -669,15 +674,12 @@ def _train_lib() -> ctypes.CDLL:
       ctypes.c_float,  # lik_scale
       i32,  # likelihood code
       i32,  # precision code
-      ptrs,  # buffers for the bf16-rounded weights (precision code 1)
       i32, i32, i32, i32, i32, i32,  # depth, members, inputs, seasonal, pairs, width
-      i32, i32, i32, i32,  # n_rows, n_valid, tile_rows, chunk_rows
+      i32, i32, i32,  # n_rows, n_valid, chunk_rows
       ptr,  # stream
   ]
   lib.bnf_fused_train.restype = ctypes.c_int
-  lib.bnf_fused_train_smem_bytes.argtypes = [i32] * 3
-  lib.bnf_fused_train_smem_bytes.restype = ctypes.c_size_t
-  lib.bnf_fused_train_scratch_bytes.argtypes = [i32] * 10
+  lib.bnf_fused_train_scratch_bytes.argtypes = [i32] * 9
   lib.bnf_fused_train_scratch_bytes.restype = ctypes.c_size_t
   _declare_common(lib)
   return lib
@@ -719,8 +721,8 @@ def check_train_shape(distribution, depth, width, fourier_degrees,
   """Raises ValueError for a model K1 does not take under `distribution`:
   depth above MAX_DEPTH, other than 1 to MAX_INPUTS inputs (one Fourier
   degree each), more than MAX_PAIRS interaction pairs or a pair of unknown
-  inputs, or more per-tile partial sums than MAX_PARTIALS. Its width limit
-  is `pick_train_tile_rows`'.
+  inputs, or more per-tile partial sums than MAX_PARTIALS. Any width fits:
+  K1's tiles do not depend on it.
 
   Returns:
     (width, encoded features F, feature groups G); at depth 0 the width is F.
@@ -740,9 +742,9 @@ def check_train_shape(distribution, depth, width, fourier_degrees,
         f'below {d}, got {interactions}.'
     )
   f, g = _feature_layout(fourier_degrees, interactions, d, num_seasonal)
-  if num_partials(depth, d, g, distribution) > MAX_PARTIALS:
+  if num_partials(d, g, distribution) > MAX_PARTIALS:
     raise ValueError(
-        f'depth {depth}, {d} inputs and {g} feature groups exceed the '
+        f'{d} inputs and {g} feature groups exceed the '
         f"kernel's {MAX_PARTIALS} per-tile partial sums under the "
         f'{distribution} likelihood.'
     )
@@ -808,49 +810,33 @@ def _check_train_inputs(
   return width, f, g
 
 
-def pick_train_tile_rows(num_features: int, width: int, lib=None) -> int:
-  """Rows per `fused_train` tile block: the largest instantiated tile whose
-  two activation buffers fit in shared memory.
-
-  Raises:
-    ValueError: if even the smallest tile does not fit in shared memory.
-  """
-  fn = (lib or _train_lib()).bnf_fused_train_smem_bytes
-  for tile_rows in TILE_ROWS:
-    if fn(tile_rows, num_features, width) <= MAX_SHARED_BYTES:
-      return tile_rows
-  raise ValueError(
-      f'fused_train: width {width} with {num_features} input features does '
-      f'not fit a {TILE_ROWS[-1]}-row tile in {MAX_SHARED_BYTES} bytes of '
-      'shared memory.'
-  )
-
-
 def _launch_fused_train(
     lib, stream, dims, depth, lik_scale, input_scales, fourier_degrees,
     interactions, x_t, seasonal_t, weights, biases, lsa, fs_raw, scales_raw,
     logit, obs_raw, y, distribution, precision='f32', n_valid=None,
 ):
-  """Allocates the outputs and the scratch (and under 'bf16' the buffers of
-  the rounded weights), and runs one K1 call of `lib` on `stream`; `dims` is
-  what `_check_train_inputs` returned for these inputs. Rows at index
-  `n_valid` (None: n) and past it count for nothing."""
+  """Allocates the outputs and the scratch, and runs one K1 call of `lib` on
+  `stream`; `dims` is what `_check_train_inputs` returned for these inputs.
+  Rows at index `n_valid` (None: n) and past it count for nothing."""
   width, f, g = dims
   d, n = x_t.shape[-2:]
   e = weights[0].shape[0]
   s2 = seasonal_t.shape[-2]
   layout = _input_layout(e, x_t, seasonal_t, y)
   dev = x_t.device
-  tile_rows = pick_train_tile_rows(f, width, lib)
+  tile = TRAIN_ROW_TILE
   likelihood = LIKELIHOOD_CODES[distribution]
   scratch_bytes = functools.partial(
       lib.bnf_fused_train_scratch_bytes, e, f, width, depth, d, g)
-  # Rows per chunk: as many whole tiles as the scratch budget holds.
-  per_row = scratch_bytes(1, 0, tile_rows, likelihood)
-  chunk_rows = max(1, TRAIN_SCRATCH_BYTES // per_row // tile_rows) * tile_rows
-  chunk_rows = min(chunk_rows, -(-n // tile_rows) * tile_rows)
+  # Rows per chunk: as many whole tiles as the scratch budget holds. It does
+  # not depend on n beyond n's own tiles, so rows past n_valid move no chunk
+  # boundary.
+  per_row = scratch_bytes(1, 0, likelihood)
+  tiles = min(max(1, TRAIN_SCRATCH_BYTES // per_row // tile),
+              MAX_TRAIN_CHUNK_TILES)
+  chunk_rows = min(tiles * tile, -(-n // tile) * tile)
   scratch = torch.empty(
-      scratch_bytes(chunk_rows, n, tile_rows, likelihood) // 4,
+      scratch_bytes(chunk_rows, n, likelihood) // 4,
       dtype=torch.float32,
       device=dev)
   # The input scales fold into the learned log scale (as the TPU kernel
@@ -868,10 +854,6 @@ def _launch_fused_train(
       dobs=torch.empty_like(obs_raw),
   )
   pairs = [int(i) for pair in interactions for i in pair]
-  code = PRECISION_CODES[precision]
-  # Under 'bf16' the kernel writes the rounded weights here (held until the
-  # call returns; later allocations on the stream are ordered after it).
-  weights16 = [torch.empty_like(w) for w in weights] if code else None
   err = lib.bnf_fused_train(
       x_t.data_ptr(), seasonal_t.data_ptr(), y.data_ptr(),
       _ptrs(weights), _ptrs(biases),
@@ -885,11 +867,9 @@ def _launch_fused_train(
       (ctypes.c_int * d)(*[int(k) for k in fourier_degrees]),
       (ctypes.c_int * max(1, len(pairs)))(*pairs),
       *[v for rep, stride in layout for v in (stride, rep)],
-      float(lik_scale), likelihood, code,
-      _ptrs(weights16) if code else None, depth, e, d, s2,
-      len(interactions),
-      width, n, n if n_valid is None else int(n_valid), tile_rows,
-      chunk_rows, stream,
+      float(lik_scale), likelihood, PRECISION_CODES[precision], depth, e, d,
+      s2, len(interactions), width, n,
+      n if n_valid is None else int(n_valid), chunk_rows, stream,
   )
   _raise_on(err, lib, 'fused_train')
   return (out['losses'], out['dlsa'], out['dfs'], out['dweights'],
@@ -961,8 +941,7 @@ def fused_train(
     ValueError: for an unknown likelihood or precision, an `n_valid` outside
       [0, N], a data input whose leading dim does not divide the member
       count, and on CUDA
-      for shapes, dtypes, devices or layouts the kernel does not take, or a
-      width whose tile does not fit in shared memory.
+      for shapes, dtypes, devices or layouts the kernel does not take.
     RuntimeError: if the kernel fails to build or to launch.
   """
   _check_call(distribution, precision, n_valid, x_t.shape[-1])

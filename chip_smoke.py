@@ -25,15 +25,18 @@ CUDA toolkit (nvcc). It imports nothing of JAX. Phases, one line each:
    one.
 3t. Hold K1 against its plain PyTorch version (autograd) on the card: the
    loss and every gradient, at the training path's shapes (64 members,
-   inputs (3, N), 16 seasonal rows, F = 49, width 512, depth 2, N = 8192)
-   and at a ragged N with width 256, depths 1 and 3, and width 1024 (16-row
-   tiles); then with grouped inputs at the VI path's shape (80 kernel
-   members = 16 groups of 5, each group its own 3,500 rows) and per-member
+   inputs (3, N), 16 seasonal rows, F = 49, width 512, depth 2, N = 8192;
+   there also two identical calls bit for bit equal, and one line that
+   breaks a call down into its kernels' ms and TFLOP/s by torch.profiler)
+   and at a ragged N with width 256, depths 1 and 3, and width 1024; then
+   with grouped inputs at the VI path's shape (80 kernel members = 16
+   groups of 5, each group its own 3,500 rows) and per-member
    inputs (64 members, a ragged 3,497 rows, width 256); then the NB and
    ZINB likelihoods (count targets) at the main and the grouped shape, held
    to the JAX package's count bounds; then precision 'bf16' (the bf16
-   instantiations of the tile kernel and the weight-gradient GEMM) at the
-   main shape under each likelihood, the grouped shape and width 1024, each
+   instantiations of the layer-wise GEMMs, the head kernel and the
+   weight-gradient GEMM, with a breakdown line too) at the main shape under
+   each likelihood, the grouped shape and width 1024, each
    held to the plain 'bf16' version and to the plain fp32 one, and 'highest'
    bit for bit equal to 'f32'; then the valid-row count (stage 4) at the
    main shape under each likelihood and at 'bf16': 13 junk rows appended
@@ -108,6 +111,7 @@ import concurrent.futures
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -116,6 +120,7 @@ import time
 import numpy as np
 import pandas as pd
 import torch
+import torch.profiler
 
 import bayesnf_torch
 from bayesnf_torch.inference import map as map_lib
@@ -580,11 +585,16 @@ def check_train_kernel(seed):
     assert bool((got[-1][:, unused] == 0).all()), name
     extra = {}
     if name == 'main':
-      # 'highest' is the fp32 kernel, bit for bit.
+      # 'highest' is the fp32 kernel, bit for bit, and a second identical
+      # call repeats the first bit for bit (fixed orders, no atomics).
       highest = fused_mlp.fused_train(**args, precision='highest')
       assert all(torch.equal(a, b) for (_, a), (_, b) in zip(
           train_outputs(highest, depth), train_outputs(got, depth)))
       extra['highest'] = 'bit-equal'
+      again = fused_mlp.fused_train(**args, precision=precision)
+      assert all(torch.equal(a, b) for (_, a), (_, b) in zip(
+          train_outputs(again, depth), train_outputs(got, depth)))
+      extra['repeat'] = 'bit-equal'
     if bf16:
       extra['vs_f32_worst_leaf_rel'] = f'{f32_rel:.3e}'
     ms = cuda_ms(lambda: fused_mlp.fused_train(**args, precision=precision),
@@ -597,7 +607,6 @@ def check_train_kernel(seed):
           precision=precision, members=members, rows=n, width=width,
           depth=depth, input_groups=groups or 'shared',
           rep=members // groups if groups else members,
-          tile_rows=fused_mlp.pick_train_tile_rows(49, width),
           max_abs_err=f'{max_abs:.3e}',
           worst_leaf=f'{worst}:{leaf_rel[worst]:.3e}',
           loss_rel_err=f'{leaf_rel["losses"]:.3e}', **extra,
@@ -605,8 +614,67 @@ def check_train_kernel(seed):
           bound_ms=f'{bound[0]:.4f}')
     if name.startswith(('main', 'grouped')):
       result[name] = (max_abs, ms, plain_ms, bound)
+    if name in ('main', 'main-bf16'):
+      k1_breakdown(args, name, precision)
   result.update(check_n_valid(seed))
   return result
+
+
+# K1's kernels (`csrc/fused_train.cu`), in launch order within a chunk.
+K1_KERNELS = ('encode_kernel', 'forward_kernel', 'head_kernel',
+              'backward_kernel', 'encode_backward_kernel', 'wgrad_kernel',
+              'rowdot_kernel', 'finalize_kernel')
+
+
+def k1_kernel_flops(args):
+  """Multiply-adds x 2 of each of K1's kernels at `args` (none for the
+  encode, encode-backward and finalize kernels, which do no products)."""
+  weights = args['weights']
+  e, f, width = weights[0].shape
+  depth = len(weights) - 1
+  rows = e * args['x_t'].shape[-1]
+  hidden = f * width + (depth - 1) * width * width if depth else 0
+  return {'forward_kernel': 2 * rows * hidden,
+          'backward_kernel': 2 * rows * hidden,
+          'wgrad_kernel': 2 * rows * hidden,
+          # pred's dot product and W_out dv_out.
+          'head_kernel': 4 * rows * weights[-1].shape[1],
+          # dW_out's dot products and the bias sums.
+          'rowdot_kernel': rows * (2 * weights[-1].shape[1] + depth * width
+                                   + 1)}
+
+
+def k1_breakdown(args, case, precision):
+  """Phase 3t's breakdown of one K1 call at `args`: each kernel's device
+  ms (torch.profiler, summed over its launches) and TFLOP/s."""
+  fused_mlp.fused_train(**args, precision=precision)
+  torch.cuda.synchronize()
+  with torch.profiler.profile(
+      activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    fused_mlp.fused_train(**args, precision=precision)
+    torch.cuda.synchronize()
+  ms, launches = {}, {}
+  for evt in prof.key_averages():
+    us = getattr(evt, 'device_time_total', None)
+    if us is None:
+      us = evt.cuda_time_total
+    found = re.search(r'(\w+_kernel)[<(]', evt.key)
+    kind = found.group(1) if found and found.group(1) in K1_KERNELS else (
+        'other')
+    ms[kind] = ms.get(kind, 0.0) + us / 1e3
+    launches[kind] = launches.get(kind, 0) + evt.count
+  missing = [k for k in K1_KERNELS if ms.get(k, 0.0) <= 0]
+  assert not missing, (missing, ms)
+  flops = k1_kernel_flops(args)
+  fields = {}
+  for kind in (*K1_KERNELS, 'other'):
+    if kind not in ms:
+      continue
+    rate = (f'/{flops[kind] / ms[kind] / 1e9:.2f}TFLOP/s' if kind in flops
+            else '')
+    fields[kind] = f'{ms[kind]:.4f}ms/{launches[kind]}x{rate}'
+  fields['total_ms'] = f'{sum(ms.values()):.4f}'
+  phase('3t K1-breakdown', case=case, **fields)
 
 
 # Rows past n_valid in the stage-4 cases, and what they hold.
@@ -1601,8 +1669,9 @@ def main(argv=None):
                      + field_launches['fused_train.launches']),
           'NB': count_k1_launches, 'ZINB': count_vi_k1_launches},
   }, {
-      # K1 at precision 'bf16': the bf16 instantiations of the tile kernel
-      # and the weight-gradient GEMM; bound at the tensor cores' bf16 rate.
+      # K1 at precision 'bf16': the bf16 instantiations of the layer-wise
+      # GEMMs, the head kernel and the weight-gradient GEMM; bound at the
+      # tensor cores' bf16 rate.
       'name': 'fused_train_bf16',
       'route': 'cuda',
       'source': 'bayesnf_torch/ops/csrc/fused_train.cu',

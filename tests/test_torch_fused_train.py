@@ -450,27 +450,24 @@ def test_scatter_matches_jax():
 
 
 class _FakeTrainLib:
-  """Stands in for the compiled K1 library on the CPU: the C side's
-  shared-memory and scratch formulas, and a launch that records its
-  arguments and returns `err`."""
+  """Stands in for the compiled K1 library on the CPU: the C side's scratch
+  formula (per chunk row and member lhs_l, z_l, dv_l and dh_0; per 128-row
+  tile the scalar partials, and per hidden layer and 128-column block two
+  sums), and a launch that records its arguments and returns `err`."""
 
   def __init__(self, err=0):
     self.err = err
     self.calls = []
 
   @staticmethod
-  def bnf_fused_train_smem_bytes(tile_rows, num_features, width):
-    return (2 * max(num_features, width) * (tile_rows + 4) + 8 * 516
-            + tile_rows + 8) * 4
-
-  @staticmethod
   def bnf_fused_train_scratch_bytes(members, num_features, width, depth,
                                     num_inputs, num_groups, chunk_rows,
-                                    n_rows, tile_rows, likelihood=0):
-    tiles = -(-n_rows // tile_rows)
-    partials = 3 + depth + num_inputs + num_groups + 2 * (likelihood > 0)
-    return (members * chunk_rows * (num_features + 3 * depth * width + 1)
-            + members * tiles * partials) * 4
+                                    n_rows, likelihood=0):
+    tiles = -(-n_rows // 128)
+    partials = 2 + num_inputs + num_groups + 2 * (likelihood > 0)
+    layer_sums = 2 * depth * -(-width // 128)
+    return (members * chunk_rows * (2 * num_features + 3 * depth * width + 1)
+            + members * tiles * (partials + layer_sums)) * 4
 
   def bnf_fused_train(self, *args):
     self.calls.append(args)
@@ -489,25 +486,93 @@ def test_launch_plans_tiles_chunks_and_outputs(monkeypatch):
       lib, 'stream', dims, **args, distribution='NORMAL')
   lib = _FakeTrainLib()
   outs = launch(lib)
-  *_, tile_rows, chunk_rows, stream = lib.calls[-1]
-  # All 70 rows fit the default budget: one chunk of whole tiles.
-  assert (tile_rows, chunk_rows, stream) == (32, 96, 'stream')
+  *_, n_valid, chunk_rows, stream = lib.calls[-1]
+  # All 70 rows fit the default budget: one chunk of one 128-row tile.
+  assert (n_valid, chunk_rows, stream) == (N_ROWS, 128, 'stream')
+  assert t_fused.TRAIN_ROW_TILE == 128
   np.testing.assert_allclose(list(lib.calls[-1][19]),
                              [f ** -0.5, 0.25, 0.25], rtol=1e-7)
   assert [o.shape for o in outs[3]] == [w.shape for w in args['weights']]
   assert outs[2].shape == args['fs_raw'].shape
-  # A budget of 40 rows' scratch gives one 32-row tile per chunk.
-  per_row = lib.bnf_fused_train_scratch_bytes(3, f, 16, 2, 3, 6, 1, 0, 32)
-  monkeypatch.setattr(t_fused, 'TRAIN_SCRATCH_BYTES', 40 * per_row)
-  launch(lib)
-  assert lib.calls[-1][-2] == 32
+  # A budget of 200 rows' scratch, or of less than one tile, gives one
+  # 128-row tile per chunk.
+  per_row = lib.bnf_fused_train_scratch_bytes(3, f, 16, 2, 3, 6, 1, 0)
+  for budget_rows in (200, 40):
+    monkeypatch.setattr(t_fused, 'TRAIN_SCRATCH_BYTES', budget_rows * per_row)
+    launch(lib)
+    assert lib.calls[-1][-2] == 128
+  # A chunk holds at most MAX_TRAIN_CHUNK_TILES tiles (the GEMMs' grid):
+  # 300 rows under an ample budget make one 384-row chunk, or 256-row ones.
+  longer = dict(args, **{k: args[k].repeat(*([1] * (args[k].ndim - 1)), 5)[
+      ..., :300].contiguous() for k in ('x_t', 'seasonal_t', 'y')})
+  monkeypatch.setattr(t_fused, 'TRAIN_SCRATCH_BYTES', 1 << 40)
+  for cap, chunk in ((65535, 384), (2, 256)):
+    monkeypatch.setattr(t_fused, 'MAX_TRAIN_CHUNK_TILES', cap)
+    t_fused._launch_fused_train(  # pylint: disable=protected-access
+        lib, 'stream', _checked(longer), **longer, distribution='NORMAL')
+    assert lib.calls[-1][-2] == chunk
   with pytest.raises(RuntimeError, match='error 7'):
     launch(_FakeTrainLib(err=7))
-  with pytest.raises(ValueError, match='shared memory'):
-    t_fused.pick_train_tile_rows(f, 4096, lib)
-  assert t_fused.pick_train_tile_rows(f, 1024, lib) == 16
   # Shared inputs: group stride 0 and one member per group.
   assert lib.calls[0][22:28] == (0, 1, 0, 1, 0, 1)
+
+
+def test_chunks_ignore_rows_past_n_valid(monkeypatch):
+  # Rows past n_valid move no chunk boundary while the rows exceed the
+  # budget: 256 valid rows alone, and with 13 junk rows appended, run in
+  # the same 128-row chunks (the junk rows in a chunk of their own).
+  _, _, args = _torch_args('depth2-seasonal-interactions')
+  width, f, g = _checked(args)
+  lib = _FakeTrainLib()
+  per_row = lib.bnf_fused_train_scratch_bytes(3, f, width, 2, 3, g, 1, 0)
+  monkeypatch.setattr(t_fused, 'TRAIN_SCRATCH_BYTES', 200 * per_row)
+
+  def rows(t, n):
+    return t.repeat(*([1] * (t.ndim - 1)), 4)[..., :n].contiguous()
+
+  chunks = []
+  for n in (256, 256 + 13):
+    longer = dict(args, x_t=rows(args['x_t'], n),
+                  seasonal_t=rows(args['seasonal_t'], n), y=rows(args['y'], n))
+    t_fused._launch_fused_train(  # pylint: disable=protected-access
+        lib, 'stream', _checked(longer), **longer, distribution='NORMAL',
+        n_valid=256)
+    chunks.append(lib.calls[-1][-2])
+    assert lib.calls[-1][-3] == 256  # n_valid
+  assert chunks == [128, 128]
+
+
+def test_k1_takes_any_width_k2_does_not(monkeypatch):
+  # K1's tiles do not depend on the width: 'auto' picks 'kernel' for a
+  # width-2048 fit from the shapes alone (no library is built here), while
+  # K2's shared-memory limit (its forward library's formula, faked) still
+  # refuses that width for a predict.
+  from bayesnf_torch.inference import backends as t_backends  # pylint: disable=g-import-not-at-top
+
+  class _FakeForwardLib:
+
+    @staticmethod
+    def bnf_fused_mlp_fwd_smem_bytes(tile_rows, num_features, width):
+      return (2 * max(num_features, width) * (tile_rows + 4) + 8 * 512) * 4
+
+  monkeypatch.setattr(t_fused, '_lib', lambda: _FakeForwardLib())
+  wide = t_field.FieldConfig.create(
+      width=2048, depth=2, input_scales=[50.0, 1.0, 1.0],
+      fourier_degrees=[5, 5, 5], interactions=[],
+      seasonality_periods=[24.0, 168.0], num_seasonal_harmonics=[4, 4])
+  for distribution in ('NORMAL', 'NB', 'ZINB'):
+    assert t_backends.kernel_takes(wide, distribution)
+    assert t_backends.resolve_backend('auto', 'cuda', wide,
+                                      distribution) == 'kernel'
+  assert t_fused.check_train_shape(
+      'NORMAL', 2, 2048, wide.fourier_degrees, (), 16) == (2048, 49, 5)
+  assert not t_backends.kernel_takes(wide)
+  assert t_backends.resolve_backend('auto', 'cuda', wide) == 'torch'
+  narrow = t_field.FieldConfig.create(**dict(
+      width=512, depth=2, input_scales=[50.0, 1.0, 1.0],
+      fourier_degrees=[5, 5, 5], interactions=[],
+      seasonality_periods=[24.0, 168.0], num_seasonal_harmonics=[4, 4]))
+  assert t_backends.kernel_takes(narrow)
 
 
 @pytest.mark.parametrize('layout', sorted(LAYOUTS))
@@ -535,12 +600,12 @@ def test_launch_passes_the_likelihood_and_its_partials(distribution):
   assert lib.calls[-1][28:30] == (LIK_SCALE, code)
   extra = 0 if distribution == 'NORMAL' else 2
   f, g = dims[1:]
-  assert t_fused.num_partials(2, 3, g, distribution) == 3 + 2 + 3 + g + extra
-  # The largest field the kernel takes (depth 8, 8 inputs with Fourier
-  # features, seasonal rows and interactions: 11 groups) fits the per-tile
-  # partials under every likelihood.
+  assert t_fused.num_partials(3, g, distribution) == 2 + 3 + g + extra
+  # The largest field the kernel takes (8 inputs with Fourier features,
+  # seasonal rows and interactions: 11 groups; the depth adds none) fits
+  # the per-tile partials under every likelihood.
   assert t_fused.num_partials(
-      t_fused.MAX_DEPTH, t_fused.MAX_INPUTS, t_fused.MAX_INPUTS + 3,
+      t_fused.MAX_INPUTS, t_fused.MAX_INPUTS + 3,
       distribution) <= t_fused.MAX_PARTIALS
   assert f == config.encoded_dim
 
@@ -668,12 +733,9 @@ def test_launch_passes_the_precision(precision):
   t_fused._launch_fused_train(  # pylint: disable=protected-access
       lib, 'stream', _checked(args), **args, distribution='NORMAL',
       precision=precision)
-  code, weights16 = lib.calls[-1][30:32]
+  code, depth = lib.calls[-1][30:32]
   assert code == t_fused.PRECISION_CODES[precision] == (precision == 'bf16')
-  if precision != 'bf16':
-    assert weights16 is None
-  else:
-    # One buffer per weight, none of them the weight itself.
-    assert len(weights16) == config.depth + 1
-    assert not {int(p) for p in weights16} & {
-        w.data_ptr() for w in args['weights']}
+  # The kernel rounds where it stages each product's operands: the call
+  # passes no buffers for rounded weights at any precision.
+  assert depth == config.depth
+  assert len(lib.calls[-1]) == 41
