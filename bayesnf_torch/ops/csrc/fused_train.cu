@@ -88,13 +88,34 @@
 // output layer's included) and the hidden weight gradients. The output
 // layer's weight gradient, the bias gradients and every scalar partial stay
 // fp32, as do the parameters, the encode, the activations and the
-// likelihood; the scratch holds fp32 values. Each operand is rounded where a
-// product stages it: by the GEMM engine (kRound) for the hidden forwards and
-// W dv products, by `wgrad_kernel<true>` for the hidden weight gradients,
-// and by the head kernel, which reads its operands from registers, for the
-// output layer's forward and its W_out dv_out. The FMAs stay on the fp32 pipe,
-// so the reduction orders, and bitwise reproducibility, are those of the fp32
-// kernels. wgmma with bf16 operands is later work.
+// likelihood (and a hidden weight gradient of one column, width 1, summed by
+// `rowdot_kernel` as the output layer's is).
+//
+// The three hidden-GEMM families then run on the tensor cores, in
+// `wgmma_gemm.cuh`'s core (TMA into 3 mbarrier stages, 128-byte swizzle,
+// wgmma m64n128k16 with fp32 accumulators): `tc_forward_kernel`,
+// `tc_backward_kernel` and `tc_wgrad_kernel`, on the same 128 x 128 tiles,
+// grids and partials as the fp32 kernels. Their operands are bf16 in device
+// memory: the call copies each hidden W_l rounded, its rows padded to a
+// multiple of 8 columns for TMA's 16-byte strides (`weights_bf16_kernel`);
+// the encode and the forward epilogues write a bf16 twin of each lhs_l
+// (l < depth) beside the fp32 one, and the head and the backward epilogues
+// one of each dv_l. The fp32 copies stay for their fp32 readers: the head,
+// the backward epilogue's z, `rowdot_kernel`. One 3-D tensor map per operand
+// (rows or columns, features, members) serves every member and chunk. The
+// head kernel rounds the output layer's operands in registers.
+//
+// What bounds 'bf16' now: at the main shape the three families are 905
+// GFLOP, ~0.9 ms at the tensor cores' peak, while the scratch their
+// epilogues read and write in fp32 (z, lhs, dv and the twins) is ~11 GB,
+// ~3 ms at 3.35 TB/s, so the call is bound by those bytes and by the
+// epilogues' elementwise work between the products. The design keeps every
+// product on the tensor cores with its operands fetched by TMA and fuses the
+// elementwise work into the epilogues; two blocks an SM overlap one tile's
+// epilogue with another tile's products (kTcBlocksPerSm). Overlapping them
+// within a block (warp specialisation, persistence) is later work.
+// Each output is still summed over K in a fixed order of k16 steps within
+// one block, so two identical calls are bit-equal.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,6 +124,7 @@
 
 #include "field_mlp.cuh"
 #include "simt_gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -158,6 +180,8 @@ struct TrainArgs {
   float* z[kMaxLayers];            // (E, width, ld), l < depth
   float* dv[kMaxLayers];           // (E, fan_out_l, ld)
   float* dh0;                      // (E, F, ld)
+  __nv_bfloat16* lhs_bf[kMaxLayers];  // 'bf16': lhs_l's twin, l < depth
+  __nv_bfloat16* dv_bf[kMaxLayers];   // 'bf16': dv_l's twin, l < depth
   float* partials;                 // (E, num_tiles, num_partials)
   float* layer_partials;           // (E, num_tiles, depth, col_blocks, 2)
   float rsqrt[kMaxLayers];         // 1/sqrt(fan_in_l), rounded from double
@@ -286,10 +310,11 @@ __device__ __forceinline__ void scaled_inputs(const TrainArgs& args, int e,
   }
 }
 
-// Encodes one row: its encoded features times `rs` go to h0[k * ldh].
+// Encodes one row: `emit(k, v)` receives encoded feature k times `rs`.
+template <typename Emit>
 __device__ __forceinline__ void encode_row(const TrainArgs& args, int e,
-                                           int row, bool valid, float* h0,
-                                           int ldh, float rs) {
+                                           int row, bool valid, float rs,
+                                           Emit emit) {
   const int d_in = args.num_inputs;
   const int n = args.n_rows;
   const float* fsr = args.fs_raw + (size_t)e * args.num_groups;
@@ -297,7 +322,7 @@ __device__ __forceinline__ void encode_row(const TrainArgs& args, int e,
   scaled_inputs(args, e, row, valid, sx);
   int k = 0, g = 0;
   float fs = softplus(fsr[g++]);
-  for (int d = 0; d < d_in; ++d) h0[(k + d) * ldh] = (sx[d] * fs) * rs;
+  for (int d = 0; d < d_in; ++d) emit(k + d, (sx[d] * fs) * rs);
   k += d_in;
   for (int i = 0; i < d_in; ++i) {
     const int deg = args.fourier_degree[i];
@@ -307,8 +332,8 @@ __device__ __forceinline__ void encode_row(const TrainArgs& args, int e,
     float c = cosf(theta), s = sinf(theta);
     for (int kk = 0; kk < deg; ++kk) {
       const float dk = 1.f / (float)(kk + 1);
-      h0[(k + kk) * ldh] = ((c * dk) * fs) * rs;
-      h0[(k + deg + kk) * ldh] = ((s * dk) * fs) * rs;
+      emit(k + kk, ((c * dk) * fs) * rs);
+      emit(k + deg + kk, ((s * dk) * fs) * rs);
       const float c2 = 2.f * c * c - 1.f;
       s = 2.f * s * c;
       c = c2;
@@ -321,14 +346,14 @@ __device__ __forceinline__ void encode_row(const TrainArgs& args, int e,
     fs = softplus(fsr[g++]);
     for (int q = 0; q < args.num_seasonal; ++q) {
       const float v = valid ? seasonal[(size_t)q * n + row] : 0.f;
-      h0[(k + q) * ldh] = (v * fs) * rs;
+      emit(k + q, (v * fs) * rs);
     }
     k += args.num_seasonal;
   }
   if (args.num_pairs > 0) {
     fs = softplus(fsr[g++]);
     for (int p = 0; p < args.num_pairs; ++p) {
-      h0[(k + p) * ldh] = ((sx[args.pair_a[p]] * sx[args.pair_b[p]]) * fs) * rs;
+      emit(k + p, ((sx[args.pair_a[p]] * sx[args.pair_b[p]]) * fs) * rs);
     }
   }
 }
@@ -363,21 +388,28 @@ __device__ __forceinline__ float* layer_partials(const TrainArgs& args, int e,
              args.col_blocks * 2;
 }
 
-// --- 1. Encode: lhs_0 = h_0 / sqrt(F), one thread per (row, member); grid
-// (row tiles of the chunk, members).
+// --- 1. Encode: lhs_0 = h_0 / sqrt(F), one thread per (row, member), and
+// under kBf16 its twin (when a hidden layer reads it); grid (row tiles of
+// the chunk, members).
+template <bool kBf16>
 __global__ void __launch_bounds__(kRowTile) encode_kernel(const TrainArgs args) {
   const int e = blockIdx.y;
   const int col = blockIdx.x * kRowTile + threadIdx.x;
   const int row = args.row0 + col;
-  encode_row(args, e, row, row < args.n_valid,
-             args.lhs[0] + (size_t)e * args.num_features * args.ld + col,
-             args.ld, args.rsqrt[0]);
+  const size_t off = (size_t)e * args.num_features * args.ld + col;
+  float* h0 = args.lhs[0] + off;
+  __nv_bfloat16* h0_bf =
+      kBf16 && args.depth > 0 ? args.lhs_bf[0] + off : nullptr;
+  encode_row(args, e, row, row < args.n_valid, args.rsqrt[0],
+             [&](int k, float v) {
+               h0[k * args.ld] = v;
+               if (h0_bf != nullptr) h0_bf[k * args.ld] = __float2bfloat16_rn(v);
+             });
 }
 
 // --- 2. Hidden layer l's forward: z_l = s_l (W_l^T lhs_l + b_l) and
 // lhs_{l+1} = act(z_l) / sqrt(width); grid (width / 128, row tiles,
 // members).
-template <bool kRound>
 __global__ void __launch_bounds__(kThreads, 2)
     forward_kernel(const TrainArgs args, int l) {
   const int e = blockIdx.z;
@@ -390,7 +422,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float rs_next = args.rsqrt[l + 1];
   float* zg = args.z[l] + (size_t)e * width * ld;
   float* out = args.lhs[l + 1] + (size_t)e * width * ld;
-  simt_gemm<true, kRound>(
+  simt_gemm<true>(
       args.w[l] + (size_t)e * fan_in * width, width, args.w_vec[l],
       args.lhs[l] + (size_t)e * fan_in * ld, (int)ld, width, fan_in,
       [&](int c, int n, const float (&v)[4]) {
@@ -406,6 +438,45 @@ __global__ void __launch_bounds__(kThreads, 2)
         *reinterpret_cast<float4*>(out + c * ld + n) =
             make_float4(h[0], h[1], h[2], h[3]);
       });
+}
+
+// --- 2'. The same on the tensor cores ('bf16'): A = W_l's bf16 copy
+// (MN-major), B = lhs_l's twin (MN-major); the epilogue also writes
+// lhs_{l+1}'s twin when layer l + 1 is hidden. Grid as forward_kernel's.
+__global__ void __launch_bounds__(kTcThreads, kTcBlocksPerSm)
+    tc_forward_kernel(const TrainArgs args, int l,
+                      const __grid_constant__ CUtensorMap w_map,
+                      const __grid_constant__ CUtensorMap lhs_map) {
+  extern __shared__ uint8_t tc_smem[];
+  const int e = blockIdx.z;
+  const int width = args.width;
+  const int m0 = blockIdx.x * kTcTile, n0 = blockIdx.y * kTcTile;
+  float acc[64];
+  tc_mainloop<kMNMajor, kMNMajor>(w_map, lhs_map, m0, n0, e, width, args.ld,
+                                  l == 0 ? args.num_features : width, tc_smem,
+                                  acc);
+  const size_t ld = args.ld;
+  const float* b = args.b[l] + (size_t)e * width;
+  const float s = softplus(args.scales_raw[(size_t)e * (args.depth + 1) + l]);
+  const float wgt = sigmoid(args.logit[e]);
+  const float rs_next = args.rsqrt[l + 1];
+  const size_t off = (size_t)e * width * ld;
+  float* zg = args.z[l] + off;
+  float* out = args.lhs[l + 1] + off;
+  __nv_bfloat16* out_bf = l + 1 < args.depth ? args.lhs_bf[l + 1] + off
+                                             : nullptr;
+  tc_epilogue(acc, m0, n0, width, [&](int c, int n, float v0, float v1) {
+    const float bj = __ldg(b + c);
+    const float z0 = s * (v0 + bj), z1 = s * (v1 + bj);
+    const float h0 = blended_act(z0, wgt) * rs_next;
+    const float h1 = blended_act(z1, wgt) * rs_next;
+    *reinterpret_cast<float2*>(zg + c * ld + n) = make_float2(z0, z1);
+    *reinterpret_cast<float2*>(out + c * ld + n) = make_float2(h0, h1);
+    if (out_bf != nullptr) {
+      *reinterpret_cast<__nv_bfloat162*>(out_bf + c * ld + n) =
+          __floats2bfloat162_rn(h0, h1);
+    }
+  });
 }
 
 // --- 3. The output layer, the likelihood and the last hidden layer's
@@ -506,6 +577,9 @@ __global__ void __launch_bounds__(kRowTile) head_kernel(const TrainArgs args) {
   const float s = softplus(scales_raw[l]);
   const float* zg = args.z[l] + (size_t)e * fan_in * ld + col;
   float* dvg = args.dv[l] + (size_t)e * fan_in * ld + col;
+  // The twin the tensor-core W dv product and weight gradient read.
+  __nv_bfloat16* dvg_bf =
+      kBf16 ? args.dv_bf[l] + (size_t)e * fan_in * ld + col : nullptr;
   float* lp = layer_partials(args, e, tile, l);
   for (int cb = 0; cb < args.col_blocks; ++cb) {
     float dsum[2] = {0.f, 0.f};  // dz z, dh dact/dw
@@ -519,6 +593,7 @@ __global__ void __launch_bounds__(kRowTile) head_kernel(const TrainArgs args) {
       const float dz = dh * dact_dz;
       dsum[0] += dz * z;
       dvg[c * ld] = dz * s;
+      if constexpr (kBf16) dvg_bf[c * ld] = __float2bfloat16_rn(dz * s);
     }
     tile_sums(dsum, 2, red, sums);
     if (tid == 0) {
@@ -532,7 +607,7 @@ __global__ void __launch_bounds__(kRowTile) head_kernel(const TrainArgs args) {
 // for l >= 1 the epilogue turns it into dv_{l-1} = dh act'(z_{l-1}) s_{l-1}
 // with the block's sums of dz z and dh dact/dw, for l = 0 it writes dh_0.
 // Grid (fan_in_l / 128, row tiles, members).
-template <bool kRound, bool kFirst>
+template <bool kFirst>
 __global__ void __launch_bounds__(kThreads, 2)
     backward_kernel(const TrainArgs args, int l) {
   __shared__ float red[kWarps];
@@ -545,12 +620,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float* dv = args.dv[l] + (size_t)e * width * ld;
   if constexpr (kFirst) {
     float* dh0 = args.dh0 + (size_t)e * fan_in * ld;
-    simt_gemm<false, kRound>(w, width, false, dv, (int)ld, fan_in, width,
-                             [&](int k, int n, const float (&v)[4]) {
-                               *reinterpret_cast<float4*>(dh0 + k * ld + n) =
-                                   make_float4(v[0] * rs, v[1] * rs, v[2] * rs,
-                                               v[3] * rs);
-                             });
+    simt_gemm<false>(w, width, false, dv, (int)ld, fan_in, width,
+                     [&](int k, int n, const float (&v)[4]) {
+                       *reinterpret_cast<float4*>(dh0 + k * ld + n) =
+                           make_float4(v[0] * rs, v[1] * rs, v[2] * rs,
+                                       v[3] * rs);
+                     });
   } else {
     const float s =
         softplus(args.scales_raw[(size_t)e * (args.depth + 1) + l - 1]);
@@ -558,7 +633,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const float* zg = args.z[l - 1] + (size_t)e * width * ld;
     float* dvg = args.dv[l - 1] + (size_t)e * width * ld;
     float dzz = 0.f, dlogit = 0.f;
-    simt_gemm<false, kRound>(
+    simt_gemm<false>(
         w, width, false, dv, (int)ld, fan_in, width,
         [&](int k, int n, const float (&v)[4]) {
           const float4 z4 = *reinterpret_cast<const float4*>(zg + k * ld + n);
@@ -584,6 +659,115 @@ __global__ void __launch_bounds__(kThreads, 2)
       lp[blockIdx.x * 2] = dzz;
       lp[blockIdx.x * 2 + 1] = dlogit;
     }
+  }
+}
+
+// --- 4'. The same on the tensor cores ('bf16'): A = W_l's bf16 copy
+// (K-major: W_l[k][c], the reduction over c), B = dv_l's twin (MN-major);
+// for l >= 1 the epilogue also writes dv_{l-1}'s twin. Grid as
+// backward_kernel's.
+static_assert(kTcThreads == kThreads, "block_sum sums kThreads threads");
+
+template <bool kFirst>
+__global__ void __launch_bounds__(kTcThreads, kTcBlocksPerSm)
+    tc_backward_kernel(const TrainArgs args, int l,
+                       const __grid_constant__ CUtensorMap w_map,
+                       const __grid_constant__ CUtensorMap dv_map) {
+  extern __shared__ uint8_t tc_smem[];
+  __shared__ float red[kTcThreads / 32];
+  const int e = blockIdx.z;
+  const int width = args.width;
+  const int fan_in = kFirst ? args.num_features : width;
+  const int m0 = blockIdx.x * kTcTile, n0 = blockIdx.y * kTcTile;
+  float acc[64];
+  tc_mainloop<kKMajor, kMNMajor>(w_map, dv_map, m0, n0, e, fan_in, args.ld,
+                                 width, tc_smem, acc);
+  const size_t ld = args.ld;
+  const float rs = args.rsqrt[l];
+  if constexpr (kFirst) {
+    float* dh0 = args.dh0 + (size_t)e * fan_in * ld;
+    tc_epilogue(acc, m0, n0, fan_in, [&](int k, int n, float v0, float v1) {
+      *reinterpret_cast<float2*>(dh0 + k * ld + n) =
+          make_float2(v0 * rs, v1 * rs);
+    });
+  } else {
+    const float s =
+        softplus(args.scales_raw[(size_t)e * (args.depth + 1) + l - 1]);
+    const float wgt = sigmoid(args.logit[e]);
+    const size_t off = (size_t)e * width * ld;
+    const float* zg = args.z[l - 1] + off;
+    float* dvg = args.dv[l - 1] + off;
+    __nv_bfloat16* dvg_bf = args.dv_bf[l - 1] + off;
+    float dzz = 0.f, dlogit = 0.f;
+    tc_epilogue(acc, m0, n0, width, [&](int k, int n, float v0, float v1) {
+      const float2 z2 = *reinterpret_cast<const float2*>(zg + k * ld + n);
+      const float z[2] = {z2.x, z2.y}, v[2] = {v0, v1};
+      float out[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float dact_dz, dact_dw;
+        blended_act_grad(z[j], wgt, &dact_dz, &dact_dw);
+        const float dh = v[j] * rs;
+        dlogit += dh * dact_dw;
+        const float dz = dh * dact_dz;
+        dzz += dz * z[j];
+        out[j] = dz * s;
+      }
+      *reinterpret_cast<float2*>(dvg + k * ld + n) = make_float2(out[0], out[1]);
+      *reinterpret_cast<__nv_bfloat162*>(dvg_bf + k * ld + n) =
+          __floats2bfloat162_rn(out[0], out[1]);
+    });
+    dzz = block_sum(dzz, red);
+    dlogit = block_sum(dlogit, red);
+    if (threadIdx.x == 0) {
+      float* lp = layer_partials(args, e, args.tile0 + blockIdx.y, l - 1);
+      lp[blockIdx.x * 2] = dzz;
+      lp[blockIdx.x * 2 + 1] = dlogit;
+    }
+  }
+}
+
+// --- 6'. The hidden weight gradient on the tensor cores ('bf16'):
+// dw(k, c) (+)= sum over the chunk's `len` rows of lhs_l[k][n] dv_l[c][n],
+// A = lhs_l's twin and B = dv_l's twin, both K-major (the rows are the
+// reduction); `accumulate` adds the chunk's sum to what dw holds, so the
+// chunks add in order. dw is (E, fan_in, width); grid (fan_in / 128,
+// width / 128, members).
+__global__ void __launch_bounds__(kTcThreads, kTcBlocksPerSm)
+    tc_wgrad_kernel(const __grid_constant__ CUtensorMap lhs_map,
+                    const __grid_constant__ CUtensorMap dv_map,
+                    float* __restrict__ dw, int fan_in, int width, int len,
+                    int accumulate) {
+  extern __shared__ uint8_t tc_smem[];
+  const int e = blockIdx.z;
+  const int m0 = blockIdx.x * kTcTile, n0 = blockIdx.y * kTcTile;
+  float acc[64];
+  tc_mainloop<kKMajor, kKMajor>(lhs_map, dv_map, m0, n0, e, fan_in, width,
+                                len, tc_smem, acc);
+  float* out = dw + (size_t)e * fan_in * width;
+  tc_epilogue(acc, m0, n0, fan_in, [&](int k, int c, float v0, float v1) {
+    const float v[2] = {v0, v1};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (c + j < width) {
+        float* p = out + (size_t)k * width + c + j;
+        *p = accumulate ? *p + v[j] : v[j];
+      }
+    }
+  });
+}
+
+// A hidden W_l (rows of `width` floats) as bf16 rows of `ldw` >= width,
+// zero past the width: the tensor-core products' A operand.
+__global__ void __launch_bounds__(kThreads)
+    weights_bf16_kernel(const float* __restrict__ w,
+                        __nv_bfloat16* __restrict__ out, size_t rows,
+                        int width, int ldw) {
+  for (size_t i = blockIdx.x * (size_t)kThreads + threadIdx.x;
+       i < rows * ldw; i += (size_t)gridDim.x * kThreads) {
+    const size_t r = i / ldw;
+    const int c = (int)(i % ldw);
+    out[i] = __float2bfloat16_rn(c < width ? __ldg(w + r * width + c) : 0.f);
   }
 }
 
@@ -787,6 +971,30 @@ size_t floats_per_row(int num_features, int width, int depth) {
   return 2 * (size_t)num_features + 3 * (size_t)depth * width + 1;
 }
 
+// 'bf16': the bf16 weight copies' row stride, a multiple of 8 elements
+// (TMA's 16-byte strides); the twins' elements per chunk row and member
+// (lhs_l and dv_l for l < depth); the weight copies' elements per member.
+int padded_width(int width) { return (width + 7) / 8 * 8; }
+size_t twins_per_row(int num_features, int width, int depth) {
+  return depth ? num_features + (2 * (size_t)depth - 1) * width : 0;
+}
+size_t weight_copies(int num_features, int width, int depth) {
+  return depth ? (num_features + (size_t)(depth - 1) * width) *
+                     padded_width(width)
+               : 0;
+}
+
+// A launch's status when a tensor map could not be made (no cudaError_t
+// has this value).
+constexpr int kTensorMapError = 2000;
+
+// The tensor maps of the 'bf16' products, per hidden layer l.
+struct TcMaps {
+  CUtensorMap w[kMaxLayers];    // W_l's bf16 copy: (width, fan_in_l, E)
+  CUtensorMap lhs[kMaxLayers];  // lhs_l's twin: (ld, fan_in_l, E)
+  CUtensorMap dv[kMaxLayers];   // dv_l's twin: (ld, width, E)
+};
+
 template <int kLik>
 void launch_head(const TrainArgs& args, bool bf16, dim3 grid,
                  cudaStream_t stream) {
@@ -797,20 +1005,27 @@ void launch_head(const TrainArgs& args, bool bf16, dim3 grid,
   }
 }
 
-// One chunk's kernels 1-5 (see the header) over `tiles` row tiles.
+// One chunk's kernels 1-5 (see the header) over `tiles` row tiles; `maps`
+// (the 'bf16' products' operands) when bf16.
 cudaError_t launch_chunk(const TrainArgs& args, int likelihood, bool bf16,
-                         int tiles, int members, cudaStream_t s) {
+                         const TcMaps& maps, int tiles, int members,
+                         cudaStream_t s) {
   const int depth = args.depth, width = args.width;
   const dim3 rows(tiles, members);
   cudaError_t err;
-  encode_kernel<<<rows, kRowTile, 0, s>>>(args);
+  if (bf16) {
+    encode_kernel<true><<<rows, kRowTile, 0, s>>>(args);
+  } else {
+    encode_kernel<false><<<rows, kRowTile, 0, s>>>(args);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const dim3 hidden(col_blocks(width), tiles, members);
   for (int l = 0; l < depth; ++l) {
     if (bf16) {
-      forward_kernel<true><<<hidden, kThreads, 0, s>>>(args, l);
+      tc_forward_kernel<<<hidden, kTcThreads, kTcSmemBytes, s>>>(
+          args, l, maps.w[l], maps.lhs[l]);
     } else {
-      forward_kernel<false><<<hidden, kThreads, 0, s>>>(args, l);
+      forward_kernel<<<hidden, kThreads, 0, s>>>(args, l);
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
@@ -827,18 +1042,20 @@ cudaError_t launch_chunk(const TrainArgs& args, int likelihood, bool bf16,
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   for (int l = depth - 1; l >= 1; --l) {
     if (bf16) {
-      backward_kernel<true, false><<<hidden, kThreads, 0, s>>>(args, l);
+      tc_backward_kernel<false><<<hidden, kTcThreads, kTcSmemBytes, s>>>(
+          args, l, maps.w[l], maps.dv[l]);
     } else {
-      backward_kernel<false, false><<<hidden, kThreads, 0, s>>>(args, l);
+      backward_kernel<false><<<hidden, kThreads, 0, s>>>(args, l);
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if (depth > 0) {
     const dim3 first(col_blocks(args.num_features), tiles, members);
     if (bf16) {
-      backward_kernel<true, true><<<first, kThreads, 0, s>>>(args, 0);
+      tc_backward_kernel<true><<<first, kTcThreads, kTcSmemBytes, s>>>(
+          args, 0, maps.w[0], maps.dv[0]);
     } else {
-      backward_kernel<false, true><<<first, kThreads, 0, s>>>(args, 0);
+      backward_kernel<true><<<first, kThreads, 0, s>>>(args, 0);
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
@@ -846,22 +1063,72 @@ cudaError_t launch_chunk(const TrainArgs& args, int likelihood, bool bf16,
   return cudaGetLastError();
 }
 
+// The GEMM core alone (`bnf_tc_gemm`): out[e][m][n] = D(m, n), rows m < M
+// and columns n < N of the block's tile.
+template <int kAMajor, int kBMajor>
+__global__ void __launch_bounds__(kTcThreads, kTcBlocksPerSm)
+    tc_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_b,
+                   float* __restrict__ out, int M, int N, int K) {
+  extern __shared__ uint8_t tc_smem[];
+  const int e = blockIdx.z;
+  const int m0 = blockIdx.x * kTcTile, n0 = blockIdx.y * kTcTile;
+  float acc[64];
+  tc_mainloop<kAMajor, kBMajor>(map_a, map_b, m0, n0, e, M, N, K, tc_smem,
+                                acc);
+  float* o = out + (size_t)e * M * N;
+  tc_epilogue(acc, m0, n0, M, [&](int m, int n, float v0, float v1) {
+    if (n < N) o[(size_t)m * N + n] = v0;
+    if (n + 1 < N) o[(size_t)m * N + n + 1] = v1;
+  });
+}
+
+// Opts every tensor-core kernel into kTcSmemBytes of dynamic shared memory.
+cudaError_t set_tc_smem() {
+  const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(tc_forward_kernel, attr, kTcSmemBytes)) ||
+      (err = cudaFuncSetAttribute(tc_backward_kernel<false>, attr,
+                                  kTcSmemBytes)) ||
+      (err = cudaFuncSetAttribute(tc_backward_kernel<true>, attr,
+                                  kTcSmemBytes)) ||
+      (err = cudaFuncSetAttribute(tc_wgrad_kernel, attr, kTcSmemBytes)) ||
+      (err = cudaFuncSetAttribute(tc_gemm_kernel<kMNMajor, kMNMajor>, attr,
+                                  kTcSmemBytes)) ||
+      (err = cudaFuncSetAttribute(tc_gemm_kernel<kKMajor, kMNMajor>, attr,
+                                  kTcSmemBytes)) ||
+      (err = cudaFuncSetAttribute(tc_gemm_kernel<kKMajor, kKMajor>, attr,
+                                  kTcSmemBytes))) {
+    return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Global scratch (bytes) for chunks of `chunk_rows` rows over `n_rows` rows.
+// Global scratch (bytes) for chunks of `chunk_rows` rows over `n_rows` rows
+// at `precision` (0 fp32; 1 bf16 adds the twins and the weights' copies).
 size_t bnf_fused_train_scratch_bytes(int members, int num_features, int width,
                                      int depth, int num_inputs, int num_groups,
                                      int chunk_rows, int n_rows,
-                                     int likelihood) {
+                                     int likelihood, int precision) {
   const size_t tiles = (n_rows + kRowTile - 1) / kRowTile;
+  const size_t bf16_elems =
+      precision == 1
+          ? (size_t)members *
+                ((size_t)chunk_rows *
+                     twins_per_row(num_features, width, depth) +
+                 weight_copies(num_features, width, depth))
+          : 0;
   return ((size_t)members * chunk_rows *
               floats_per_row(num_features, width, depth) +
           (size_t)members * tiles *
               (num_partials(num_inputs, num_groups, likelihood) +
                2 * (size_t)depth * col_blocks(width))) *
-         sizeof(float);
+             sizeof(float) +
+         bf16_elems * sizeof(__nv_bfloat16);
 }
 
 // Loss and gradients of the training objective under `likelihood` (Lik:
@@ -982,15 +1249,56 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
   }
   args.dh0 = p;
   p += rows * num_features;
+  // 'bf16': the twins of lhs_l and dv_l (l < depth), then the weights' bf16
+  // copies; each slice a multiple of 8 elements (16 bytes), as TMA needs.
+  __nv_bfloat16* w_bf[kMaxLayers] = {};
+  const int ldw = padded_width(width);
+  if (bf16 && depth > 0) {
+    __nv_bfloat16* q = reinterpret_cast<__nv_bfloat16*>(p);
+    for (int l = 0; l < depth; ++l) {
+      args.lhs_bf[l] = q;
+      q += rows * (l == 0 ? num_features : width);
+    }
+    for (int l = 0; l < depth; ++l) {
+      args.dv_bf[l] = q;
+      q += rows * width;
+    }
+    for (int l = 0; l < depth; ++l) {
+      w_bf[l] = q;
+      q += (size_t)members * (l == 0 ? num_features : width) * ldw;
+    }
+    p = reinterpret_cast<float*>(q);
+  }
   args.partials = p;
   p += (size_t)members * args.num_tiles * np;
   args.layer_partials = p;
 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  // The hidden weight gradients round their operands under bf16 where the
-  // TPU kernel does: when dv_l has more than one column (width > 1).
-  const bool round_wgrad = bf16 && width > 1;
+  // 'bf16': each hidden W_l's bf16 copy, and the tensor maps of the three
+  // products' operands (the scratch does not move between chunks).
+  TcMaps maps = {};
+  if (bf16 && depth > 0) {
+    if ((err = set_tc_smem()) != cudaSuccess) return static_cast<int>(err);
+    for (int l = 0; l < depth; ++l) {
+      const int fan_in = l == 0 ? num_features : width;
+      const size_t count = (size_t)members * fan_in * ldw;
+      const size_t blocks = (count + kThreads - 1) / kThreads;
+      weights_bf16_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096),
+                            kThreads, 0, s>>>(args.w[l], w_bf[l],
+                                              (size_t)members * fan_in, width,
+                                              ldw);
+      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+      if (!encode_tc_map(&maps.w[l], w_bf[l], width, fan_in, members, ldw,
+                         (size_t)fan_in * ldw) ||
+          !encode_tc_map(&maps.lhs[l], args.lhs_bf[l], chunk_rows, fan_in,
+                         members, chunk_rows, (size_t)fan_in * chunk_rows) ||
+          !encode_tc_map(&maps.dv[l], args.dv_bf[l], chunk_rows, width,
+                         members, chunk_rows, (size_t)width * chunk_rows)) {
+        return kTensorMapError;
+      }
+    }
+  }
   for (int row0 = 0; row0 < n_rows; row0 += chunk_rows) {
     const int chunk = n_rows - row0 < chunk_rows ? n_rows - row0 : chunk_rows;
     const int tiles = (chunk + kRowTile - 1) / kRowTile;
@@ -998,17 +1306,26 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
     const int acc = row0 > 0;
     args.row0 = row0;
     args.tile0 = row0 / kRowTile;
-    err = launch_chunk(args, likelihood, bf16, tiles, members, s);
+    err = launch_chunk(args, likelihood, bf16, maps, tiles, members, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     int fan_in = num_features;
     for (int l = 0; l < depth; ++l) {
-      const dim3 grid((width + kGTile - 1) / kGTile,
-                      (fan_in + kGTile - 1) / kGTile, members);
       float* dw = static_cast<float*>(dweights[l]);
-      if (round_wgrad) {
-        wgrad_kernel<true><<<grid, kThreads, 0, s>>>(
-            args.lhs[l], args.dv[l], dw, fan_in, width, len, chunk_rows, acc);
+      if (bf16 && width > 1) {
+        // Rounded operands, as the TPU kernel's when dv_l has more than
+        // one column.
+        const dim3 grid(col_blocks(fan_in), col_blocks(width), members);
+        tc_wgrad_kernel<<<grid, kTcThreads, kTcSmemBytes, s>>>(
+            maps.lhs[l], maps.dv[l], dw, fan_in, width, len, acc);
+      } else if (bf16) {
+        // One column: the fp32 row sums, as the output layer's.
+        const int warps = members * fan_in;
+        rowdot_kernel<<<(warps + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+            args.lhs[l], args.dv[l], dw, members, fan_in, len, chunk_rows,
+            acc);
       } else {
+        const dim3 grid((width + kGTile - 1) / kGTile,
+                        (fan_in + kGTile - 1) / kGTile, members);
         wgrad_kernel<false><<<grid, kThreads, 0, s>>>(
             args.lhs[l], args.dv[l], dw, fan_in, width, len, chunk_rows, acc);
       }
@@ -1058,7 +1375,56 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tensor-core GEMM core alone, for its check on the card: out (E, M, N)
+// fp32 = A B over K for bf16 operands in the layout of one of K1's
+// products (0 the forward, 1 W dv, 2 the weight gradient):
+//   0: a (E, K, lda) holds A(m, k) at [k][m]; b (E, K, ldb) B(k, n) at [k][n]
+//   1: a (E, M, lda) holds A(m, k) at [m][k]; b as for 0
+//   2: a as for 1; b (E, N, ldb) holds B(k, n) at [n][k]
+// lda and ldb are multiples of 8, a and b 16-byte aligned. Returns a
+// cudaError_t, or kTensorMapError when a map cannot be made.
+int bnf_tc_gemm(const void* a, const void* b, void* out, int layout,
+                int members, int M, int N, int K, int lda, int ldb,
+                void* stream) {
+  if (layout < 0 || layout > 2 || members < 1 || members > 65535 || M < 1 ||
+      N < 1 || K < 1 || (M + kTcTile - 1) / kTcTile > 65535 ||
+      (N + kTcTile - 1) / kTcTile > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap map_a, map_b;
+  const bool a_ok =
+      layout == 0
+          ? encode_tc_map(&map_a, a, M, K, members, lda, (size_t)K * lda)
+          : encode_tc_map(&map_a, a, K, M, members, lda, (size_t)M * lda);
+  const bool b_ok =
+      layout == 2
+          ? encode_tc_map(&map_b, b, K, N, members, ldb, (size_t)N * ldb)
+          : encode_tc_map(&map_b, b, N, K, members, ldb, (size_t)K * ldb);
+  if (!a_ok || !b_ok) return kTensorMapError;
+  cudaError_t err = set_tc_smem();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((M + kTcTile - 1) / kTcTile, (N + kTcTile - 1) / kTcTile,
+                  members);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  if (layout == 0) {
+    tc_gemm_kernel<kMNMajor, kMNMajor><<<grid, kTcThreads, kTcSmemBytes, s>>>(
+        map_a, map_b, o, M, N, K);
+  } else if (layout == 1) {
+    tc_gemm_kernel<kKMajor, kMNMajor><<<grid, kTcThreads, kTcSmemBytes, s>>>(
+        map_a, map_b, o, M, N, K);
+  } else {
+    tc_gemm_kernel<kKMajor, kKMajor><<<grid, kTcThreads, kTcSmemBytes, s>>>(
+        map_a, map_b, o, M, N, K);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 const char* bnf_cuda_error_string(int err) {
+  if (err == kTensorMapError) {
+    return "cuTensorMapEncodeTiled refused a tensor map, or libcuda has "
+           "no such entry point";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -22,12 +22,8 @@
 //
 // Order. Every output is one fp32 FMA chain over k = 0, 1, ..., K - 1 (no
 // split-K, no atomics), as `block_matmul` and `narrow_matmul` sum, so a
-// result does not depend on the tiling.
-//
-// kRound ('bf16'): each operand is rounded to bf16 where it is staged. A
-// thread rounds the elements it copied, after its own copies have landed
-// and before the stage's barrier publishes them; the FMAs stay fp32 (a
-// product of two bf16 values is exact in fp32).
+// result does not depend on the tiling. (The 'bf16' products run on the
+// tensor cores instead: `wgmma_gemm.cuh`.)
 
 #pragma once
 
@@ -82,7 +78,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // kAKMajor picks A's layout (see the header); `a_vec` allows 16-byte copies
 // of a k-major A (lda % 4 == 0 and `a` 16-byte aligned); b and ldb must
 // allow them always.
-template <bool kAKMajor, bool kRound, typename Epilogue>
+template <bool kAKMajor, typename Epilogue>
 __device__ __forceinline__ void simt_gemm(const float* __restrict__ a, int lda,
                                           bool a_vec,
                                           const float* __restrict__ b, int ldb,
@@ -127,23 +123,6 @@ __device__ __forceinline__ void simt_gemm(const float* __restrict__ a, int lda,
     }
   };
 
-  // Rounds the elements this thread copied into stage s (kRound only).
-  auto round_own = [&](int s) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bs[s][lk][l4 + j] = round_bf16(bs[s][lk][l4 + j]);
-    if constexpr (kAKMajor) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) as[s][lk][l4 + j] = round_bf16(as[s][lk][l4 + j]);
-    } else {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = tid + q * kThreads;
-        float* p = &as[s][i % kSgK][i / kSgK];
-        *p = round_bf16(*p);
-      }
-    }
-  };
-
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -172,7 +151,6 @@ __device__ __forceinline__ void simt_gemm(const float* __restrict__ a, int lda,
   for (int t = 0; t < nk; ++t) {
     const int s = t % kSgStages;
     cp_async_wait<kSgStages - 2>();  // this thread's copies of stage t
-    if constexpr (kRound) round_own(s);
     // Every copy of stage t is visible, and every thread is done with the
     // stage that the next load overwrites (read in iteration t - 1).
     __syncthreads();

@@ -679,8 +679,10 @@ def _train_lib() -> ctypes.CDLL:
       ptr,  # stream
   ]
   lib.bnf_fused_train.restype = ctypes.c_int
-  lib.bnf_fused_train_scratch_bytes.argtypes = [i32] * 9
+  lib.bnf_fused_train_scratch_bytes.argtypes = [i32] * 10
   lib.bnf_fused_train_scratch_bytes.restype = ctypes.c_size_t
+  lib.bnf_tc_gemm.argtypes = [ptr, ptr, ptr] + [i32] * 7 + [ptr]
+  lib.bnf_tc_gemm.restype = ctypes.c_int
   _declare_common(lib)
   return lib
 
@@ -828,15 +830,18 @@ def _launch_fused_train(
   likelihood = LIKELIHOOD_CODES[distribution]
   scratch_bytes = functools.partial(
       lib.bnf_fused_train_scratch_bytes, e, f, width, depth, d, g)
-  # Rows per chunk: as many whole tiles as the scratch budget holds. It does
-  # not depend on n beyond n's own tiles, so rows past n_valid move no chunk
-  # boundary.
-  per_row = scratch_bytes(1, 0, likelihood)
-  tiles = min(max(1, TRAIN_SCRATCH_BYTES // per_row // tile),
+  code = PRECISION_CODES[precision]
+  # Rows per chunk: as many whole tiles as the scratch budget holds beside
+  # what a call holds whatever its rows ('bf16': the weights' bf16 copies);
+  # under 'bf16' a row also holds its bf16 twins. It does not depend on n
+  # beyond n's own tiles, so rows past n_valid move no chunk boundary.
+  fixed = scratch_bytes(0, 0, likelihood, code)
+  per_row = scratch_bytes(1, 0, likelihood, code) - fixed
+  tiles = min(max(1, (TRAIN_SCRATCH_BYTES - fixed) // per_row // tile),
               MAX_TRAIN_CHUNK_TILES)
   chunk_rows = min(tiles * tile, -(-n // tile) * tile)
   scratch = torch.empty(
-      scratch_bytes(chunk_rows, n, likelihood) // 4,
+      -(-scratch_bytes(chunk_rows, n, likelihood, code) // 4),
       dtype=torch.float32,
       device=dev)
   # The input scales fold into the learned log scale (as the TPU kernel
@@ -867,7 +872,7 @@ def _launch_fused_train(
       (ctypes.c_int * d)(*[int(k) for k in fourier_degrees]),
       (ctypes.c_int * max(1, len(pairs)))(*pairs),
       *[v for rep, stride in layout for v in (stride, rep)],
-      float(lik_scale), likelihood, PRECISION_CODES[precision], depth, e, d,
+      float(lik_scale), likelihood, code, depth, e, d,
       s2, len(interactions), width, n,
       n if n_valid is None else int(n_valid), chunk_rows, stream,
   )
@@ -978,3 +983,82 @@ def fused_train(
 
 fused_train.launches = 0
 fused_train.bf16_launches = 0
+
+
+# The operand layouts of K1's three 'bf16' products, as `bnf_tc_gemm` codes
+# them (see `tc_gemm`).
+TC_LAYOUTS = {'forward': 0, 'wdv': 1, 'wgrad': 2}
+
+
+def _tc_operands(layout, a, b, m, n, k):
+  """The (E, M, K) and (E, K, N) matrices `tc_gemm` multiplies, as views of
+  its stored operands."""
+  if layout == 'forward':
+    return a[:, :k, :m].transpose(1, 2), b[:, :k, :n]
+  if layout == 'wdv':
+    return a[:, :m, :k], b[:, :k, :n]
+  return a[:, :m, :k], b[:, :n, :k].transpose(1, 2)
+
+
+def tc_gemm_reference(layout, a, b, m, n, k) -> torch.Tensor:
+  """Plain :func:`tc_gemm`: the bf16 operands' exact products, fp32 sums."""
+  a_mk, b_kn = _tc_operands(layout, a, b, m, n, k)
+  with mixed.fp32_matmuls():
+    return torch.matmul(a_mk.float(), b_kn.float())
+
+
+def tc_gemm(layout, a, b, m, n, k) -> torch.Tensor:
+  """K1's tensor-core GEMM core alone (TMA, mbarrier stages, wgmma; the
+  mainloop of its 'bf16' products), for checking it on the card: (E, M, N)
+  fp32 = A B over K, per member e.
+
+  Args:
+    layout: the operands' layout, as in one of K1's products. 'forward':
+      `a` (E, K, lda) holds A(m, k) at [k][m], `b` (E, K, ldb) holds B(k, n)
+      at [k][n]; 'wdv': `a` (E, M, lda) holds A(m, k) at [m][k], `b` as for
+      'forward'; 'wgrad': `a` as for 'wdv', `b` (E, N, ldb) holds B(k, n) at
+      [n][k].
+    a, b: contiguous bfloat16 tensors; lda and ldb (their last dims) are
+      multiples of 8.
+    m, n, k: the product's extents, within the operands'.
+
+  Returns:
+    (E, M, N) float32. On CPU tensors :func:`tc_gemm_reference`.
+
+  Raises:
+    ValueError: for another layout, dtype or device, or operands that do
+      not hold the extents.
+    RuntimeError: if the kernel fails to build or to launch.
+  """
+  if layout not in TC_LAYOUTS:
+    raise ValueError(f'tc_gemm: unknown layout {layout!r}.')
+  if a.device.type == 'cpu' and b.device.type == 'cpu':
+    return tc_gemm_reference(layout, a, b, m, n, k)
+  a_rows, a_cols = (k, m) if layout == 'forward' else (m, k)
+  b_rows, b_cols = (n, k) if layout == 'wgrad' else (k, n)
+  if (a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16
+      or a.device.type != 'cuda' or b.device != a.device
+      or a.ndim != 3 or b.ndim != 3 or a.shape[0] != b.shape[0]
+      or not (a.is_contiguous() and b.is_contiguous())
+      or a.shape[1] < a_rows or a.shape[2] < a_cols
+      or b.shape[1] < b_rows or b.shape[2] < b_cols
+      or a.shape[2] % 8 or b.shape[2] % 8 or min(m, n, k) < 1):
+    raise ValueError(
+        f'tc_gemm: expected contiguous bfloat16 CUDA operands holding '
+        f'({a_rows}, {a_cols}) and ({b_rows}, {b_cols}) per member with last '
+        f'dims a multiple of 8, got {tuple(a.shape)} {a.dtype} and '
+        f'{tuple(b.shape)} {b.dtype} on {a.device}, {b.device}.')
+  e = a.shape[0]
+  out = torch.empty((e, m, n), dtype=torch.float32, device=a.device)
+  lib = _train_lib()
+  with torch.cuda.device(a.device):
+    err = lib.bnf_tc_gemm(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), TC_LAYOUTS[layout], e,
+        m, n, k, a.shape[2], b.shape[2],
+        torch.cuda.current_stream().cuda_stream)
+  _raise_on(err, lib, 'tc_gemm')
+  tc_gemm.launches += 1
+  return out
+
+
+tc_gemm.launches = 0

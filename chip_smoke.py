@@ -23,6 +23,12 @@ CUDA toolkit (nvcc). It imports nothing of JAX. Phases, one line each:
    K4b (K4a's backward) at that shape, a ragged row count and 'bf16'. A
    'bf16' kernel is held to the plain 'bf16' version and to the plain fp32
    one.
+3g. Hold K1's tensor-core GEMM core (TMA, mbarrier stages, wgmma; the
+   mainloop of its 'bf16' products) alone against the plain product of the
+   same bf16 operands, in the operand layouts of the forward, the W dv
+   product and the weight gradient, at M = 49, a width of 100 (not a
+   multiple of 8) and ragged K, the padding of every operand row NaN; time
+   the forward-sized case (64 x 512 x 8,192 x 512).
 3t. Hold K1 against its plain PyTorch version (autograd) on the card: the
    loss and every gradient, at the training path's shapes (64 members,
    inputs (3, N), 16 seasonal rows, F = 49, width 512, depth 2, N = 8192;
@@ -33,13 +39,14 @@ CUDA toolkit (nvcc). It imports nothing of JAX. Phases, one line each:
    groups of 5, each group its own 3,500 rows) and per-member
    inputs (64 members, a ragged 3,497 rows, width 256); then the NB and
    ZINB likelihoods (count targets) at the main and the grouped shape, held
-   to the JAX package's count bounds; then precision 'bf16' (the bf16
-   instantiations of the layer-wise GEMMs, the head kernel and the
-   weight-gradient GEMM, with a breakdown line too) at the main shape under
-   each likelihood, the grouped shape and width 1024, each
+   to the JAX package's count bounds; then precision 'bf16' (the hidden
+   GEMMs on the tensor cores, the head kernel's bf16 instantiation, with a
+   breakdown line too) at the main shape under each likelihood, the grouped
+   shape, width 1024, width 100 (not a multiple of 8), depths 0 and 3, and a
+   call of 22 chunks (a scratch budget set by this script), each
    held to the plain 'bf16' version and to the plain fp32 one, and 'highest'
    bit for bit equal to 'f32'; then the valid-row count (stage 4) at the
-   main shape under each likelihood and at 'bf16': 13 junk rows appended
+   main shape under each likelihood at 'f32' and at 'bf16': 13 junk rows appended
    (x 9.9, seasonal -9.9, y NaN) with n_valid = 8192, bit for bit equal to
    K1 on the 8,192 unpadded rows and held to the plain version with
    n_valid; time both with CUDA events.
@@ -194,6 +201,11 @@ COUNT_VI_POSTERIOR = 4
 BF16_LOSS_RTOL = 1e-3
 BF16_LEAF_TOL = 2e-3
 BF16_F32_TOL = 2e-2
+# K1's tensor-core GEMM core against the plain product of the same bf16
+# operands: both sum exact products in fp32, in different orders, so each
+# output within 1e-4 of the sum of its products' magnitudes (fp32 rounding
+# over K <= 1024 stays far below; a wrong layout is off by O(1)).
+TC_GEMM_TOL = 1e-4
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): fp32 outside
 # the tensor cores, dense bf16 on the tensor cores, and HBM3.
 PEAK_FP32_FLOPS = 67e12
@@ -450,6 +462,65 @@ def check_field_mlp_kernels(seed):
   return result
 
 
+def tc_gemm_operands(layout, members, m, n, k, seed):
+  """Random bf16 operands of `fused_mlp.tc_gemm` on the card, each row
+  padded to a multiple of 8 elements with NaN (which the kernel must never
+  read: its tensor maps end at the extents)."""
+  rng = np.random.default_rng(seed)
+  shapes = {'forward': ((k, m), (k, n)), 'wdv': ((m, k), (k, n)),
+            'wgrad': ((m, k), (n, k))}[layout]
+  out = []
+  for rows, cols in shapes:
+    t = torch.full((members, rows, -(-cols // 8) * 8), float('nan'))
+    t[..., :cols] = torch.from_numpy(
+        rng.normal(size=(members, rows, cols)).astype(np.float32))
+    out.append(t.to(torch.bfloat16).cuda())
+  return out
+
+
+def check_tc_gemm(seed):
+  """Phase 3g: K1's tensor-core GEMM core alone against the plain product
+  of the same bf16 operands, in the three operand layouts of K1's 'bf16'
+  products, at M = 49 (the encoded features), a width not a multiple of 8
+  (100), a width of 60 (half of each tile past M and N) and ragged K; the
+  main forward-sized case timed."""
+  cases = [  # (name, layout, members, M, N, K)
+      ('forward-main', 'forward', MEMBERS, 512, TRAIN_ROWS, 512),
+      ('forward-width100-K49', 'forward', 3, 100, 384, 49),
+      ('wdv-M49', 'wdv', 4, 49, 256, 512),
+      ('wdv-width100', 'wdv', 3, 100, 256, 100),
+      ('wgrad-M49', 'wgrad', 4, 49, 512, 1024),
+      ('wgrad-width100-K200', 'wgrad', 3, 100, 100, 200),
+      ('wgrad-width60', 'wgrad', 3, 60, 60, 256),
+  ]
+  for name, layout, members, m, n, k in cases:
+    a, b = tc_gemm_operands(layout, members, m, n, k, seed)
+    got = fused_mlp.tc_gemm(layout, a, b, m, n, k)
+    torch.cuda.synchronize()
+    want = fused_mlp.tc_gemm_reference(layout, a, b, m, n, k)
+    # fp32 sums of exact products in another order: within TC_GEMM_TOL of
+    # the sum of the products' magnitudes.
+    a_mk, b_kn = fused_mlp._tc_operands(layout, a, b, m, n, k)  # pylint: disable=protected-access
+    with torch.no_grad():
+      mags = torch.matmul(a_mk.float().abs(), b_kn.float().abs())
+    err = (got - want).abs()
+    assert bool(torch.isfinite(got).all()), name
+    assert bool((err <= TC_GEMM_TOL * mags).all()), (
+        name, err.max().item(), (err / mags.clamp(min=1e-30)).max().item())
+    fields = {}
+    if name == 'forward-main':
+      ms = cuda_ms(lambda: fused_mlp.tc_gemm(layout, a, b, m, n, k))  # pylint: disable=cell-var-from-loop
+      plain_ms = cuda_ms(lambda: fused_mlp.tc_gemm_reference(  # pylint: disable=cell-var-from-loop
+          layout, a, b, m, n, k), reps=3)
+      flops = 2 * members * m * n * k
+      fields = dict(kernel_ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
+                    tflops=f'{flops / ms / 1e9:.1f}')
+    phase('3g tc-gemm-vs-plain', case=name, layout=layout, members=members,
+          m=m, n=n, k=k, max_abs_err=f'{err.max().item():.3e}',
+          max_err_over_mags=f'{(err / mags.clamp(min=1e-30)).max().item():.3e}',
+          **fields)
+
+
 def train_kernel_inputs(members, n, width, depth, seed, degrees=(5, 5, 5),
                         seasonal_rows=16, groups=None,
                         distribution='NORMAL'):
@@ -538,12 +609,22 @@ def check_train_kernel(seed):
       ('main-ZINB-bf16', *main, 'ZINB', 'bf16'),
       ('grouped-bf16', *grouped, 'NORMAL', 'bf16'),
       ('width1024-bf16', MEMBERS, 2048, 1024, 2, None, 'NORMAL', 'bf16'),
+      ('width100-bf16', MEMBERS, TRAIN_ROWS - 3, 100, 2, None, 'NORMAL',
+       'bf16'),
+      ('depth0-bf16', MEMBERS, TRAIN_ROWS, 512, 0, None, 'NORMAL', 'bf16'),
+      ('depth3-bf16', MEMBERS, 1001, 512, 3, None, 'NORMAL', 'bf16'),
+      ('multi-chunk-bf16', *main, 'NORMAL', 'bf16'),
   ]
-  result = {}
+  result, budget = {}, fused_mlp.TRAIN_SCRATCH_BYTES
   for (name, members, n, width, depth, groups, distribution,
        precision) in cases:
     args = train_kernel_inputs(members, n, width, depth, seed, groups=groups,
                                distribution=distribution)
+    # The multi-chunk case: a scratch budget of 512 MiB holds 384 of the
+    # main shape's rows under 'bf16' (~1 MB a row with its twins, 37 MB of
+    # weight copies), so the call runs 22 chunks.
+    fused_mlp.TRAIN_SCRATCH_BYTES = (512 << 20 if name.startswith('multi')
+                                     else budget)
     bf16 = precision == 'bf16'
     count = distribution != 'NORMAL'
     loss_rtol = (BF16_LOSS_RTOL if bf16 else
@@ -612,31 +693,40 @@ def check_train_kernel(seed):
           loss_rel_err=f'{leaf_rel["losses"]:.3e}', **extra,
           kernel_ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
           bound_ms=f'{bound[0]:.4f}')
-    if name.startswith(('main', 'grouped')):
+    if name.startswith(('main', 'grouped')) or bf16:
       result[name] = (max_abs, ms, plain_ms, bound)
     if name in ('main', 'main-bf16'):
       k1_breakdown(args, name, precision)
+  fused_mlp.TRAIN_SCRATCH_BYTES = budget
   result.update(check_n_valid(seed))
   return result
 
 
-# K1's kernels (`csrc/fused_train.cu`), in launch order within a chunk.
-K1_KERNELS = ('encode_kernel', 'forward_kernel', 'head_kernel',
-              'backward_kernel', 'encode_backward_kernel', 'wgrad_kernel',
-              'rowdot_kernel', 'finalize_kernel')
+# K1's kernels (`csrc/fused_train.cu`) by precision, in launch order within
+# a call: under 'bf16' the hidden GEMMs run on the tensor cores
+# (`tc_*_kernel`, after the weights' bf16 copies).
+K1_KERNELS = {
+    'f32': ('encode_kernel', 'forward_kernel', 'head_kernel',
+            'backward_kernel', 'encode_backward_kernel', 'wgrad_kernel',
+            'rowdot_kernel', 'finalize_kernel'),
+    'bf16': ('weights_bf16_kernel', 'encode_kernel', 'tc_forward_kernel',
+             'head_kernel', 'tc_backward_kernel', 'encode_backward_kernel',
+             'tc_wgrad_kernel', 'rowdot_kernel', 'finalize_kernel'),
+}
 
 
 def k1_kernel_flops(args):
-  """Multiply-adds x 2 of each of K1's kernels at `args` (none for the
-  encode, encode-backward and finalize kernels, which do no products)."""
+  """Multiply-adds x 2 of each of K1's kernels at `args`, under either
+  precision's names (none for the encode, encode-backward, weight-copy and
+  finalize kernels, which do no products)."""
   weights = args['weights']
   e, f, width = weights[0].shape
   depth = len(weights) - 1
   rows = e * args['x_t'].shape[-1]
-  hidden = f * width + (depth - 1) * width * width if depth else 0
-  return {'forward_kernel': 2 * rows * hidden,
-          'backward_kernel': 2 * rows * hidden,
-          'wgrad_kernel': 2 * rows * hidden,
+  hidden = 2 * rows * (f * width + (depth - 1) * width * width if depth else 0)
+  return {'forward_kernel': hidden, 'tc_forward_kernel': hidden,
+          'backward_kernel': hidden, 'tc_backward_kernel': hidden,
+          'wgrad_kernel': hidden, 'tc_wgrad_kernel': hidden,
           # pred's dot product and W_out dv_out.
           'head_kernel': 4 * rows * weights[-1].shape[1],
           # dW_out's dot products and the bias sums.
@@ -654,20 +744,24 @@ def k1_breakdown(args, case, precision):
     fused_mlp.fused_train(**args, precision=precision)
     torch.cuda.synchronize()
   ms, launches = {}, {}
+  names = K1_KERNELS[precision]
   for evt in prof.key_averages():
     us = getattr(evt, 'device_time_total', None)
     if us is None:
       us = evt.cuda_time_total
     found = re.search(r'(\w+_kernel)[<(]', evt.key)
-    kind = found.group(1) if found and found.group(1) in K1_KERNELS else (
-        'other')
+    # No kernel of the other precision's list runs (under 'bf16' no SIMT
+    # GEMM is left).
+    assert not (found and found.group(1) not in names and any(
+        found.group(1) in k for k in K1_KERNELS.values())), evt.key
+    kind = found.group(1) if found and found.group(1) in names else 'other'
     ms[kind] = ms.get(kind, 0.0) + us / 1e3
     launches[kind] = launches.get(kind, 0) + evt.count
-  missing = [k for k in K1_KERNELS if ms.get(k, 0.0) <= 0]
+  missing = [k for k in K1_KERNELS[precision] if ms.get(k, 0.0) <= 0]
   assert not missing, (missing, ms)
   flops = k1_kernel_flops(args)
   fields = {}
-  for kind in (*K1_KERNELS, 'other'):
+  for kind in (*K1_KERNELS[precision], 'other'):
     if kind not in ms:
       continue
     rate = (f'/{flops[kind] / ms[kind] / 1e9:.2f}TFLOP/s' if kind in flops
@@ -686,7 +780,8 @@ def check_n_valid(seed):
   plain version, kernel ms, plain ms, bound)}."""
   result = {}
   for distribution, precision in (('NORMAL', 'f32'), ('NB', 'f32'),
-                                  ('ZINB', 'f32'), ('NORMAL', 'bf16')):
+                                  ('ZINB', 'f32'), ('NORMAL', 'bf16'),
+                                  ('NB', 'bf16'), ('ZINB', 'bf16')):
     args = train_kernel_inputs(MEMBERS, TRAIN_ROWS, 512, 2, seed,
                                distribution=distribution)
 
@@ -1589,6 +1684,7 @@ def main(argv=None):
 
   max_err, ms, plain_ms, (k2_bound_ms, k2_bound_by) = check_kernel(args.seed)
   mlp_cases = check_field_mlp_kernels(args.seed)
+  check_tc_gemm(args.seed)
   train_cases = check_train_kernel(args.seed)
   # The predict phases build no graph: they launch no K3.
   fused_mlp.fused_field_mlp_t.bwd_launches = 0
@@ -1669,9 +1765,9 @@ def main(argv=None):
                      + field_launches['fused_train.launches']),
           'NB': count_k1_launches, 'ZINB': count_vi_k1_launches},
   }, {
-      # K1 at precision 'bf16': the bf16 instantiations of the layer-wise
-      # GEMMs, the head kernel and the weight-gradient GEMM; bound at the
-      # tensor cores' bf16 rate.
+      # K1 at precision 'bf16': the hidden GEMMs on the tensor cores (wgmma,
+      # TMA, mbarrier stages) and the head kernel's bf16 instantiation;
+      # bound at the tensor cores' bf16 rate.
       'name': 'fused_train_bf16',
       'route': 'cuda',
       'source': 'bayesnf_torch/ops/csrc/fused_train.cu',

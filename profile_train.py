@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a training step's time goes on one CUDA card ('kernel' backend).
 
-    python3 profile_train.py [--seed N] [--steps N]
+    python3 profile_train.py [--seed N] [--steps N] [--precision P]
 
 Run from the root of a checkout on a machine with one NVIDIA GPU and nvcc
 (it builds K1 from the checkout's sources, as `chip_smoke.py` does). At the
@@ -13,6 +13,8 @@ profiles steps of three fits:
 - MAP minibatch: 64 members, batch_size 3,500 (per-member inputs);
 - VI: the published `air_quality` stanza, 16 surrogates x 5 draws over
   batch_size 3,500 (80 kernel members, grouped inputs).
+
+at `--precision` ('f32', the default, or 'bf16': K1's tensor-core kernels).
 
 One line each: host step time and member-steps/s (host clock around
 synchronized steps, no profiler), then from torch.profiler over the same
@@ -38,7 +40,7 @@ from bayesnf_torch.models import field as field_lib
 from bayesnf_torch.models import likelihoods
 
 
-def device_ms(prof):
+def device_ms(prof, precision):
   """(K1's device ms, all device ms) of the profiled window."""
   k1 = total = 0.0
   for evt in prof.key_averages():
@@ -49,12 +51,12 @@ def device_ms(prof):
       continue
     total += us / 1e3
     found = re.search(r'(\w+_kernel)[<(]', evt.key)
-    if found and found.group(1) in cs.K1_KERNELS:
+    if found and found.group(1) in cs.K1_KERNELS[precision]:
       k1 += us / 1e3
   return k1, total
 
 
-def measure(name, members, steps, run):
+def measure(name, members, steps, run, precision):
   """Times `run()`, which takes `steps` steps, after a warm-up run, then
   profiles it; prints one line."""
   run()
@@ -71,8 +73,8 @@ def measure(name, members, steps, run):
     run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - start) * 1e3
-  k1_ms, total_ms = device_ms(prof)
-  print(f'{name}: members={members}, steps={steps}, '
+  k1_ms, total_ms = device_ms(prof, precision)
+  print(f'{name}: precision={precision}, members={members}, steps={steps}, '
         f'host_step_s={step_s:.4f}, '
         f'member_steps_per_s={members / step_s:.2f}, '
         f'k1_ms_per_step={k1_ms / steps:.3f}, '
@@ -86,6 +88,7 @@ def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
   parser.add_argument('--steps', type=int, default=3)
+  parser.add_argument('--precision', choices=('f32', 'bf16'), default='f32')
   args = parser.parse_args(argv)
   if not torch.cuda.is_available():
     print('profile_train: CUDA is not available.', file=sys.stderr)
@@ -111,7 +114,7 @@ def main(argv=None):
 
   def full():
     map_lib.train(params, state, aug_t, y, config, normal, 0.005, args.steps,
-                  backend='kernel')
+                  backend='kernel', precision=args.precision)
 
   generator = torch.Generator(device='cuda').manual_seed(args.seed)
 
@@ -122,10 +125,11 @@ def main(argv=None):
   def minibatch():  # one epoch: n // BATCH steps
     map_lib.train(params, state, aug_t, y, config, normal, 0.005, 1,
                   backend='kernel', batch_size=cs.BATCH,
-                  permutations=permutations)
+                  permutations=permutations, precision=args.precision)
 
-  measure('map-full-batch', cs.MEMBERS, args.steps, full)
-  measure('map-minibatch', cs.MEMBERS, n // cs.BATCH, minibatch)
+  measure('map-full-batch', cs.MEMBERS, args.steps, full, args.precision)
+  measure('map-minibatch', cs.MEMBERS, n // cs.BATCH, minibatch,
+          args.precision)
 
   vi_est, _ = cs.vi_fit(table, args.seed, 'kernel')
   surrogate = vi_est.surrogate_
@@ -134,9 +138,9 @@ def main(argv=None):
   def vi():
     vi_lib.train(surrogate, vi_state, aug_t, y, config, normal, cs.VI_LR,
                  args.steps, cs.BATCH, cs.VI_SAMPLES, cs.VI_KL_WEIGHT,
-                 generator, 'kernel')
+                 generator, 'kernel', args.precision)
 
-  measure('vi', cs.VI_MEMBERS, args.steps, vi)
+  measure('vi', cs.VI_MEMBERS, args.steps, vi, args.precision)
   return 0
 
 

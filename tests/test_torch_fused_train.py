@@ -453,7 +453,10 @@ class _FakeTrainLib:
   """Stands in for the compiled K1 library on the CPU: the C side's scratch
   formula (per chunk row and member lhs_l, z_l, dv_l and dh_0; per 128-row
   tile the scalar partials, and per hidden layer and 128-column block two
-  sums), and a launch that records its arguments and returns `err`."""
+  sums; under 'bf16' also per chunk row and member the bf16 twins of lhs_l
+  and dv_l for l < depth, and per member the hidden weights' bf16 copies,
+  rows padded to a multiple of 8), and a launch that records its arguments
+  and returns `err`."""
 
   def __init__(self, err=0):
     self.err = err
@@ -462,12 +465,17 @@ class _FakeTrainLib:
   @staticmethod
   def bnf_fused_train_scratch_bytes(members, num_features, width, depth,
                                     num_inputs, num_groups, chunk_rows,
-                                    n_rows, likelihood=0):
+                                    n_rows, likelihood=0, precision=0):
     tiles = -(-n_rows // 128)
     partials = 2 + num_inputs + num_groups + 2 * (likelihood > 0)
     layer_sums = 2 * depth * -(-width // 128)
+    bf16 = 0
+    if precision == 1 and depth:
+      twins = num_features + (2 * depth - 1) * width
+      copies = (num_features + (depth - 1) * width) * (-(-width // 8) * 8)
+      bf16 = members * (chunk_rows * twins + copies) * 2
     return (members * chunk_rows * (2 * num_features + 3 * depth * width + 1)
-            + members * tiles * (partials + layer_sums)) * 4
+            + members * tiles * (partials + layer_sums)) * 4 + bf16
 
   def bnf_fused_train(self, *args):
     self.calls.append(args)
@@ -540,6 +548,39 @@ def test_chunks_ignore_rows_past_n_valid(monkeypatch):
     chunks.append(lib.calls[-1][-2])
     assert lib.calls[-1][-3] == 256  # n_valid
   assert chunks == [128, 128]
+
+
+def test_bf16_chunks_count_the_twins_and_ignore_rows_past_n_valid(
+    monkeypatch):
+  # A budget of 300 fp32 rows' scratch: 'f32' runs 256-row chunks, while a
+  # 'bf16' row also holds its bf16 twins and the call the weights' bf16
+  # copies, so 'bf16' runs 128-row chunks; rows past n_valid move no 'bf16'
+  # chunk boundary either.
+  _, _, args = _torch_args('depth2-seasonal-interactions')
+  width, f, g = _checked(args)
+  lib = _FakeTrainLib()
+  f32_row = lib.bnf_fused_train_scratch_bytes(3, f, width, 2, 3, g, 1, 0)
+  fixed = lib.bnf_fused_train_scratch_bytes(3, f, width, 2, 3, g, 0, 0, 0, 1)
+  bf16_row = lib.bnf_fused_train_scratch_bytes(
+      3, f, width, 2, 3, g, 1, 0, 0, 1) - fixed
+  assert fixed == 3 * (f + width) * 16 * 2  # W_0, W_1 rows of 16 bf16
+  assert bf16_row == f32_row + 3 * (f + 3 * width) * 2
+  monkeypatch.setattr(t_fused, 'TRAIN_SCRATCH_BYTES', 300 * f32_row)
+
+  def rows(t, n):
+    return t.repeat(*([1] * (t.ndim - 1)), 6)[..., :n].contiguous()
+
+  chunks = {}
+  for precision, n in (('f32', 512), ('bf16', 512), ('bf16', 512 + 13)):
+    longer = dict(args, x_t=rows(args['x_t'], n),
+                  seasonal_t=rows(args['seasonal_t'], n), y=rows(args['y'], n))
+    t_fused._launch_fused_train(  # pylint: disable=protected-access
+        lib, 'stream', _checked(longer), **longer, distribution='NORMAL',
+        precision=precision, n_valid=512)
+    chunks[precision, n] = lib.calls[-1][-2]
+    assert lib.calls[-1][-3] == 512  # n_valid
+  assert chunks == {('f32', 512): 256, ('bf16', 512): 128,
+                    ('bf16', 525): 128}
 
 
 def test_k1_takes_any_width_k2_does_not(monkeypatch):
@@ -739,3 +780,31 @@ def test_launch_passes_the_precision(precision):
   # passes no buffers for rounded weights at any precision.
   assert depth == config.depth
   assert len(lib.calls[-1]) == 41
+
+
+@pytest.mark.parametrize('layout', sorted(t_fused.TC_LAYOUTS))
+def test_tc_gemm_on_cpu_is_the_plain_product(layout):
+  # K1's tensor-core GEMM core takes its operands in the layout of one of
+  # K1's 'bf16' products; on CPU tensors it is the plain product of the
+  # logical (M, K) and (K, N) matrices, which an fp64 product of the same
+  # bf16 values bounds (fp32 sums: 1e-5 of the products' magnitudes).
+  rng = np.random.default_rng(3)
+  e, m, n, k = 2, 49, 20, 37
+  a_mk = rng.normal(size=(e, m, k)).astype(np.float32)
+  b_kn = rng.normal(size=(e, k, n)).astype(np.float32)
+  stored = {'forward': (a_mk.transpose(0, 2, 1), b_kn),
+            'wdv': (a_mk, b_kn),
+            'wgrad': (a_mk, b_kn.transpose(0, 2, 1))}[layout]
+  a, b = [torch.from_numpy(np.pad(s, ((0, 0), (0, 0), (0, 3)))).bfloat16()
+          for s in stored]
+  got = t_fused.tc_gemm(layout, a, b, m, n, k)
+  a64, b64 = [t.float().double().numpy() for t in (a, b)]
+  a64 = a64.transpose(0, 2, 1) if layout == 'forward' else a64
+  b64 = b64.transpose(0, 2, 1) if layout == 'wgrad' else b64
+  a64, b64 = a64[:, :m, :k], b64[:, :k, :n]
+  want = a64 @ b64
+  assert got.shape == (e, m, n) and got.dtype == torch.float32
+  assert (np.abs(got.numpy() - want) <= 1e-5 * (np.abs(a64) @ np.abs(b64))
+          ).all()
+  with pytest.raises(ValueError, match='unknown layout'):
+    t_fused.tc_gemm('rows', a, b, m, n, k)

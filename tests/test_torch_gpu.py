@@ -235,20 +235,40 @@ BF16_LEAF_TOL = 2e-3
 BF16_F32_TOL = 2e-2
 
 
+# 'bf16' shapes: (depth, width, rows, members, groups, chunked). `chunked`
+# sets a scratch budget below one tile's, so every 128-row tile is a chunk
+# of its own (the weight gradients add over chunks in order).
+BF16_SHAPES = [
+    (2, 64, 333, 3, None, False),
+    (1, 256, 70, 3, None, False),
+    (2, 1024, 17, 3, None, False),
+    (0, 1, 40, 3, None, False),
+    (2, 64, 333, 6, 2, False),
+    (1, 256, 70, 4, 4, False),
+    (2, 100, 333, 3, None, False),
+    (3, 64, 333, 3, None, False),
+    (2, 64, 333, 6, 2, True),
+]
+BF16_IDS = ['shared', 'shared-depth1', 'width1024', 'depth0', 'grouped-rep3',
+            'per-member', 'width100', 'depth3', 'multi-chunk']
+
+
+def _bf16_inputs(monkeypatch, cuda, depth, width, n, members, groups,
+                 chunked):
+  if chunked:
+    monkeypatch.setattr(fused_mlp, 'TRAIN_SCRATCH_BYTES', 1)
+  return _train_inputs(depth, width, n, members, cuda, groups=groups)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('distribution', ['NORMAL', 'NB', 'ZINB'])
-@pytest.mark.parametrize('depth,width,n,members,groups', [
-    (2, 64, 333, 3, None),
-    (1, 256, 70, 3, None),
-    (2, 1024, 17, 3, None),
-    (0, 1, 40, 3, None),
-    (2, 64, 333, 6, 2),
-    (1, 256, 70, 4, 4),
-], ids=['shared', 'shared-depth1', 'width1024', 'depth0', 'grouped-rep3',
-        'per-member'])
-def test_train_kernel_bf16_matches_plain(cuda, distribution, depth, width, n,
-                                         members, groups):
-  args = _train_inputs(depth, width, n, members, cuda, groups=groups)
+@pytest.mark.parametrize('depth,width,n,members,groups,chunked', BF16_SHAPES,
+                         ids=BF16_IDS)
+def test_train_kernel_bf16_matches_plain(cuda, monkeypatch, distribution,
+                                         depth, width, n, members, groups,
+                                         chunked):
+  args = _bf16_inputs(monkeypatch, cuda, depth, width, n, members, groups,
+                      chunked)
   if distribution != 'NORMAL':
     args = _with_counts(args, distribution)
   before = (fused_mlp.fused_train.launches, fused_mlp.fused_train.bf16_launches)
@@ -277,12 +297,46 @@ def test_train_kernel_highest_is_f32_bit_for_bit(cuda):
 
 
 @pytest.mark.gpu
-def test_train_kernel_bf16_is_reproducible(cuda):
+@pytest.mark.parametrize('depth,width,n,members,groups,chunked', [
+    (2, 256, 333, 4, 2, False), *BF16_SHAPES[-3:]],
+                         ids=['grouped-width256', *BF16_IDS[-3:]])
+def test_train_kernel_bf16_is_reproducible(cuda, monkeypatch, depth, width,
+                                           n, members, groups, chunked):
   # Fixed reduction orders and no atomics, as in fp32.
-  args = _train_inputs(2, 256, 333, 4, cuda, groups=2)
+  args = _bf16_inputs(monkeypatch, cuda, depth, width, n, members, groups,
+                      chunked)
   first = fused_mlp.fused_train(**args, precision='bf16')
   again = fused_mlp.fused_train(**args, precision='bf16')
   assert all(torch.equal(a, b) for a, b in zip(_flat(first), _flat(again)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('layout,m,n,k', [
+    ('forward', 100, 256, 49),
+    ('wdv', 49, 200, 130),
+    ('wgrad', 49, 100, 300),
+])
+def test_tc_gemm_matches_plain(cuda, layout, m, n, k):
+  # K1's tensor-core GEMM core in each product's operand layout, at M = 49,
+  # a width not a multiple of 8 and ragged K; each operand row padded with
+  # NaN, which the kernel must never read. Both sum exact products in fp32
+  # in other orders: within 1e-4 of the products' magnitudes.
+  rng = np.random.default_rng(5)
+  shapes = {'forward': ((k, m), (k, n)), 'wdv': ((m, k), (k, n)),
+            'wgrad': ((m, k), (n, k))}[layout]
+  a, b = [torch.nn.functional.pad(
+      torch.as_tensor(rng.normal(size=(2, rows, cols)), dtype=torch.float32),
+      (0, -cols % 8 + 8), value=float('nan')).bfloat16().to(cuda)
+          for rows, cols in shapes]
+  before = fused_mlp.tc_gemm.launches
+  got = fused_mlp.tc_gemm(layout, a, b, m, n, k)
+  torch.cuda.synchronize()
+  assert fused_mlp.tc_gemm.launches == before + 1
+  want = fused_mlp.tc_gemm_reference(layout, a, b, m, n, k)
+  a_mk, b_kn = fused_mlp._tc_operands(layout, a, b, m, n, k)  # pylint: disable=protected-access
+  mags = torch.matmul(a_mk.float().abs(), b_kn.float().abs())
+  assert bool(torch.isfinite(got).all())
+  assert bool(((got - want).abs() <= 1e-4 * mags).all())
 
 
 @pytest.mark.gpu
