@@ -8,11 +8,11 @@
 
 The JAX package's 'auto' falls back to 'xla', with a warning, when its
 kernel program fails to build. The port decides from shapes instead, before
-anything runs: 'auto' asks the kernel wrapper's own checks (for a fit K1's
-`fused_mlp.check_train_shape`, which needs no library: K1 takes any width;
-for a predict K2's `check_forward_shape` and `pick_tile_rows`) and picks
-'torch' for a model the kernel does not take (more inputs, interaction
-pairs or depth than K1 holds; more depth or width than K2 holds), and for
+anything runs: 'auto' asks the kernel wrapper's own checks, which need no
+library (for a fit K1's `fused_mlp.check_train_shape`, for a predict K2's
+`check_forward_shape`; both take any width) and picks 'torch' for a model
+the kernel does not take (more inputs, interaction pairs or depth than K1
+holds; more depth than K2 holds), and for
 a minibatch over a sharded data axis whose batch does not split evenly
 over the shards (the kernel path draws batch_size / data_shards rows per
 shard).
@@ -30,14 +30,11 @@ BACKENDS = ('torch', 'kernel', 'auto')
 
 def kernel_takes(config, distribution=None) -> bool:
   """Whether the kernel of a fit under `distribution` (K1), or of a predict
-  when `distribution` is None (K2), takes the model of `config`. For K2
-  builds its library when the model passes the checks that need none; K1's
-  checks need no library."""
-  f = config.encoded_dim
+  when `distribution` is None (K2), takes the model of `config`; neither
+  check builds a library."""
   try:
     if distribution is None:
       fused_mlp.check_forward_shape(config.depth)
-      fused_mlp.pick_tile_rows(f, config.width if config.depth else f)
     else:
       fused_mlp.check_train_shape(
           distribution, config.depth, config.width, config.fourier_degrees,

@@ -3,8 +3,9 @@
 // shared memory), the field's scalar functions, the block matmul of
 // activations in shared memory against a weight in global memory, the
 // narrow W dv product, and the cross-row kernels of the backward (weight
-// gradients, row sums, bf16 weight copies). `fused_mlp_fwd.cu` (K2, K4a),
-// `fused_train.cu` (K1) and `fused_mlp_bwd.cu` (K3, K4b) build on them;
+// gradients, row sums, bf16 weight copies). `fused_mlp_fwd.cu` (K4a),
+// `fused_mlp_bwd.cu` (K4b) and, through `field_layers.cuh`,
+// `fused_train.cu` (K1) and `fused_mlp_t.cu` (K2, K3) build on them;
 // every reduction has a fixed order and none uses atomics.
 
 #pragma once

@@ -1,17 +1,17 @@
-// Backward of the fused ensemble field MLP for Hopper (sm_90a), in both
-// layouts of the JAX package.
+// Backward of the fused ensemble field MLP for Hopper (sm_90a), row-major.
 //
-// Replaces the Pallas TPU kernels `_backward_kernel_t` (K3, the custom VJP of
-// `fused_field_mlp_t`, called by `_forward_t_bwd`) and `_backward_kernel`
-// (K4b, of `fused_field_mlp`, called by `_forward_bwd`) in
-// bayesnf_tpu/ops/fused_mlp.py. For the forward of `fused_mlp_fwd.cu`,
+// Replaces the Pallas TPU kernel `_backward_kernel` (K4b, the custom VJP of
+// `fused_field_mlp`, called by `_forward_bwd`) in
+// bayesnf_tpu/ops/fused_mlp.py. (The features-major K3 runs layer-wise in
+// `fused_mlp_t.cu`; the tile kernel keeps its layout parameter, instantiated
+// row-major only.) For the forward of `fused_mlp_fwd.cu`,
 //
 //   z_l = s_l * (W_l^T lhs_l + b_l),  lhs_l = h_l / sqrt(fan_in_l),
 //   h_{l+1} = act(z_l),  pred = s_out * v_out,  v_out = W_out^T lhs_depth + b_out
 //
 // and the cotangent g = d L / d pred (E, N), it returns, summed over rows,
 //
-//   dh0 (per row: (E, F, N) features-major, (E, N, F) row-major),
+//   dh0 (per row, (E, N, F)),
 //   dW_l = sum lhs_l dv_l^T,  db_l = sum dv_l,  with dv_out = g s_out,
 //   dh_l = W_l dv_l / sqrt(fan_in_l),  dz_l = dh_{l+1} act'(z_l),
 //   dv_l = dz_l s_l,
@@ -24,12 +24,10 @@
 //
 // Precision. Under 'bf16' a product takes bf16-rounded operands (nearest
 // even), exact products and fp32 sums where the TPU kernel casts: unless the
-// product's result has a last dimension of 1 (`_mm`, `_mm_t`). So in both
-// layouts the output layer's weight gradient stays fp32 (`rowdot_kernel`);
-// features-major, every other product rounds; row-major, the output layer's
-// forward h @ W_out stays fp32 too, and with one encoded feature so does the
-// first layer's dv @ W_0^T. The wrapper's C entry decides each site from the
-// layout and the shapes, and passes the per-layer masks `round_in_mask`
+// product's result has a last dimension of 1 (`_mm`). So the output layer's
+// weight gradient stays fp32 (`rowdot_kernel`), as does its forward
+// h @ W_out, and with one encoded feature the first layer's dv @ W_0^T. The
+// C entry decides each site from the shapes, and passes the per-layer masks `round_in_mask`
 // (layer l's forward input) and `round_dv_mask` (its W dv product) and the
 // weight each product reads (a bf16 copy, made once per call, or the
 // original). Each operand is rounded once, where it enters shared memory or
@@ -353,19 +351,19 @@ cudaError_t launch_tile(const BwdArgs& args, int tiles, int members,
   return cudaGetLastError();
 }
 
-// The tile kernel of this layout and precision: TR {32, 16} x layout x
-// precision, eight instantiations.
-template <bool kRowMajor, bool kBf16>
+// The row-major tile kernel of this precision: TR {32, 16} x precision,
+// four instantiations.
+template <bool kBf16>
 cudaError_t launch_tile_rows(const BwdArgs& args, int tile_rows, int tiles,
                              int members, size_t smem_bytes,
                              cudaStream_t stream) {
   switch (tile_rows) {
     case 32:
-      return launch_tile<32, kRowMajor, kBf16>(args, tiles, members,
-                                               smem_bytes, stream);
+      return launch_tile<32, true, kBf16>(args, tiles, members, smem_bytes,
+                                          stream);
     case 16:
-      return launch_tile<16, kRowMajor, kBf16>(args, tiles, members,
-                                               smem_bytes, stream);
+      return launch_tile<16, true, kBf16>(args, tiles, members, smem_bytes,
+                                          stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -396,9 +394,8 @@ size_t bnf_fused_mlp_bwd_scratch_bytes(int members, int num_features,
          sizeof(float);
 }
 
-// The backward of the fused MLP on `stream`: `layout` 0 for (E, F, N) h0 and
-// dh0 (features-major, K3), 1 for (E, N, F) (row-major, K4b); `precision` 0
-// fp32, 1 bf16. Pointers are device pointers to contiguous float32 tensors,
+// The backward of the row-major fused MLP on `stream`, h0 and dh0
+// (E, N, F); `precision` 0 fp32, 1 bf16. Pointers are device pointers to contiguous float32 tensors,
 // except the host arrays `weights`, `biases`, `dweights`, `dbiases` and
 // `weights16` (depth + 1 device pointers; `weights16`, buffers shaped like
 // the weights that receive their bf16-rounded copies, is read only under
@@ -410,18 +407,17 @@ int bnf_fused_mlp_bwd(const void* h0, const void* g,
                       const void* scales_raw, const void* logit, void* dh0,
                       void* const* dweights, void* const* dbiases,
                       void* dscales, void* dlogit, void* scratch,
-                      void* const* weights16, const float* rsqrts, int layout,
+                      void* const* weights16, const float* rsqrts,
                       int precision, int depth, int members, int num_features,
                       int width, int n_rows, int tile_rows, int chunk_rows,
                       void* stream) {
   if (depth < 0 || depth + 1 > kMaxLayers || members < 1 || members > 65535 ||
       n_rows < 1 || num_features < 1 || chunk_rows < tile_rows ||
-      chunk_rows % tile_rows != 0 || layout < 0 || layout > 1 ||
-      precision < 0 || precision > 1 ||
+      chunk_rows % tile_rows != 0 || precision < 0 || precision > 1 ||
       (precision == 1 && weights16 == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool row_major = layout == 1, bf16 = precision == 1;
+  const bool bf16 = precision == 1;
   if (depth == 0) width = num_features;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   BwdArgs args = {};
@@ -433,8 +429,8 @@ int bnf_fused_mlp_bwd(const void* h0, const void* g,
     args.w_fwd[l] = args.w_bwd[l] = static_cast<const float*>(weights[l]);
     args.b[l] = static_cast<const float*>(biases[l]);
     args.rsqrt[l] = rsqrts[l];
-    const bool round_fwd = bf16 && rounds_forward(row_major, fan_out);
-    const bool round_dv = bf16 && rounds_dh(row_major, fan_in);
+    const bool round_fwd = bf16 && rounds_forward(true, fan_out);
+    const bool round_dv = bf16 && rounds_dh(true, fan_in);
     if (round_fwd || round_dv) {
       float* copy = static_cast<float*>(weights16[l]);
       const cudaError_t err = launch_round_bf16(
@@ -488,17 +484,10 @@ int bnf_fused_mlp_bwd(const void* h0, const void* g,
     const int acc = row0 > 0;
     args.row0 = row0;
     args.tile0 = row0 / tile_rows;
-    if (row_major) {
-      err = bf16 ? launch_tile_rows<true, true>(args, tile_rows, tiles,
-                                                members, smem, s)
-                 : launch_tile_rows<true, false>(args, tile_rows, tiles,
-                                                 members, smem, s);
-    } else {
-      err = bf16 ? launch_tile_rows<false, true>(args, tile_rows, tiles,
-                                                 members, smem, s)
-                 : launch_tile_rows<false, false>(args, tile_rows, tiles,
-                                                  members, smem, s);
-    }
+    err = bf16 ? launch_tile_rows<true>(args, tile_rows, tiles, members,
+                                        smem, s)
+               : launch_tile_rows<false>(args, tile_rows, tiles, members,
+                                         smem, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     int fan_in = num_features;
     for (int l = 0; l < depth; ++l) {

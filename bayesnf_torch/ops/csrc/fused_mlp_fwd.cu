@@ -1,10 +1,10 @@
-// Fused ensemble field-MLP forward for Hopper (sm_90a), in both layouts of
-// the JAX package.
+// Fused ensemble field-MLP forward for Hopper (sm_90a), row-major.
 //
-// Replaces the Pallas TPU kernels `_forward_kernel_t` (K2, features-major,
-// reached through `fused_field_mlp_t` / `_forward_t`) and `_forward_kernel`
-// (K4a, row-major, through `fused_field_mlp` / `_forward`) in
-// bayesnf_tpu/ops/fused_mlp.py. Per ensemble member e and row n it computes
+// Replaces the Pallas TPU kernel `_forward_kernel` (K4a, row-major, reached
+// through `fused_field_mlp` / `_forward`) in bayesnf_tpu/ops/fused_mlp.py.
+// (The features-major K2 runs layer-wise in `fused_mlp_t.cu`; the tile
+// kernel keeps its layout parameter, instantiated row-major only.) Per
+// ensemble member e and row n it computes
 //
 //   h_0 = the encoded features of the row                 (F values)
 //   z_l = s_l * (W_l^T (h_l / sqrt(fan_in_l)) + b_l),  h_{l+1} = act(z_l)
@@ -12,22 +12,20 @@
 //
 // with s = softplus(scales_raw), act(z) = w*elu(z) + (1-w)*tanh(z) and
 // w = sigmoid(logit), in fp32 (FMA, no TF32, no fast-math intrinsics). h_0 is
-// read features-major, (E, F, N), or row-major, (E, N, F): a row-major tile
-// is one contiguous TR x F block. Only that load differs between the layouts.
+// read row-major, (E, N, F): a tile is one contiguous TR x F block.
 //
 // Precision. Under 'bf16' a product takes its operands rounded to bf16
 // (nearest even), multiplies them exactly and sums in fp32, where the TPU
-// kernel casts: every product of the features-major forward, and every one of
-// the row-major forward but the output layer's h @ W_out, whose result has a
-// last dimension of 1 (`_mm`, `_mm_t`). Each operand is rounded once: the
+// kernel casts: every product of the row-major forward but the output
+// layer's h @ W_out, whose result has a last dimension of 1 (`_mm`). Each operand is rounded once: the
 // weights of a rounded product into copies at the start of the call
 // (`round_bf16_kernel`), a layer's input where it is written to shared
 // memory (bit l of `round_in_mask`). The FMAs stay on the fp32 pipe;
-// precision and layout are template parameters, so the fp32 features-major
-// instantiations are the code they were.
+// precision is a template parameter, so the fp32 instantiations are the
+// code they were.
 //
 // What bounds it: at the serving path's shapes (64 members x 38,096 rows,
-// width 512, depth 2, F = 49) one predict is ~1.4 TFLOP of fp32 FMA, so the
+// width 512, depth 2, F = 49) one pass is ~1.4 TFLOP of fp32 FMA, so the
 // kernel is bound by the SIMT fp32 pipe, not by memory: the inputs are
 // ~64 x 49 x 4 B per row and the weights of one member (~1 MiB) are read by
 // all of its row tiles, so they stay in the 50 MB L2.
@@ -244,17 +242,15 @@ cudaError_t launch(const MlpArgs& args, int num_members, size_t smem_bytes,
   return cudaGetLastError();
 }
 
-template <bool kRowMajor, bool kBf16>
+template <bool kBf16>
 cudaError_t launch_tile_rows(const MlpArgs& args, int num_members,
                              int tile_rows, size_t smem_bytes,
                              cudaStream_t stream) {
   switch (tile_rows) {
     case 32:
-      return launch<32, kRowMajor, kBf16>(args, num_members, smem_bytes,
-                                          stream);
+      return launch<32, true, kBf16>(args, num_members, smem_bytes, stream);
     case 16:
-      return launch<16, kRowMajor, kBf16>(args, num_members, smem_bytes,
-                                          stream);
+      return launch<16, true, kBf16>(args, num_members, smem_bytes, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -273,27 +269,26 @@ size_t bnf_fused_mlp_fwd_smem_bytes(int tile_rows, int num_features,
          sizeof(float);
 }
 
-// Launches the forward on `stream`: `layout` 0 reads h0 as (E, F, N)
-// (features-major, K2), 1 as (E, N, F) (row-major, K4a); `precision` 0 is
-// fp32, 1 bf16. Pointers are device pointers to contiguous float32 tensors;
-// `weights`/`biases` are host arrays of depth + 1 device pointers, and
-// `weights16` (read under bf16 only) host pointers to buffers shaped like the
-// weights that receive the rounded copies; `rsqrts` is a host array of
+// Launches the row-major forward on `stream` for h0 (E, N, F); `precision`
+// 0 is fp32, 1 bf16. Pointers are device pointers to contiguous float32
+// tensors; `weights`/`biases` are host arrays of depth + 1 device pointers,
+// and `weights16` (read under bf16 only) host pointers to buffers shaped like
+// the weights that receive the rounded copies; `rsqrts` is a host array of
 // depth + 1 floats. Returns the first launch's cudaError_t that is not
 // cudaSuccess, or 0.
 int bnf_fused_mlp_fwd(const void* h0, const void* const* weights,
                       const void* const* biases, const void* scales_raw,
                       const void* logit, void* out, const float* rsqrts,
-                      void* const* weights16, int layout, int precision,
-                      int depth, int num_members, int num_features, int width,
+                      void* const* weights16, int precision, int depth,
+                      int num_members, int num_features, int width,
                       int n_rows, int tile_rows, void* stream) {
   if (depth < 0 || depth + 1 > kMaxLayers || num_members < 1 ||
-      num_members > 65535 || n_rows < 1 || num_features < 1 || layout < 0 ||
-      layout > 1 || precision < 0 || precision > 1 ||
+      num_members > 65535 || n_rows < 1 || num_features < 1 ||
+      precision < 0 || precision > 1 ||
       (precision == 1 && weights16 == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool row_major = layout == 1, bf16 = precision == 1;
+  const bool bf16 = precision == 1;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   MlpArgs args = {};
   args.h0 = static_cast<const float*>(h0);
@@ -303,7 +298,7 @@ int bnf_fused_mlp_fwd(const void* h0, const void* const* weights,
     args.w[l] = static_cast<const float*>(weights[l]);
     args.b[l] = static_cast<const float*>(biases[l]);
     args.rsqrt[l] = rsqrts[l];
-    if (bf16 && rounds_forward(row_major, fan_out)) {
+    if (bf16 && rounds_forward(true, fan_out)) {
       float* copy = static_cast<float*>(weights16[l]);
       const cudaError_t err = launch_round_bf16(
           args.w[l], copy, (size_t)num_members * fan_in * fan_out, s);
@@ -321,18 +316,9 @@ int bnf_fused_mlp_fwd(const void* h0, const void* const* weights,
   args.n_rows = n_rows;
   const size_t smem =
       bnf_fused_mlp_fwd_smem_bytes(tile_rows, num_features, width);
-  cudaError_t err;
-  if (row_major) {
-    err = bf16 ? launch_tile_rows<true, true>(args, num_members, tile_rows,
-                                              smem, s)
-               : launch_tile_rows<true, false>(args, num_members, tile_rows,
-                                               smem, s);
-  } else {
-    err = bf16 ? launch_tile_rows<false, true>(args, num_members, tile_rows,
-                                               smem, s)
-               : launch_tile_rows<false, false>(args, num_members, tile_rows,
-                                                smem, s);
-  }
+  const cudaError_t err =
+      bf16 ? launch_tile_rows<true>(args, num_members, tile_rows, smem, s)
+           : launch_tile_rows<false>(args, num_members, tile_rows, smem, s);
   return static_cast<int>(err);
 }
 

@@ -55,7 +55,9 @@
 //   6. `wgrad_kernel` (dW_l += lhs_l dv_l^T over the chunk's rows) and
 //      `rowdot_kernel` (db_l, and dW_out += lhs_depth dv_out), as before.
 // and once at the end `finalize_kernel` sums the per-tile partials in a fixed
-// order and applies the scalar chain rules. The scalar sums are per 128-row
+// order and applies the scalar chain rules. The layer kernels of steps 2, 4
+// and 6 (and their tensor-core versions below) live in `field_layers.cuh`,
+// shared with K2 and K3 (`fused_mlp_t.cu`). The scalar sums are per 128-row
 // tile (and per 128-column block of a layer's dz z and dh dact/dw sums), in
 // a fixed order within each; there are no atomics, so a call is bitwise
 // reproducible. Each product's outputs are one FMA chain in k order, so z,
@@ -122,9 +124,7 @@
 
 #include <cstdint>
 
-#include "field_mlp.cuh"
-#include "simt_gemm.cuh"
-#include "wgmma_gemm.cuh"
+#include "field_layers.cuh"
 
 namespace {
 
@@ -133,13 +133,6 @@ constexpr int kMaxPairs = 32;
 constexpr int kMaxGroups = kMaxInputs + 3;
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kHalfLog2Pi = 0.9189385332046727f;
-// Rows per tile: the GEMMs' N tile, and one thread per row in the per-row
-// kernels. Chunks are whole tiles.
-constexpr int kRowTile = kSgTile;
-constexpr int kRowWarps = kRowTile / 32;
-// The output layer's forward sums each row's products in kHeadLanes strided
-// chains, then the chains in order.
-constexpr int kHeadLanes = 8;
 
 // The observation models, as the wrapper codes them.
 enum Lik : int { kNormal = 0, kNB = 1, kZINB = 2 };
@@ -158,7 +151,9 @@ constexpr int kPartRR = 0;
 constexpr int kPartGV = 1;
 constexpr int kPartEnc = 2;
 
-struct TrainArgs {
+// The field MLP's part (`FieldArgs`, shared with the layer kernels of
+// `field_layers.cuh`), and the encode's inputs and the likelihood's.
+struct TrainArgs : FieldArgs {
   const float* x;                  // (D, N) or (E / x_rep, D, N)
   const float* seasonal;           // (S2, N) or (E / seasonal_rep, S2, N)
   const float* y;                  // (N,) or (E / y_rep, N)
@@ -168,42 +163,19 @@ struct TrainArgs {
   int x_rep;                       // members per group
   int seasonal_rep;
   int y_rep;
-  const float* w[kMaxLayers];      // (E, fan_in_l, fan_out_l)
-  const float* b[kMaxLayers];      // (E, fan_out_l)
-  bool w_vec[kMaxLayers];          // W_l allows 16-byte copies
   const float* lsa_eff;            // (E, D): lsa + log(input_scales)
   const float* fs_raw;             // (E, G)
-  const float* scales_raw;         // (E, depth + 1)
-  const float* logit;              // (E,)
   const float* obs_raw;            // (E, 3)
-  float* lhs[kMaxLayers];          // (E, fan_in_l, ld) chunk scratch
-  float* z[kMaxLayers];            // (E, width, ld), l < depth
-  float* dv[kMaxLayers];           // (E, fan_out_l, ld)
-  float* dh0;                      // (E, F, ld)
-  __nv_bfloat16* lhs_bf[kMaxLayers];  // 'bf16': lhs_l's twin, l < depth
-  __nv_bfloat16* dv_bf[kMaxLayers];   // 'bf16': dv_l's twin, l < depth
   float* partials;                 // (E, num_tiles, num_partials)
-  float* layer_partials;           // (E, num_tiles, depth, col_blocks, 2)
-  float rsqrt[kMaxLayers];         // 1/sqrt(fan_in_l), rounded from double
   float lik_scale;
   int fourier_degree[kMaxInputs];
   int pair_a[kMaxPairs];
   int pair_b[kMaxPairs];
-  int depth;
   int num_inputs;
   int num_seasonal;
   int num_pairs;
   int num_groups;
-  int num_features;
-  int width;
-  int n_rows;                      // rows N: the stride of x, seasonal, y
-  int n_valid;                     // rows that count: index < n_valid
-  int row0;                        // first row of this chunk
-  int ld;                          // scratch row stride (rows per chunk)
-  int tile0;                       // global index of the chunk's first tile
-  int num_tiles;                   // tiles over all N rows
   int num_partials;
-  int col_blocks;                  // 128-column blocks of a hidden layer
 };
 
 // log Gamma(x), x > 0, as `gammaln_stirling` in bayesnf_tpu/ops/special.py:
@@ -358,35 +330,8 @@ __device__ __forceinline__ void encode_row(const TrainArgs& args, int e,
   }
 }
 
-// Sums of `count` per-thread values over a row tile's kRowTile threads in a
-// fixed order (a shuffle tree per warp, then the warps in order), written
-// to out[0..count) by thread 0. `red` holds kMaxSums * kRowWarps floats.
+// The per-row kernels' block sums: at most one per input and per group.
 constexpr int kMaxSums = kMaxInputs + kMaxGroups;
-__device__ __forceinline__ void tile_sums(const float* vals, int count,
-                                          float* red, float* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int v = 0; v < count; ++v) {
-    const float s = warp_sum(vals[v]);
-    if (lane == 0) red[v * kRowWarps + warp] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int v = 0; v < count; ++v) {
-      float total = 0.f;
-      for (int w = 0; w < kRowWarps; ++w) total += red[v * kRowWarps + w];
-      out[v] = total;
-    }
-  }
-  __syncthreads();  // `red` is free again
-}
-
-// Member e's layer partials of (global) row tile `tile` and hidden layer l.
-__device__ __forceinline__ float* layer_partials(const TrainArgs& args, int e,
-                                                 int tile, int l) {
-  return args.layer_partials +
-         (((size_t)e * args.num_tiles + tile) * args.depth + l) *
-             args.col_blocks * 2;
-}
 
 // --- 1. Encode: lhs_0 = h_0 / sqrt(F), one thread per (row, member), and
 // under kBf16 its twin (when a hidden layer reads it); grid (row tiles of
@@ -405,78 +350,6 @@ __global__ void __launch_bounds__(kRowTile) encode_kernel(const TrainArgs args) 
                h0[k * args.ld] = v;
                if (h0_bf != nullptr) h0_bf[k * args.ld] = __float2bfloat16_rn(v);
              });
-}
-
-// --- 2. Hidden layer l's forward: z_l = s_l (W_l^T lhs_l + b_l) and
-// lhs_{l+1} = act(z_l) / sqrt(width); grid (width / 128, row tiles,
-// members).
-__global__ void __launch_bounds__(kThreads, 2)
-    forward_kernel(const TrainArgs args, int l) {
-  const int e = blockIdx.z;
-  const int width = args.width;
-  const int fan_in = l == 0 ? args.num_features : width;
-  const size_t ld = args.ld;
-  const float* b = args.b[l] + (size_t)e * width;
-  const float s = softplus(args.scales_raw[(size_t)e * (args.depth + 1) + l]);
-  const float wgt = sigmoid(args.logit[e]);
-  const float rs_next = args.rsqrt[l + 1];
-  float* zg = args.z[l] + (size_t)e * width * ld;
-  float* out = args.lhs[l + 1] + (size_t)e * width * ld;
-  simt_gemm<true>(
-      args.w[l] + (size_t)e * fan_in * width, width, args.w_vec[l],
-      args.lhs[l] + (size_t)e * fan_in * ld, (int)ld, width, fan_in,
-      [&](int c, int n, const float (&v)[4]) {
-        const float bj = __ldg(b + c);
-        float zz[4], h[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          zz[j] = s * (v[j] + bj);
-          h[j] = blended_act(zz[j], wgt) * rs_next;
-        }
-        *reinterpret_cast<float4*>(zg + c * ld + n) =
-            make_float4(zz[0], zz[1], zz[2], zz[3]);
-        *reinterpret_cast<float4*>(out + c * ld + n) =
-            make_float4(h[0], h[1], h[2], h[3]);
-      });
-}
-
-// --- 2'. The same on the tensor cores ('bf16'): A = W_l's bf16 copy
-// (MN-major), B = lhs_l's twin (MN-major); the epilogue also writes
-// lhs_{l+1}'s twin when layer l + 1 is hidden. Grid as forward_kernel's.
-__global__ void __launch_bounds__(kTcThreads, kTcBlocksPerSm)
-    tc_forward_kernel(const TrainArgs args, int l,
-                      const __grid_constant__ CUtensorMap w_map,
-                      const __grid_constant__ CUtensorMap lhs_map) {
-  extern __shared__ uint8_t tc_smem[];
-  const int e = blockIdx.z;
-  const int width = args.width;
-  const int m0 = blockIdx.x * kTcTile, n0 = blockIdx.y * kTcTile;
-  float acc[64];
-  tc_mainloop<kMNMajor, kMNMajor>(w_map, lhs_map, m0, n0, e, width, args.ld,
-                                  l == 0 ? args.num_features : width, tc_smem,
-                                  acc);
-  const size_t ld = args.ld;
-  const float* b = args.b[l] + (size_t)e * width;
-  const float s = softplus(args.scales_raw[(size_t)e * (args.depth + 1) + l]);
-  const float wgt = sigmoid(args.logit[e]);
-  const float rs_next = args.rsqrt[l + 1];
-  const size_t off = (size_t)e * width * ld;
-  float* zg = args.z[l] + off;
-  float* out = args.lhs[l + 1] + off;
-  __nv_bfloat16* out_bf = l + 1 < args.depth ? args.lhs_bf[l + 1] + off
-                                             : nullptr;
-  tc_epilogue(acc, m0, n0, width, [&](int c, int n, float v0, float v1) {
-    const float bj = __ldg(b + c);
-    const float z0 = s * (v0 + bj), z1 = s * (v1 + bj);
-    const float h0 = blended_act(z0, wgt) * rs_next;
-    const float h1 = blended_act(z1, wgt) * rs_next;
-    *reinterpret_cast<float2*>(zg + c * ld + n) = make_float2(z0, z1);
-    *reinterpret_cast<float2*>(out + c * ld + n) = make_float2(h0, h1);
-    if (out_bf != nullptr) {
-      *reinterpret_cast<__nv_bfloat162*>(out_bf + c * ld + n) =
-          __floats2bfloat162_rn(h0, h1);
-    }
-  });
 }
 
 // --- 3. The output layer, the likelihood and the last hidden layer's
@@ -600,174 +473,6 @@ __global__ void __launch_bounds__(kRowTile) head_kernel(const TrainArgs args) {
       lp[cb * 2] = sums[0];
       lp[cb * 2 + 1] = sums[1];
     }
-  }
-}
-
-// --- 4. dh = W_l dv_l / sqrt(fan_in_l) (W_l of shape (fan_in_l, width));
-// for l >= 1 the epilogue turns it into dv_{l-1} = dh act'(z_{l-1}) s_{l-1}
-// with the block's sums of dz z and dh dact/dw, for l = 0 it writes dh_0.
-// Grid (fan_in_l / 128, row tiles, members).
-template <bool kFirst>
-__global__ void __launch_bounds__(kThreads, 2)
-    backward_kernel(const TrainArgs args, int l) {
-  __shared__ float red[kWarps];
-  const int e = blockIdx.z;
-  const int width = args.width;
-  const int fan_in = kFirst ? args.num_features : width;
-  const size_t ld = args.ld;
-  const float rs = args.rsqrt[l];
-  const float* w = args.w[l] + (size_t)e * fan_in * width;
-  const float* dv = args.dv[l] + (size_t)e * width * ld;
-  if constexpr (kFirst) {
-    float* dh0 = args.dh0 + (size_t)e * fan_in * ld;
-    simt_gemm<false>(w, width, false, dv, (int)ld, fan_in, width,
-                     [&](int k, int n, const float (&v)[4]) {
-                       *reinterpret_cast<float4*>(dh0 + k * ld + n) =
-                           make_float4(v[0] * rs, v[1] * rs, v[2] * rs,
-                                       v[3] * rs);
-                     });
-  } else {
-    const float s =
-        softplus(args.scales_raw[(size_t)e * (args.depth + 1) + l - 1]);
-    const float wgt = sigmoid(args.logit[e]);
-    const float* zg = args.z[l - 1] + (size_t)e * width * ld;
-    float* dvg = args.dv[l - 1] + (size_t)e * width * ld;
-    float dzz = 0.f, dlogit = 0.f;
-    simt_gemm<false>(
-        w, width, false, dv, (int)ld, fan_in, width,
-        [&](int k, int n, const float (&v)[4]) {
-          const float4 z4 = *reinterpret_cast<const float4*>(zg + k * ld + n);
-          const float z[4] = {z4.x, z4.y, z4.z, z4.w};
-          float out[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float dact_dz, dact_dw;
-            blended_act_grad(z[j], wgt, &dact_dz, &dact_dw);
-            const float dh = v[j] * rs;
-            dlogit += dh * dact_dw;
-            const float dz = dh * dact_dz;
-            dzz += dz * z[j];
-            out[j] = dz * s;
-          }
-          *reinterpret_cast<float4*>(dvg + k * ld + n) =
-              make_float4(out[0], out[1], out[2], out[3]);
-        });
-    dzz = block_sum(dzz, red);
-    dlogit = block_sum(dlogit, red);
-    if (threadIdx.x == 0) {
-      float* lp = layer_partials(args, e, args.tile0 + blockIdx.y, l - 1);
-      lp[blockIdx.x * 2] = dzz;
-      lp[blockIdx.x * 2 + 1] = dlogit;
-    }
-  }
-}
-
-// --- 4'. The same on the tensor cores ('bf16'): A = W_l's bf16 copy
-// (K-major: W_l[k][c], the reduction over c), B = dv_l's twin (MN-major);
-// for l >= 1 the epilogue also writes dv_{l-1}'s twin. Grid as
-// backward_kernel's.
-static_assert(kTcThreads == kThreads, "block_sum sums kThreads threads");
-
-template <bool kFirst>
-__global__ void __launch_bounds__(kTcThreads, kTcBlocksPerSm)
-    tc_backward_kernel(const TrainArgs args, int l,
-                       const __grid_constant__ CUtensorMap w_map,
-                       const __grid_constant__ CUtensorMap dv_map) {
-  extern __shared__ uint8_t tc_smem[];
-  __shared__ float red[kTcThreads / 32];
-  const int e = blockIdx.z;
-  const int width = args.width;
-  const int fan_in = kFirst ? args.num_features : width;
-  const int m0 = blockIdx.x * kTcTile, n0 = blockIdx.y * kTcTile;
-  float acc[64];
-  tc_mainloop<kKMajor, kMNMajor>(w_map, dv_map, m0, n0, e, fan_in, args.ld,
-                                 width, tc_smem, acc);
-  const size_t ld = args.ld;
-  const float rs = args.rsqrt[l];
-  if constexpr (kFirst) {
-    float* dh0 = args.dh0 + (size_t)e * fan_in * ld;
-    tc_epilogue(acc, m0, n0, fan_in, [&](int k, int n, float v0, float v1) {
-      *reinterpret_cast<float2*>(dh0 + k * ld + n) =
-          make_float2(v0 * rs, v1 * rs);
-    });
-  } else {
-    const float s =
-        softplus(args.scales_raw[(size_t)e * (args.depth + 1) + l - 1]);
-    const float wgt = sigmoid(args.logit[e]);
-    const size_t off = (size_t)e * width * ld;
-    const float* zg = args.z[l - 1] + off;
-    float* dvg = args.dv[l - 1] + off;
-    __nv_bfloat16* dvg_bf = args.dv_bf[l - 1] + off;
-    float dzz = 0.f, dlogit = 0.f;
-    tc_epilogue(acc, m0, n0, width, [&](int k, int n, float v0, float v1) {
-      const float2 z2 = *reinterpret_cast<const float2*>(zg + k * ld + n);
-      const float z[2] = {z2.x, z2.y}, v[2] = {v0, v1};
-      float out[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float dact_dz, dact_dw;
-        blended_act_grad(z[j], wgt, &dact_dz, &dact_dw);
-        const float dh = v[j] * rs;
-        dlogit += dh * dact_dw;
-        const float dz = dh * dact_dz;
-        dzz += dz * z[j];
-        out[j] = dz * s;
-      }
-      *reinterpret_cast<float2*>(dvg + k * ld + n) = make_float2(out[0], out[1]);
-      *reinterpret_cast<__nv_bfloat162*>(dvg_bf + k * ld + n) =
-          __floats2bfloat162_rn(out[0], out[1]);
-    });
-    dzz = block_sum(dzz, red);
-    dlogit = block_sum(dlogit, red);
-    if (threadIdx.x == 0) {
-      float* lp = layer_partials(args, e, args.tile0 + blockIdx.y, l - 1);
-      lp[blockIdx.x * 2] = dzz;
-      lp[blockIdx.x * 2 + 1] = dlogit;
-    }
-  }
-}
-
-// --- 6'. The hidden weight gradient on the tensor cores ('bf16'):
-// dw(k, c) (+)= sum over the chunk's `len` rows of lhs_l[k][n] dv_l[c][n],
-// A = lhs_l's twin and B = dv_l's twin, both K-major (the rows are the
-// reduction); `accumulate` adds the chunk's sum to what dw holds, so the
-// chunks add in order. dw is (E, fan_in, width); grid (fan_in / 128,
-// width / 128, members).
-__global__ void __launch_bounds__(kTcThreads, kTcBlocksPerSm)
-    tc_wgrad_kernel(const __grid_constant__ CUtensorMap lhs_map,
-                    const __grid_constant__ CUtensorMap dv_map,
-                    float* __restrict__ dw, int fan_in, int width, int len,
-                    int accumulate) {
-  extern __shared__ uint8_t tc_smem[];
-  const int e = blockIdx.z;
-  const int m0 = blockIdx.x * kTcTile, n0 = blockIdx.y * kTcTile;
-  float acc[64];
-  tc_mainloop<kKMajor, kKMajor>(lhs_map, dv_map, m0, n0, e, fan_in, width,
-                                len, tc_smem, acc);
-  float* out = dw + (size_t)e * fan_in * width;
-  tc_epilogue(acc, m0, n0, fan_in, [&](int k, int c, float v0, float v1) {
-    const float v[2] = {v0, v1};
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      if (c + j < width) {
-        float* p = out + (size_t)k * width + c + j;
-        *p = accumulate ? *p + v[j] : v[j];
-      }
-    }
-  });
-}
-
-// A hidden W_l (rows of `width` floats) as bf16 rows of `ldw` >= width,
-// zero past the width: the tensor-core products' A operand.
-__global__ void __launch_bounds__(kThreads)
-    weights_bf16_kernel(const float* __restrict__ w,
-                        __nv_bfloat16* __restrict__ out, size_t rows,
-                        int width, int ldw) {
-  for (size_t i = blockIdx.x * (size_t)kThreads + threadIdx.x;
-       i < rows * ldw; i += (size_t)gridDim.x * kThreads) {
-    const size_t r = i / ldw;
-    const int c = (int)(i % ldw);
-    out[i] = __float2bfloat16_rn(c < width ? __ldg(w + r * width + c) : 0.f);
   }
 }
 
@@ -963,37 +668,17 @@ int num_partials(int num_inputs, int num_groups, int likelihood) {
   return kPartEnc + num_inputs + num_groups + (likelihood == kNormal ? 0 : 2);
 }
 
-int col_blocks(int width) { return (width + kSgTile - 1) / kSgTile; }
-
 // Scratch floats per chunk row and member: lhs_l (F + depth * width), z_l
 // (depth * width), dv_l (depth * width + 1), dh_0 (F).
 size_t floats_per_row(int num_features, int width, int depth) {
   return 2 * (size_t)num_features + 3 * (size_t)depth * width + 1;
 }
 
-// 'bf16': the bf16 weight copies' row stride, a multiple of 8 elements
-// (TMA's 16-byte strides); the twins' elements per chunk row and member
-// (lhs_l and dv_l for l < depth); the weight copies' elements per member.
-int padded_width(int width) { return (width + 7) / 8 * 8; }
+// 'bf16': the twins' elements per chunk row and member (lhs_l and dv_l for
+// l < depth).
 size_t twins_per_row(int num_features, int width, int depth) {
   return depth ? num_features + (2 * (size_t)depth - 1) * width : 0;
 }
-size_t weight_copies(int num_features, int width, int depth) {
-  return depth ? (num_features + (size_t)(depth - 1) * width) *
-                     padded_width(width)
-               : 0;
-}
-
-// A launch's status when a tensor map could not be made (no cudaError_t
-// has this value).
-constexpr int kTensorMapError = 2000;
-
-// The tensor maps of the 'bf16' products, per hidden layer l.
-struct TcMaps {
-  CUtensorMap w[kMaxLayers];    // W_l's bf16 copy: (width, fan_in_l, E)
-  CUtensorMap lhs[kMaxLayers];  // lhs_l's twin: (ld, fan_in_l, E)
-  CUtensorMap dv[kMaxLayers];   // dv_l's twin: (ld, width, E)
-};
 
 template <int kLik>
 void launch_head(const TrainArgs& args, bool bf16, dim3 grid,
@@ -1010,7 +695,6 @@ void launch_head(const TrainArgs& args, bool bf16, dim3 grid,
 cudaError_t launch_chunk(const TrainArgs& args, int likelihood, bool bf16,
                          const TcMaps& maps, int tiles, int members,
                          cudaStream_t s) {
-  const int depth = args.depth, width = args.width;
   const dim3 rows(tiles, members);
   cudaError_t err;
   if (bf16) {
@@ -1019,16 +703,8 @@ cudaError_t launch_chunk(const TrainArgs& args, int likelihood, bool bf16,
     encode_kernel<false><<<rows, kRowTile, 0, s>>>(args);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const dim3 hidden(col_blocks(width), tiles, members);
-  for (int l = 0; l < depth; ++l) {
-    if (bf16) {
-      tc_forward_kernel<<<hidden, kTcThreads, kTcSmemBytes, s>>>(
-          args, l, maps.w[l], maps.lhs[l]);
-    } else {
-      forward_kernel<<<hidden, kThreads, 0, s>>>(args, l);
-    }
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
+  err = launch_forward_layers<true>(args, bf16, maps, tiles, members, s);
+  if (err != cudaSuccess) return err;
   switch (likelihood) {
     case kNormal:
       launch_head<kNormal>(args, bf16, rows, s);
@@ -1040,25 +716,8 @@ cudaError_t launch_chunk(const TrainArgs& args, int likelihood, bool bf16,
       launch_head<kZINB>(args, bf16, rows, s);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  for (int l = depth - 1; l >= 1; --l) {
-    if (bf16) {
-      tc_backward_kernel<false><<<hidden, kTcThreads, kTcSmemBytes, s>>>(
-          args, l, maps.w[l], maps.dv[l]);
-    } else {
-      backward_kernel<false><<<hidden, kThreads, 0, s>>>(args, l);
-    }
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  if (depth > 0) {
-    const dim3 first(col_blocks(args.num_features), tiles, members);
-    if (bf16) {
-      tc_backward_kernel<true><<<first, kTcThreads, kTcSmemBytes, s>>>(
-          args, 0, maps.w[0], maps.dv[0]);
-    } else {
-      backward_kernel<true><<<first, kThreads, 0, s>>>(args, 0);
-    }
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
+  err = launch_wdv_chain<false>(args, bf16, maps, tiles, members, s);
+  if (err != cudaSuccess) return err;
   encode_backward_kernel<<<rows, kRowTile, 0, s>>>(args);
   return cudaGetLastError();
 }
@@ -1083,22 +742,17 @@ __global__ void __launch_bounds__(kTcThreads, kTcBlocksPerSm)
   });
 }
 
-// Opts every tensor-core kernel into kTcSmemBytes of dynamic shared memory.
-cudaError_t set_tc_smem() {
-  const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+// Opts every tensor-core kernel of K1 into kTcSmemBytes of dynamic shared
+// memory.
+cudaError_t set_k1_tc_smem() {
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(tc_forward_kernel, attr, kTcSmemBytes)) ||
-      (err = cudaFuncSetAttribute(tc_backward_kernel<false>, attr,
-                                  kTcSmemBytes)) ||
-      (err = cudaFuncSetAttribute(tc_backward_kernel<true>, attr,
-                                  kTcSmemBytes)) ||
-      (err = cudaFuncSetAttribute(tc_wgrad_kernel, attr, kTcSmemBytes)) ||
-      (err = cudaFuncSetAttribute(tc_gemm_kernel<kMNMajor, kMNMajor>, attr,
-                                  kTcSmemBytes)) ||
-      (err = cudaFuncSetAttribute(tc_gemm_kernel<kKMajor, kMNMajor>, attr,
-                                  kTcSmemBytes)) ||
-      (err = cudaFuncSetAttribute(tc_gemm_kernel<kKMajor, kKMajor>, attr,
-                                  kTcSmemBytes))) {
+  if ((err = set_tc_smem(tc_forward_kernel<true>)) ||
+      (err = set_tc_smem(tc_backward_kernel<false>)) ||
+      (err = set_tc_smem(tc_backward_kernel<true>)) ||
+      (err = set_tc_smem(tc_wgrad_kernel)) ||
+      (err = set_tc_smem(tc_gemm_kernel<kMNMajor, kMNMajor>)) ||
+      (err = set_tc_smem(tc_gemm_kernel<kKMajor, kMNMajor>)) ||
+      (err = set_tc_smem(tc_gemm_kernel<kKMajor, kKMajor>))) {
     return err;
   }
   return cudaSuccess;
@@ -1279,74 +933,21 @@ int bnf_fused_train(const void* x, const void* seasonal, const void* y,
   // products' operands (the scratch does not move between chunks).
   TcMaps maps = {};
   if (bf16 && depth > 0) {
-    if ((err = set_tc_smem()) != cudaSuccess) return static_cast<int>(err);
-    for (int l = 0; l < depth; ++l) {
-      const int fan_in = l == 0 ? num_features : width;
-      const size_t count = (size_t)members * fan_in * ldw;
-      const size_t blocks = (count + kThreads - 1) / kThreads;
-      weights_bf16_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096),
-                            kThreads, 0, s>>>(args.w[l], w_bf[l],
-                                              (size_t)members * fan_in, width,
-                                              ldw);
-      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-      if (!encode_tc_map(&maps.w[l], w_bf[l], width, fan_in, members, ldw,
-                         (size_t)fan_in * ldw) ||
-          !encode_tc_map(&maps.lhs[l], args.lhs_bf[l], chunk_rows, fan_in,
-                         members, chunk_rows, (size_t)fan_in * chunk_rows) ||
-          !encode_tc_map(&maps.dv[l], args.dv_bf[l], chunk_rows, width,
-                         members, chunk_rows, (size_t)width * chunk_rows)) {
-        return kTensorMapError;
-      }
-    }
+    if ((err = set_k1_tc_smem()) != cudaSuccess) return static_cast<int>(err);
+    const int status = prepare_tc(args, w_bf, members, &maps, s);
+    if (status != 0) return status;
   }
   for (int row0 = 0; row0 < n_rows; row0 += chunk_rows) {
     const int chunk = n_rows - row0 < chunk_rows ? n_rows - row0 : chunk_rows;
     const int tiles = (chunk + kRowTile - 1) / kRowTile;
-    const int len = tiles * kRowTile;
     const int acc = row0 > 0;
     args.row0 = row0;
     args.tile0 = row0 / kRowTile;
     err = launch_chunk(args, likelihood, bf16, maps, tiles, members, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    int fan_in = num_features;
-    for (int l = 0; l < depth; ++l) {
-      float* dw = static_cast<float*>(dweights[l]);
-      if (bf16 && width > 1) {
-        // Rounded operands, as the TPU kernel's when dv_l has more than
-        // one column.
-        const dim3 grid(col_blocks(fan_in), col_blocks(width), members);
-        tc_wgrad_kernel<<<grid, kTcThreads, kTcSmemBytes, s>>>(
-            maps.lhs[l], maps.dv[l], dw, fan_in, width, len, acc);
-      } else if (bf16) {
-        // One column: the fp32 row sums, as the output layer's.
-        const int warps = members * fan_in;
-        rowdot_kernel<<<(warps + kWarps - 1) / kWarps, kThreads, 0, s>>>(
-            args.lhs[l], args.dv[l], dw, members, fan_in, len, chunk_rows,
-            acc);
-      } else {
-        const dim3 grid((width + kGTile - 1) / kGTile,
-                        (fan_in + kGTile - 1) / kGTile, members);
-        wgrad_kernel<false><<<grid, kThreads, 0, s>>>(
-            args.lhs[l], args.dv[l], dw, fan_in, width, len, chunk_rows, acc);
-      }
-      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-      fan_in = width;
-    }
-    for (int l = 0; l <= depth; ++l) {
-      const int fan_out = l == depth ? 1 : width;
-      const int warps = members * fan_out;
-      rowdot_kernel<<<(warps + kWarps - 1) / kWarps, kThreads, 0, s>>>(
-          args.dv[l], nullptr, static_cast<float*>(dbiases[l]), members,
-          fan_out, len, chunk_rows, acc);
-      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    }
-    {
-      const int warps = members * fan_in;
-      rowdot_kernel<<<(warps + kWarps - 1) / kWarps, kThreads, 0, s>>>(
-          args.lhs[depth], args.dv[depth], static_cast<float*>(dweights[depth]),
-          members, fan_in, len, chunk_rows, acc);
-      if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    }
+    err = launch_weight_grads(args, bf16, maps, dweights, dbiases, members,
+                              tiles * kRowTile, acc, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
 
   FinalArgs fin = {};
@@ -1401,7 +1002,7 @@ int bnf_tc_gemm(const void* a, const void* b, void* out, int layout,
           ? encode_tc_map(&map_b, b, K, N, members, ldb, (size_t)N * ldb)
           : encode_tc_map(&map_b, b, N, K, members, ldb, (size_t)K * ldb);
   if (!a_ok || !b_ok) return kTensorMapError;
-  cudaError_t err = set_tc_smem();
+  cudaError_t err = set_k1_tc_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((M + kTcTile - 1) / kTcTile, (N + kTcTile - 1) / kTcTile,
                   members);

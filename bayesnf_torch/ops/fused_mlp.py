@@ -25,9 +25,10 @@ member, or stored once per group of `rep` consecutive members (rep = 1: one
 minibatch per member; rep = S: a VI member's minibatch feeds its S draws).
 
 On CUDA tensors the entry points launch the hand-written CUDA kernels
-(`csrc/fused_mlp_fwd.cu`: K2 and K4a; `csrc/fused_mlp_bwd.cu`: K3 and K4b;
-`csrc/fused_train.cu`: K1), and on CPU tensors they compute their plain
-PyTorch versions (`fused_field_mlp_t_reference`, `fused_field_mlp_reference`,
+(`csrc/fused_mlp_t.cu`: K2 and K3; `csrc/fused_mlp_fwd.cu`: K4a;
+`csrc/fused_mlp_bwd.cu`: K4b; `csrc/fused_train.cu`: K1), and on CPU
+tensors they compute their plain PyTorch versions
+(`fused_field_mlp_t_reference`, `fused_field_mlp_reference`,
 `fused_train_reference`). They never fall back: on a CUDA tensor each
 launches its kernel or raises, forward and backward alike.
 """
@@ -46,14 +47,16 @@ from bayesnf_torch.ops import mixed
 
 _LIB_NAME = 'fused_mlp_fwd'
 _BWD_LIB_NAME = 'fused_mlp_bwd'
+_T_LIB_NAME = 'fused_mlp_t'
 _TRAIN_LIB_NAME = 'fused_train'
 MAX_DEPTH = 8  # kMaxLayers - 1 in the kernel sources.
 MAX_MEMBERS = 65535  # gridDim.y.
 # Opt-in shared memory of one block on sm_90 (227 KB).
 MAX_SHARED_BYTES = 232448
-TILE_ROWS = (32, 16)  # K2/K3's instantiations, largest first.
-# K1's row tile (kRowTile in csrc/fused_train.cu): its chunks are whole tiles,
-# at most gridDim.y of them (its GEMMs' grid).
+TILE_ROWS = (32, 16)  # K4a/K4b's instantiations, largest first.
+# The row tile of the layer-wise kernels (K1, K2, K3; kRowTile in
+# csrc/field_layers.cuh): their chunks are whole tiles, at most gridDim.y of
+# them (their GEMMs' grid).
 TRAIN_ROW_TILE = 128
 MAX_TRAIN_CHUNK_TILES = 65535
 MAX_INPUTS = 8  # kMaxInputs in csrc/fused_train.cu.
@@ -65,11 +68,8 @@ MAX_PARTIALS = 32
 LIKELIHOOD_CODES = {'NORMAL': 0, 'NB': 1, 'ZINB': 2}
 # Its precision codes: 'highest' runs the fp32 kernel (see `ops/mixed.py`).
 PRECISION_CODES = {'f32': 0, 'highest': 0, 'bf16': 1}
-# The layouts of h0 in `fused_mlp_fwd.cu` and `fused_mlp_bwd.cu`:
-# features-major (E, F, N) and row-major (E, N, F).
-LAYOUT_CODES = {'features': 0, 'rows': 1}
-# Global scratch one `fused_train` call, or one backward of the field MLP,
-# may hold; rows are processed in chunks that fit it.
+# Global scratch one `fused_train` call, or one call of the field MLP's
+# kernels (K2, K3, K4b), may hold; rows are processed in chunks that fit it.
 TRAIN_SCRATCH_BYTES = 2 << 30
 
 
@@ -168,8 +168,8 @@ def fused_field_mlp_vjp_reference(
 
 def pick_tile_rows(num_features: int, width: int,
                    backward: bool = False) -> int:
-  """Rows per block of the forward (or, with `backward`, of the backward's
-  tile kernel): the largest instantiated tile whose buffers fit.
+  """Rows per block of the row-major forward K4a (or, with `backward`, of
+  K4b's tile kernel): the largest instantiated tile whose buffers fit.
 
   Raises:
     ValueError: if even the smallest tile does not fit in shared memory.
@@ -201,7 +201,7 @@ def _lib() -> ctypes.CDLL:
       ptr, ptr, ptr,  # scales_raw, logit, out
       ctypes.POINTER(ctypes.c_float),  # rsqrts
       ptrs,  # buffers for the bf16-rounded weights (precision code 1)
-      i32, i32,  # layout, precision
+      i32,  # precision
       i32, i32, i32, i32, i32, i32,  # depth, members, features, width, rows, tile
       ptr,  # stream
   ]
@@ -223,7 +223,7 @@ def _bwd_lib() -> ctypes.CDLL:
       ptr,  # scratch
       ptrs,  # buffers for the bf16-rounded weights (precision code 1)
       ctypes.POINTER(ctypes.c_float),  # rsqrts
-      i32, i32,  # layout, precision
+      i32,  # precision
       i32, i32, i32, i32, i32,  # depth, members, features, width, rows
       i32, i32,  # tile_rows, chunk_rows
       ptr,  # stream
@@ -237,9 +237,36 @@ def _bwd_lib() -> ctypes.CDLL:
   return lib
 
 
+@functools.cache
+def _t_lib() -> ctypes.CDLL:
+  lib = _build.load_library(_T_LIB_NAME)
+  ptr, ptrs, i32 = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int
+  rsqrts = ctypes.POINTER(ctypes.c_float)
+  sizes = [i32] * 6  # precision, depth, members, features, width, rows
+  lib.bnf_fused_mlp_t_fwd.argtypes = [
+      ptr, ptrs, ptrs,  # h0, weights, biases
+      ptr, ptr, ptr, ptr,  # scales_raw, logit, out, scratch
+      rsqrts, *sizes, i32, ptr,  # chunk_rows, stream
+  ]
+  lib.bnf_fused_mlp_t_fwd.restype = ctypes.c_int
+  lib.bnf_fused_mlp_t_bwd.argtypes = [
+      ptr, ptr, ptrs, ptrs,  # h0, g, weights, biases
+      ptr, ptr, ptr,  # scales_raw, logit, dh0
+      ptrs, ptrs, ptr, ptr,  # dweights, dbiases, dscales, dlogit
+      ptr,  # scratch
+      rsqrts, *sizes, i32, ptr,  # chunk_rows, stream
+  ]
+  lib.bnf_fused_mlp_t_bwd.restype = ctypes.c_int
+  lib.bnf_fused_mlp_t_scratch_bytes.argtypes = [i32] * 8
+  lib.bnf_fused_mlp_t_scratch_bytes.restype = ctypes.c_size_t
+  _declare_common(lib)
+  return lib
+
+
 def check_forward_shape(depth):
   """Raises ValueError for a depth the field-MLP kernels do not take (above
-  MAX_DEPTH); their width limit is `pick_tile_rows`'."""
+  MAX_DEPTH). K2 and K3 take any width; K4a and K4b's width limit is
+  `pick_tile_rows`'."""
   if not 0 <= depth <= MAX_DEPTH:
     raise ValueError(f'depth must be in [0, {MAX_DEPTH}], got {depth}.')
 
@@ -314,16 +341,98 @@ def _entry(layout):
   return fused_field_mlp_t if layout == 'features' else fused_field_mlp
 
 
+def _chunk_rows(scratch_bytes, n):
+  """Rows per chunk of a layer-wise call (K1, K2, K3): as many whole
+  TRAIN_ROW_TILE-row tiles as TRAIN_SCRATCH_BYTES holds beside what the call
+  holds whatever its rows (under 'bf16' the weights' bf16 copies), at most
+  MAX_TRAIN_CHUNK_TILES of them, and no more than n's own tiles.
+  `scratch_bytes(chunk_rows, n_rows)` is the library's formula; it does not
+  depend on n beyond n's own tiles, so rows past a valid count move no
+  chunk boundary."""
+  tile = TRAIN_ROW_TILE
+  fixed = scratch_bytes(0, 0)
+  per_row = scratch_bytes(1, 0) - fixed
+  tiles = min(max(1, (TRAIN_SCRATCH_BYTES - fixed) // per_row // tile),
+              MAX_TRAIN_CHUNK_TILES)
+  return min(tiles * tile, -(-n // tile) * tile)
+
+
+def _t_scratch(lib, h0, width, depth, code, backward):
+  """(chunk rows, scratch tensor) of a K2 (`backward` 0) or K3 (1) call."""
+  e, f, n = h0.shape
+
+  def scratch_bytes(rows, total):
+    return lib.bnf_fused_mlp_t_scratch_bytes(e, f, width, depth, rows, total,
+                                             code, backward)
+
+  chunk_rows = _chunk_rows(scratch_bytes, n)
+  scratch = torch.empty(-(-scratch_bytes(chunk_rows, n) // 4),
+                        dtype=torch.float32, device=h0.device)
+  return chunk_rows, scratch
+
+
+def _launch_k2(lib, stream, depth, precision, width, h0, weights, biases,
+               scales_raw, logit):
+  """One K2 call of `lib` on `stream`, layer-wise over chunks of whole
+  128-row tiles; `width` is what `_check_inputs` returned."""
+  e, f, n = h0.shape
+  code = PRECISION_CODES[precision]
+  chunk_rows, scratch = _t_scratch(lib, h0, width, depth, code, 0)
+  out = torch.empty((e, n), dtype=torch.float32, device=h0.device)
+  err = lib.bnf_fused_mlp_t_fwd(
+      h0.data_ptr(), _ptrs(weights), _ptrs(biases), scales_raw.data_ptr(),
+      logit.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+      _rsqrts([f] + [width] * depth), code, depth, e, f, width, n,
+      chunk_rows, stream)
+  _raise_on(err, lib, 'fused_field_mlp_t')
+  return out
+
+
+def _launch_k3(lib, stream, depth, precision, width, h0, weights, biases,
+               scales_raw, logit, g):
+  """One K3 call of `lib` on `stream`, as `_launch_k2`.
+
+  Returns:
+    (dh0 (E, F, N), dweights, dbiases, dscales_raw, dlogit).
+  """
+  e, f, n = h0.shape
+  code = PRECISION_CODES[precision]
+  chunk_rows, scratch = _t_scratch(lib, h0, width, depth, code, 1)
+  dh0, dws, dbs, dscales, dlogit = outs = _empty_grads(h0, weights, biases,
+                                                       scales_raw, logit)
+  err = lib.bnf_fused_mlp_t_bwd(
+      h0.data_ptr(), g.data_ptr(), _ptrs(weights), _ptrs(biases),
+      scales_raw.data_ptr(), logit.data_ptr(), dh0.data_ptr(), _ptrs(dws),
+      _ptrs(dbs), dscales.data_ptr(), dlogit.data_ptr(), scratch.data_ptr(),
+      _rsqrts([f] + [width] * depth), code, depth, e, f, width, n,
+      chunk_rows, stream)
+  _raise_on(err, lib, 'fused_field_mlp_t backward')
+  return outs
+
+
+def _empty_grads(h0, weights, biases, scales_raw, logit):
+  return (torch.empty_like(h0), tuple(torch.empty_like(w) for w in weights),
+          tuple(torch.empty_like(b) for b in biases),
+          torch.empty_like(scales_raw), torch.empty_like(logit))
+
+
 def _launch_forward(layout, depth, precision, h0, weights, biases,
                     scales_raw, logit):
   """One K2 (features-major) or K4a (row-major) call on the current stream."""
   width = _check_inputs(depth, h0, weights, biases, scales_raw, logit, layout)
   e, f, n = _dims(h0, layout)
-  out = torch.empty((e, n), dtype=torch.float32, device=h0.device)
   if n == 0:
+    return torch.empty((e, 0), dtype=torch.float32, device=h0.device)
+  if layout == 'features':
+    with torch.cuda.device(h0.device):
+      out = _launch_k2(_t_lib(), torch.cuda.current_stream().cuda_stream,
+                       depth, precision, width, h0, weights, biases,
+                       scales_raw, logit)
+    fused_field_mlp_t.launches += 1
     return out
   tile_rows = pick_tile_rows(f, width)
   code = PRECISION_CODES[precision]
+  out = torch.empty((e, n), dtype=torch.float32, device=h0.device)
   # Under 'bf16' the kernel writes the rounded weights here (held until the
   # call returns; later allocations on the stream are ordered after it).
   weights16 = [torch.empty_like(w) for w in weights] if code else None
@@ -332,12 +441,11 @@ def _launch_forward(layout, depth, precision, h0, weights, biases,
     err = lib.bnf_fused_mlp_fwd(
         h0.data_ptr(), _ptrs(weights), _ptrs(biases), scales_raw.data_ptr(),
         logit.data_ptr(), out.data_ptr(), _rsqrts([f] + [width] * depth),
-        _ptrs(weights16) if code else None, LAYOUT_CODES[layout], code,
-        depth, e, f, width, n, tile_rows,
-        torch.cuda.current_stream().cuda_stream,
+        _ptrs(weights16) if code else None, code, depth, e, f, width, n,
+        tile_rows, torch.cuda.current_stream().cuda_stream,
     )
-  _raise_on(err, lib, _entry(layout).__name__)
-  _entry(layout).launches += 1
+  _raise_on(err, lib, 'fused_field_mlp')
+  fused_field_mlp.launches += 1
   return out
 
 
@@ -355,13 +463,19 @@ def _launch_backward(layout, depth, precision, h0, weights, biases,
     raise ValueError(
         f'The cotangent must be a float32 ({e}, {n}) tensor on {h0.device}; '
         f'got {g.dtype} {tuple(g.shape)} on {g.device}.')
-  outs = (torch.empty_like(h0), tuple(torch.empty_like(w) for w in weights),
-          tuple(torch.empty_like(b) for b in biases),
-          torch.empty_like(scales_raw), torch.empty_like(logit))
   if n == 0:
+    outs = _empty_grads(h0, weights, biases, scales_raw, logit)
     for t in (outs[0], *outs[1], *outs[2], *outs[3:]):
       t.zero_()
     return outs
+  if layout == 'features':
+    with torch.cuda.device(h0.device):
+      outs = _launch_k3(_t_lib(), torch.cuda.current_stream().cuda_stream,
+                        depth, precision, width, h0, weights, biases,
+                        scales_raw, logit, g)
+    fused_field_mlp_t.bwd_launches += 1
+    return outs
+  outs = _empty_grads(h0, weights, biases, scales_raw, logit)
   tile_rows = pick_tile_rows(f, width, backward=True)
   lib = _bwd_lib()
   scratch_bytes = functools.partial(lib.bnf_fused_mlp_bwd_scratch_bytes, e,
@@ -381,11 +495,11 @@ def _launch_backward(layout, depth, precision, h0, weights, biases,
         scales_raw.data_ptr(), logit.data_ptr(), dh0.data_ptr(), _ptrs(dws),
         _ptrs(dbs), dscales.data_ptr(), dlogit.data_ptr(), scratch.data_ptr(),
         _ptrs(weights16) if code else None, _rsqrts([f] + [width] * depth),
-        LAYOUT_CODES[layout], code, depth, e, f, width, n, tile_rows,
-        chunk_rows, torch.cuda.current_stream().cuda_stream,
+        code, depth, e, f, width, n, tile_rows, chunk_rows,
+        torch.cuda.current_stream().cuda_stream,
     )
-  _raise_on(err, lib, f'{_entry(layout).__name__} backward')
-  _entry(layout).bwd_launches += 1
+  _raise_on(err, lib, 'fused_field_mlp backward')
+  fused_field_mlp.bwd_launches += 1
   return outs
 
 
@@ -482,11 +596,16 @@ def fused_field_mlp_t(
       operands, exact products, fp32 sums: every product but the output
       layer's weight gradient, as the TPU kernels).
 
+  On CUDA, K2 and K3 run layer-wise (`csrc/fused_mlp_t.cu`): over chunks
+  of whole 128-row tiles sized under `TRAIN_SCRATCH_BYTES`, one GEMM per
+  layer and direction (SIMT fp32 under 'f32', tensor cores under 'bf16'),
+  so any width fits.
+
   Raises:
     ValueError: on an unknown precision, or on CUDA on shapes, dtypes,
-      devices or layouts the kernels do not take, or a width whose tile does
-      not fit in shared memory.
-    RuntimeError: if a kernel fails to build or to launch.
+      devices or layouts the kernels do not take.
+    RuntimeError: if a kernel fails to build or to launch, or a tensor map
+      of the 'bf16' products is refused.
   """
   tensors = (*h0_groups, *weights, *biases, scales_raw, logit)
   if not _on_cuda('features', precision, tensors):
@@ -533,7 +652,8 @@ def fused_field_mlp(
   layer's h @ W_out or its weight gradient, nor, with F = 1, d h0.
 
   Raises:
-    ValueError: as :func:`fused_field_mlp_t`.
+    ValueError: as :func:`fused_field_mlp_t`, and for a width whose tile
+      does not fit in shared memory (`pick_tile_rows`).
     RuntimeError: if a kernel fails to build or to launch.
   """
   tensors = (h0, *weights, *biases, scales_raw, logit)
@@ -826,24 +946,17 @@ def _launch_fused_train(
   s2 = seasonal_t.shape[-2]
   layout = _input_layout(e, x_t, seasonal_t, y)
   dev = x_t.device
-  tile = TRAIN_ROW_TILE
   likelihood = LIKELIHOOD_CODES[distribution]
-  scratch_bytes = functools.partial(
-      lib.bnf_fused_train_scratch_bytes, e, f, width, depth, d, g)
   code = PRECISION_CODES[precision]
-  # Rows per chunk: as many whole tiles as the scratch budget holds beside
-  # what a call holds whatever its rows ('bf16': the weights' bf16 copies);
-  # under 'bf16' a row also holds its bf16 twins. It does not depend on n
-  # beyond n's own tiles, so rows past n_valid move no chunk boundary.
-  fixed = scratch_bytes(0, 0, likelihood, code)
-  per_row = scratch_bytes(1, 0, likelihood, code) - fixed
-  tiles = min(max(1, (TRAIN_SCRATCH_BYTES - fixed) // per_row // tile),
-              MAX_TRAIN_CHUNK_TILES)
-  chunk_rows = min(tiles * tile, -(-n // tile) * tile)
-  scratch = torch.empty(
-      -(-scratch_bytes(chunk_rows, n, likelihood, code) // 4),
-      dtype=torch.float32,
-      device=dev)
+
+  def scratch_bytes(rows, total):
+    # Under 'bf16' a row also holds its bf16 twins.
+    return lib.bnf_fused_train_scratch_bytes(e, f, width, depth, d, g, rows,
+                                             total, likelihood, code)
+
+  chunk_rows = _chunk_rows(scratch_bytes, n)
+  scratch = torch.empty(-(-scratch_bytes(chunk_rows, n) // 4),
+                        dtype=torch.float32, device=dev)
   # The input scales fold into the learned log scale (as the TPU kernel
   # does): x / (s * e^lsa) = x * e^-(lsa + log s).
   lsa_eff = lsa + torch.log(

@@ -5,6 +5,11 @@ On the CPU the JAX kernel runs in Pallas interpret mode, as in
 it to rtol/atol 2e-5 (the JAX package's own forward bound). The CUDA kernel
 itself is compared with the plain version on the card by
 `tests/test_torch_gpu.py` and by `chip_smoke.py` at the main path's shapes.
+
+The host code of K2 and K3 (`csrc/fused_mlp_t.cu`, layer-wise over chunks
+of whole 128-row tiles) runs here against a stand-in for the compiled
+library: the chunk plan under `TRAIN_SCRATCH_BYTES` and the arguments each
+launch passes.
 """
 
 import jax.numpy as jnp
@@ -92,3 +97,123 @@ def test_input_checks():
   with pytest.raises(ValueError, match='depth'):
     t_fused._check_inputs(  # pylint: disable=protected-access
         t_fused.MAX_DEPTH + 1, h0, **args)
+
+
+class _FakeFieldLib:
+  """Stands in for the compiled K2/K3 library on the CPU: the C side's
+  scratch formula (per chunk row and member: the forward's lhs_0 and two
+  ping-pong width buffers, the backward's lhs_l, z_l and dv_l; under 'bf16'
+  their bf16 twins, and per member the hidden weights' bf16 copies, rows
+  padded to a multiple of 8; the backward's partials per 128-row tile), and
+  launches that record their arguments and return `err`."""
+
+  def __init__(self, err=0):
+    self.err = err
+    self.calls = []
+
+  @staticmethod
+  def bnf_fused_mlp_t_scratch_bytes(members, f, width, depth, chunk_rows,
+                                    n_rows, precision, backward):
+    if depth == 0:
+      width = f
+    tiles = -(-n_rows // 128)
+    if backward:
+      floats = f + 3 * depth * width + 1
+      twins = f + (2 * depth - 1) * width if depth else 0
+      partials = tiles * (1 + 2 * depth * -(-width // 128))
+    else:
+      floats = f + min(depth, 2) * width
+      twins = f + min(depth - 1, 2) * width if depth else 0
+      partials = 0
+    copies = (f + (depth - 1) * width) * (-(-width // 8) * 8) if depth else 0
+    bf16 = (chunk_rows * twins + copies) * 2 if precision == 1 else 0
+    return members * ((chunk_rows * floats + partials) * 4 + bf16)
+
+  def bnf_fused_mlp_t_fwd(self, *args):
+    self.calls.append(args)
+    return self.err
+
+  def bnf_fused_mlp_t_bwd(self, *args):
+    self.calls.append(args)
+    return self.err
+
+  @staticmethod
+  def bnf_cuda_error_string(err):
+    return f'error {err}'.encode()
+
+
+def _plan(members, f, width, depth, n, precision, backward):
+  lib = _FakeFieldLib()
+  code = t_fused.PRECISION_CODES[precision]
+  return t_fused._chunk_rows(  # pylint: disable=protected-access
+      lambda rows, total: lib.bnf_fused_mlp_t_scratch_bytes(
+          members, f, width, depth, rows, total, code, backward), n)
+
+
+@pytest.mark.parametrize('backward', [0, 1], ids=['k2', 'k3'])
+@pytest.mark.parametrize('precision', ['f32', 'bf16'])
+def test_k2_k3_chunks_are_whole_tiles_under_the_budget(monkeypatch, backward,
+                                                       precision):
+  # A budget of 300 rows' scratch (beside the weights' copies) gives
+  # 256-row chunks of 700 rows (the C side runs the ragged last one); less
+  # than one tile's gives 128-row chunks; an ample one a single chunk of
+  # 700 rounded up to whole tiles.
+  lib = _FakeFieldLib()
+  code = t_fused.PRECISION_CODES[precision]
+  fixed = lib.bnf_fused_mlp_t_scratch_bytes(3, 19, 40, 2, 0, 0, code,
+                                            backward)
+  per_row = lib.bnf_fused_mlp_t_scratch_bytes(3, 19, 40, 2, 1, 0, code,
+                                              backward) - fixed
+  for budget_rows, chunk in ((300, 256), (40, 128), (10_000, 768)):
+    monkeypatch.setattr(t_fused, 'TRAIN_SCRATCH_BYTES',
+                        fixed + budget_rows * per_row)
+    assert _plan(3, 19, 40, 2, 700, precision, backward) == chunk
+
+
+def test_k2_k3_chunk_plan_of_a_480_member_predict():
+  # Phase 7's VI predict: 480 members of width 512 over 4,096 rows at the
+  # default 2 GiB budget run in several chunks of whole tiles; a forward
+  # holds fewer buffers a row than a backward, so its chunks are longer.
+  assert t_fused.TRAIN_SCRATCH_BYTES == 2 << 30
+  fwd = _plan(480, 49, 512, 2, 4096, 'f32', 0)
+  bwd = _plan(480, 49, 512, 2, 4096, 'f32', 1)
+  for chunk in (fwd, bwd):
+    assert chunk % 128 == 0 and 128 <= chunk < 4096
+  assert -(-4096 // fwd) > 1 and bwd < fwd
+  assert (fwd, bwd) == (1024, 256)
+  # 64 members (phase 5's serving chunk) take their 4,096 rows at once.
+  assert _plan(64, 49, 512, 2, 4096, 'f32', 0) == 4096
+
+
+@pytest.mark.parametrize('precision', ['f32', 'bf16'])
+def test_k2_and_k3_launches_pass_the_plan_and_the_shapes(precision):
+  args = _torch_args(_inputs(2, (6, 3), n=300, width=16, members=3))
+  h0 = torch.cat(args.pop('h0_groups'), 1)
+  params = (args['weights'], args['biases'], args['scales_raw'],
+            args['logit'])
+  code = t_fused.PRECISION_CODES[precision]
+  lib = _FakeFieldLib()
+  out = t_fused._launch_k2(  # pylint: disable=protected-access
+      lib, 'stream', 2, precision, 16, h0, *params)
+  assert out.shape == (3, 300)
+  *_, rsqrts, got_code, depth, e, f, width, n, chunk_rows, stream = (
+      lib.calls[-1])
+  assert (got_code, depth, e, f, width, n, chunk_rows, stream) == (
+      code, 2, 3, 9, 16, 300, 384, 'stream')
+  np.testing.assert_allclose(list(rsqrts), [9 ** -0.5, 0.25, 0.25],
+                             rtol=1e-7)
+  g = torch.ones((3, 300))
+  dh0, dws, dbs, dscales, dlogit = t_fused._launch_k3(  # pylint: disable=protected-access
+      lib, 'stream', 2, precision, 16, h0, *params, g)
+  assert lib.calls[-1][-8:] == (code, 2, 3, 9, 16, 300, 384, 'stream')
+  assert dh0.shape == h0.shape
+  assert [t.shape for t in (*dws, *dbs, dscales, dlogit)] == [
+      t.shape for t in (*args['weights'], *args['biases'],
+                        args['scales_raw'], args['logit'])]
+  with pytest.raises(RuntimeError, match='fused_field_mlp_t kernel launch '
+                     'failed: CUDA error 7 .error 7'):
+    t_fused._launch_k2(  # pylint: disable=protected-access
+        _FakeFieldLib(err=7), 'stream', 2, precision, 16, h0, *params)
+  with pytest.raises(RuntimeError, match='backward kernel launch failed'):
+    t_fused._launch_k3(  # pylint: disable=protected-access
+        _FakeFieldLib(err=2000), 'stream', 2, precision, 16, h0, *params, g)

@@ -584,36 +584,34 @@ def test_bf16_chunks_count_the_twins_and_ignore_rows_past_n_valid(
 
 
 def test_k1_takes_any_width_k2_does_not(monkeypatch):
-  # K1's tiles do not depend on the width: 'auto' picks 'kernel' for a
-  # width-2048 fit from the shapes alone (no library is built here), while
-  # K2's shared-memory limit (its forward library's formula, faked) still
-  # refuses that width for a predict.
+  # Neither K1's tiles nor K2's depend on the width (both run layer-wise):
+  # 'auto' picks 'kernel' for a width-2048 fit and for a width-2048 predict
+  # from the shapes alone, building no library (the name is older than K2's
+  # layer-wise plan, under which K2 no longer refuses a width). Only the
+  # depth limits K2.
   from bayesnf_torch.inference import backends as t_backends  # pylint: disable=g-import-not-at-top
 
-  class _FakeForwardLib:
+  def no_library(*_):
+    raise AssertionError('kernel_takes built a library')
 
-    @staticmethod
-    def bnf_fused_mlp_fwd_smem_bytes(tile_rows, num_features, width):
-      return (2 * max(num_features, width) * (tile_rows + 4) + 8 * 512) * 4
-
-  monkeypatch.setattr(t_fused, '_lib', lambda: _FakeForwardLib())
-  wide = t_field.FieldConfig.create(
+  monkeypatch.setattr(t_fused._build, 'load_library', no_library)  # pylint: disable=protected-access
+  config = dict(
       width=2048, depth=2, input_scales=[50.0, 1.0, 1.0],
       fourier_degrees=[5, 5, 5], interactions=[],
       seasonality_periods=[24.0, 168.0], num_seasonal_harmonics=[4, 4])
+  wide = t_field.FieldConfig.create(**config)
   for distribution in ('NORMAL', 'NB', 'ZINB'):
     assert t_backends.kernel_takes(wide, distribution)
     assert t_backends.resolve_backend('auto', 'cuda', wide,
                                       distribution) == 'kernel'
   assert t_fused.check_train_shape(
       'NORMAL', 2, 2048, wide.fourier_degrees, (), 16) == (2048, 49, 5)
-  assert not t_backends.kernel_takes(wide)
-  assert t_backends.resolve_backend('auto', 'cuda', wide) == 'torch'
-  narrow = t_field.FieldConfig.create(**dict(
-      width=512, depth=2, input_scales=[50.0, 1.0, 1.0],
-      fourier_degrees=[5, 5, 5], interactions=[],
-      seasonality_periods=[24.0, 168.0], num_seasonal_harmonics=[4, 4]))
-  assert t_backends.kernel_takes(narrow)
+  assert t_backends.kernel_takes(wide)
+  assert t_backends.resolve_backend('auto', 'cuda', wide) == 'kernel'
+  deep = t_field.FieldConfig.create(**dict(config, width=512,
+                                           depth=t_fused.MAX_DEPTH + 1))
+  assert not t_backends.kernel_takes(deep)
+  assert t_backends.resolve_backend('auto', 'cuda', deep) == 'torch'
 
 
 @pytest.mark.parametrize('layout', sorted(LAYOUTS))

@@ -70,9 +70,12 @@ def test_kernel_matches_plain(cuda, depth, width, n):
 
 @pytest.mark.gpu
 def test_kernel_refuses_what_it_cannot_take(cuda):
+  # K2 runs layer-wise, so any width fits (4,096 here, past what the old
+  # tile kernel's shared memory held); tensors on two devices do not.
   args = _inputs(1, (5,), 8, 4096, members=2, device=cuda)
-  with pytest.raises(ValueError, match='shared memory'):
-    fused_mlp.fused_field_mlp_t(1, **args)
+  torch.testing.assert_close(
+      fused_mlp.fused_field_mlp_t(1, **args),
+      fused_mlp.fused_field_mlp_t_reference(1, **args), **KERNEL_TOL)
   args = _inputs(1, (5,), 8, 16, members=2, device=cuda)
   args['logit'] = args['logit'].cpu()
   with pytest.raises(ValueError, match='must be on'):
@@ -705,18 +708,103 @@ def test_predict_launches_no_backward(cuda):
 
 @pytest.mark.gpu
 def test_field_mlp_refuses_what_it_cannot_take(cuda):
-  # Width 1,350 with 16-row tiles fits the forward's shared memory but not
-  # the backward's (which also stages its cotangent row); 4,096 fits
-  # neither. Both raise before any launch.
-  for fn, layout in ((fused_mlp.fused_field_mlp_t, 'features'),
-                     (fused_mlp.fused_field_mlp, 'rows')):
-    args = _inputs(1, (5,), 8, 4096, members=2, device=cuda)
-    with pytest.raises(ValueError, match='shared memory'):
-      _mlp_call(fn, layout, 1, _mlp_leaves(args, layout), 'f32')
-    args = _inputs(1, (5,), 8, 1350, members=2, device=cuda)
-    leaves = _mlp_leaves(args, layout)
-    pred = _mlp_call(fn, layout, 1, leaves, 'f32')
-    with pytest.raises(ValueError, match='backward: width 1350'):
-      torch.autograd.grad(pred.sum(), leaves)
+  # The row-major tile kernels: width 1,350 with 16-row tiles fits the
+  # forward's shared memory but not the backward's (which also stages its
+  # cotangent row); 4,096 fits neither. Both raise before any launch. The
+  # features-major K2 and K3 run layer-wise and take both widths.
+  for width in (4096, 1350):
+    args = _inputs(1, (5,), 8, width, members=2, device=cuda)
+    leaves = _mlp_leaves(args, 'features')
+    pred = _mlp_call(fused_mlp.fused_field_mlp_t, 'features', 1, leaves,
+                     'f32')
+    grads = torch.autograd.grad(pred.sum(), leaves)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+  args = _inputs(1, (5,), 8, 4096, members=2, device=cuda)
+  with pytest.raises(ValueError, match='shared memory'):
+    _mlp_call(fused_mlp.fused_field_mlp, 'rows', 1,
+              _mlp_leaves(args, 'rows'), 'f32')
+  args = _inputs(1, (5,), 8, 1350, members=2, device=cuda)
+  leaves = _mlp_leaves(args, 'rows')
+  pred = _mlp_call(fused_mlp.fused_field_mlp, 'rows', 1, leaves, 'f32')
+  with pytest.raises(ValueError, match='backward: width 1350'):
+    torch.autograd.grad(pred.sum(), leaves)
   with pytest.raises(ValueError, match='Unknown precision'):
     _mlp_call(fused_mlp.fused_field_mlp, 'rows', 1, leaves, 'fp16')
+
+
+# K2 and K3 layer-wise: (depth, width, rows, members, scratch budget in rows
+# of the backward, or None). Width 100 is not a multiple of 8 (TMA's
+# 16-byte strides); 333 and 129 rows are ragged in 128-row tiles; the budget
+# case runs many chunks.
+K2K3_SHAPES = [
+    (2, 100, 333, 3, None), (2, 256, 200, 2, None), (2, 512, 130, 2, None),
+    (2, 1024, 129, 2, None), (0, 1, 40, 3, None), (1, 512, 77, 2, None),
+    (3, 100, 300, 2, None), (2, 64, 1000, 2, 128),
+]
+K2K3_IDS = ['width100', 'width256', 'width512', 'width1024', 'depth0',
+            'depth1', 'depth3', 'chunks']
+
+
+def _k2k3(monkeypatch, cuda, depth, width, n, members, budget_rows):
+  """Inputs and cotangent of a K2 / K3 case; with `budget_rows` a scratch
+  budget of about that many backward rows."""
+  args = _inputs(depth, (3, 10, 6), n, width, members=members, device=cuda)
+  g = torch.as_tensor(np.random.default_rng(1).normal(
+      size=(members, n)).astype(np.float32), device=cuda)
+  if budget_rows:
+    monkeypatch.setattr(fused_mlp, 'TRAIN_SCRATCH_BYTES', budget_rows * 4 * (
+        members * (19 + 3 * depth * width + 1)))
+  return args, g
+
+
+def _k2k3_outputs(depth, args, g, precision, kernel=True):
+  fwd, vjp = ((fused_mlp.fused_field_mlp_t, fused_mlp.fused_field_mlp_t_vjp)
+              if kernel else (fused_mlp.fused_field_mlp_t_reference,
+                              fused_mlp.fused_field_mlp_t_vjp_reference))
+  dh0, dws, dbs, dscales, dlogit = vjp(depth, **args, g=g,
+                                       precision=precision)
+  return [fwd(depth, **args, precision=precision), *dh0, *dws, *dbs, dscales,
+          dlogit]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('precision', ['f32', 'bf16'])
+@pytest.mark.parametrize('depth,width,n,members,budget_rows', K2K3_SHAPES,
+                         ids=K2K3_IDS)
+def test_k2_k3_match_plain(cuda, monkeypatch, precision, depth, width, n,
+                           members, budget_rows):
+  # K2's prediction and K3's leaves against the plain versions ('bf16'
+  # against plain 'bf16', and within the JAX package's bf16 bound of plain
+  # fp32); two identical calls bit-equal.
+  args, g = _k2k3(monkeypatch, cuda, depth, width, n, members, budget_rows)
+  before = (fused_mlp.fused_field_mlp_t.launches,
+            fused_mlp.fused_field_mlp_t.bwd_launches)
+  got = _k2k3_outputs(depth, args, g, precision)
+  torch.cuda.synchronize()
+  assert (fused_mlp.fused_field_mlp_t.launches,
+          fused_mlp.fused_field_mlp_t.bwd_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+  want = _k2k3_outputs(depth, args, g, precision, kernel=False)
+  if precision == 'f32':
+    torch.testing.assert_close(got[0], want[0], **KERNEL_TOL)
+  else:
+    torch.testing.assert_close(got[0], want[0], rtol=1e-3, atol=2e-3)
+    f32 = _k2k3_outputs(depth, args, g, 'f32', kernel=False)
+    for k, f in zip(got, f32):
+      off = (k - f).abs() - BF16_F32_TOL * f.abs()
+      assert off.max().item() <= BF16_F32_TOL * f.abs().max().item()
+  _assert_leaves_close(got[1:], want[1:], MLP_LEAF_TOL[precision])
+  again = _k2k3_outputs(depth, args, g, precision)
+  assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('depth,width,n,members,budget_rows',
+                         [K2K3_SHAPES[0], K2K3_SHAPES[-1]],
+                         ids=[K2K3_IDS[0], K2K3_IDS[-1]])
+def test_k2_k3_highest_is_f32_bit_for_bit(cuda, monkeypatch, depth, width, n,
+                                          members, budget_rows):
+  args, g = _k2k3(monkeypatch, cuda, depth, width, n, members, budget_rows)
+  highest = _k2k3_outputs(depth, args, g, 'highest')
+  f32 = _k2k3_outputs(depth, args, g, 'f32')
+  assert all(torch.equal(a, b) for a, b in zip(highest, f32))

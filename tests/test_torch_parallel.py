@@ -483,6 +483,30 @@ def test_ensemble_padding_and_group_shapes(batch_size):
   assert means.shape == (2, 2, len(table))
 
 
+def test_meshless_fit_keeps_one_device_where_jax_takes_every_device():
+  """An intended difference (ROADMAP.md, queue 3): without a mesh the JAX
+  package fits on every device (`default_mesh()`, all on 'ens'), so 8
+  members over the conftest's 8 virtual CPU devices take the group shape
+  (8, 1); the port fits on its one `device`, (1, 8). The port's
+  `default_mesh` of 8 entries gives the JAX package's shape."""
+  assert jax.device_count() == 8
+  table = _table()
+  kwargs = dict(seed=0, ensemble_size=8, num_epochs=2)
+  j_est = bayesnf_tpu.BayesianNeuralFieldMAP(**ESTIMATOR_KWARGS).fit(
+      table, backend='xla', **kwargs)
+  assert all(np.shape(p)[:2] == (8, 1) for p in j_est.params_)
+  alone = bayesnf_torch.BayesianNeuralFieldMAP(**ESTIMATOR_KWARGS).fit(
+      table, device='cpu', **kwargs)
+  assert alone.mesh_ is None
+  assert all(tuple(p.shape[:2]) == (1, 8) for p in alone.params_)
+  assert alone.losses_.shape == (1, 8, 2)
+  meshed = bayesnf_torch.BayesianNeuralFieldMAP(**ESTIMATOR_KWARGS).fit(
+      table, device='cpu', mesh=t_mesh.default_mesh(['cpu'] * 8), **kwargs)
+  assert [tuple(p.shape) for p in meshed.params_] == [
+      np.shape(p) for p in j_est.params_]
+  assert meshed.losses_.shape == np.shape(j_est.losses_) == (8, 1, 2)
+
+
 def test_vi_estimator_over_a_mesh():
   table = _table()
   mesh = t_mesh.default_mesh(['cpu'] * 4, data_devices=2)
