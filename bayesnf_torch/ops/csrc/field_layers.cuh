@@ -1,9 +1,9 @@
 // The field MLP's layer-wise kernels for Hopper (sm_90a), shared by K1
-// (`fused_train.cu`) and by K2 and K3 (`fused_mlp_t.cu`): per hidden layer
-// one GEMM over a chunk of rows with the elementwise work fused into its
-// epilogue, and the cross-row weight gradients, all on activations held
-// features-major in a global scratch (E, features, ld), ld the chunk's rows
-// in whole 128-row tiles.
+// (`fused_train.cu`) and by K2, K3, K4a and K4b (`fused_mlp_t.cu`): per
+// hidden layer one GEMM over a chunk of rows with the elementwise work fused
+// into its epilogue, and the cross-row weight gradients, all on activations
+// held features-major in a global scratch (E, features, ld), ld the chunk's
+// rows in whole 128-row tiles.
 //
 //   forward      z_l = s_l (W_l^T lhs_l + b_l), lhs_{l+1} = act(z_l) / sqrt(width)
 //   W dv         dh_l = W_l dv_l / sqrt(fan_in_l), then dv_{l-1} = dh_l act'(z_{l-1}) s_{l-1}
@@ -36,7 +36,7 @@ namespace {
 constexpr int kRowTile = kSgTile;
 constexpr int kRowWarps = kRowTile / 32;
 // The output layer's forward sums each row's products in kHeadLanes strided
-// chains, then the chains in order (K1's head, K2's and K3's).
+// chains, then the chains in order (K1's head, and `fused_mlp_t.cu`'s).
 constexpr int kHeadLanes = 8;
 
 // The field MLP's part of a call: parameters, the chunk's scratch and its
@@ -50,7 +50,7 @@ struct FieldArgs {
   float* lhs[kMaxLayers];          // (E, fan_in_l, ld) chunk scratch
   float* z[kMaxLayers];            // (E, width, ld), l < depth
   float* dv[kMaxLayers];           // (E, fan_out_l, ld)
-  float* dh0;                      // (E, F, ld) scratch, or K3's (E, F, n_rows)
+  float* dh0;                      // (E, F, ld) scratch, or the caller's
   __nv_bfloat16* lhs_bf[kMaxLayers];  // 'bf16': lhs_l's twin, l < depth
   __nv_bfloat16* dv_bf[kMaxLayers];   // 'bf16': dv_l's twin, l < depth
   float* layer_partials;           // (E, num_tiles, depth, col_blocks, 2)
@@ -179,13 +179,37 @@ __global__ void __launch_bounds__(kTcThreads, kTcBlocksPerSm)
   });
 }
 
+// Where the first layer's W dv product writes dh_0: the (E, F, ld) chunk
+// scratch (K1), or the caller's dh0 for the chunk's rows below n_valid,
+// features-major (E, F, n_rows) (K3) or row-major (E, n_rows, F) (K4b).
+enum Dh0Out : int { kDh0Scratch = 0, kDh0Features = 1, kDh0Rows = 2 };
+
+// Element (k, n) of the chunk's dh_0 in the caller's `kDh0` layout: `dh0`
+// is member e's first chunk row, `stride` the rows N (features-major) or
+// the features F (row-major).
+template <int kDh0>
+__device__ __forceinline__ float& dh0_at(float* dh0, size_t stride, int k,
+                                         int n) {
+  return kDh0 == kDh0Rows ? dh0[(size_t)n * stride + k]
+                          : dh0[(size_t)k * stride + n];
+}
+
+// Member e's first chunk row of the caller's dh0, and its stride (dh0_at).
+template <int kDh0>
+__device__ __forceinline__ float* dh0_chunk(const FieldArgs& args, int e,
+                                            size_t* stride) {
+  const size_t f = args.num_features, n = args.n_rows;
+  *stride = kDh0 == kDh0Rows ? f : n;
+  return kDh0 == kDh0Rows ? args.dh0 + ((size_t)e * n + args.row0) * f
+                          : args.dh0 + (size_t)e * f * n + args.row0;
+}
+
 // --- dh = W_l dv_l / sqrt(fan_in_l) (W_l of shape (fan_in_l, width));
 // for l >= 1 the epilogue turns it into dv_{l-1} = dh act'(z_{l-1}) s_{l-1}
-// with the block's sums of dz z and dh dact/dw, for l = 0 it writes dh_0:
-// into the (E, F, ld) scratch, or with kDh0Out into the caller's
-// (E, F, n_rows) dh0, rows below n_valid only. Grid (fan_in_l / 128, row
-// tiles, members).
-template <bool kFirst, bool kDh0Out = false>
+// (kTwin: and its bf16 twin, for a tensor-core product that reads it) with
+// the block's sums of dz z and dh dact/dw, for l = 0 it writes dh_0 where
+// kDh0 says. Grid (fan_in_l / 128, row tiles, members).
+template <bool kFirst, int kDh0 = kDh0Scratch, bool kTwin = false>
 __global__ void __launch_bounds__(kThreads, 2)
     backward_kernel(const FieldArgs args, int l) {
   __shared__ float red[kWarps];
@@ -196,15 +220,17 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float rs = args.rsqrt[l];
   const float* w = args.w[l] + (size_t)e * fan_in * width;
   const float* dv = args.dv[l] + (size_t)e * width * ld;
-  if constexpr (kFirst && kDh0Out) {
-    const size_t stride = args.n_rows;
-    float* dh0 = args.dh0 + (size_t)e * fan_in * stride + args.row0;
+  if constexpr (kFirst && kDh0 != kDh0Scratch) {
+    size_t stride;
+    float* dh0 = dh0_chunk<kDh0>(args, e, &stride);
     const int len = args.n_valid - args.row0;
     simt_gemm<false>(w, width, false, dv, (int)ld, fan_in, width,
                      [&](int k, int n, const float (&v)[4]) {
 #pragma unroll
                        for (int j = 0; j < 4; ++j) {
-                         if (n + j < len) dh0[k * stride + n + j] = v[j] * rs;
+                         if (n + j < len) {
+                           dh0_at<kDh0>(dh0, stride, k, n + j) = v[j] * rs;
+                         }
                        }
                      });
   } else if constexpr (kFirst) {
@@ -221,6 +247,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     const float wgt = sigmoid(args.logit[e]);
     const float* zg = args.z[l - 1] + (size_t)e * width * ld;
     float* dvg = args.dv[l - 1] + (size_t)e * width * ld;
+    __nv_bfloat16* dvg_bf =
+        kTwin ? args.dv_bf[l - 1] + (size_t)e * width * ld : nullptr;
     float dzz = 0.f, dlogit = 0.f;
     simt_gemm<false>(
         w, width, false, dv, (int)ld, fan_in, width,
@@ -240,6 +268,12 @@ __global__ void __launch_bounds__(kThreads, 2)
           }
           *reinterpret_cast<float4*>(dvg + k * ld + n) =
               make_float4(out[0], out[1], out[2], out[3]);
+          if constexpr (kTwin) {
+            __nv_bfloat162* bf =
+                reinterpret_cast<__nv_bfloat162*>(dvg_bf + k * ld + n);
+            bf[0] = __floats2bfloat162_rn(out[0], out[1]);
+            bf[1] = __floats2bfloat162_rn(out[2], out[3]);
+          }
         });
     dzz = block_sum(dzz, red);
     dlogit = block_sum(dlogit, red);
@@ -257,7 +291,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 // backward_kernel's.
 static_assert(kTcThreads == kThreads, "block_sum sums kThreads threads");
 
-template <bool kFirst, bool kDh0Out = false>
+template <bool kFirst, int kDh0 = kDh0Scratch>
 __global__ void __launch_bounds__(kTcThreads, kTcBlocksPerSm)
     tc_backward_kernel(const FieldArgs args, int l,
                        const __grid_constant__ CUtensorMap w_map,
@@ -273,13 +307,13 @@ __global__ void __launch_bounds__(kTcThreads, kTcBlocksPerSm)
                                  width, tc_smem, acc);
   const size_t ld = args.ld;
   const float rs = args.rsqrt[l];
-  if constexpr (kFirst && kDh0Out) {
-    const size_t stride = args.n_rows;
-    float* dh0 = args.dh0 + (size_t)e * fan_in * stride + args.row0;
+  if constexpr (kFirst && kDh0 != kDh0Scratch) {
+    size_t stride;
+    float* dh0 = dh0_chunk<kDh0>(args, e, &stride);
     const int len = args.n_valid - args.row0;
     tc_epilogue(acc, m0, n0, fan_in, [&](int k, int n, float v0, float v1) {
-      if (n < len) dh0[k * stride + n] = v0 * rs;
-      if (n + 1 < len) dh0[k * stride + n + 1] = v1 * rs;
+      if (n < len) dh0_at<kDh0>(dh0, stride, k, n) = v0 * rs;
+      if (n + 1 < len) dh0_at<kDh0>(dh0, stride, k, n + 1) = v1 * rs;
     });
   } else if constexpr (kFirst) {
     float* dh0 = args.dh0 + (size_t)e * fan_in * ld;
@@ -431,14 +465,18 @@ inline int prepare_tc(const FieldArgs& args, __nv_bfloat16* const* w_bf,
   return 0;
 }
 
-// The hidden layers' forwards of one chunk of `tiles` row tiles.
-template <bool kStoreZ>
+// The hidden layers' forwards of one chunk of `tiles` row tiles. Under
+// 'bf16' each runs on the tensor cores where its product rounds
+// (`rounds_forward`); row-major at width 1 none does, and the SIMT
+// forwards' fp32 outputs are all their readers take.
+template <bool kStoreZ, bool kRowMajor = false>
 cudaError_t launch_forward_layers(const FieldArgs& args, bool bf16,
                                   const TcMaps& maps, int tiles, int members,
                                   cudaStream_t s) {
   const dim3 hidden(col_blocks(args.width), tiles, members);
+  const bool tc = bf16 && rounds_forward(kRowMajor, args.width);
   for (int l = 0; l < args.depth; ++l) {
-    if (bf16) {
+    if (tc) {
       tc_forward_kernel<kStoreZ><<<hidden, kTcThreads, kTcSmemBytes, s>>>(
           args, l, maps.w[l], maps.lhs[l]);
     } else {
@@ -451,17 +489,25 @@ cudaError_t launch_forward_layers(const FieldArgs& args, bool bf16,
 }
 
 // The W dv chain of one chunk, from the last hidden layer's dv (which the
-// caller's head wrote) down to dh_0 (kDh0Out: see backward_kernel).
-template <bool kDh0Out>
+// caller's head wrote) down to dh_0 (kDh0: see backward_kernel). Under
+// 'bf16' a product runs on the tensor cores where it rounds (`rounds_dh`);
+// row-major, a layer >= 1 at width 1 runs on the SIMT engine instead and
+// writes dv's bf16 twin as well, which the first layer's product reads when
+// it rounds.
+template <int kDh0, bool kRowMajor = false>
 cudaError_t launch_wdv_chain(const FieldArgs& args, bool bf16,
                              const TcMaps& maps, int tiles, int members,
                              cudaStream_t s) {
   const dim3 hidden(col_blocks(args.width), tiles, members);
+  const bool tc = bf16 && rounds_dh(kRowMajor, args.width);
   cudaError_t err;
   for (int l = args.depth - 1; l >= 1; --l) {
-    if (bf16) {
+    if (tc) {
       tc_backward_kernel<false><<<hidden, kTcThreads, kTcSmemBytes, s>>>(
           args, l, maps.w[l], maps.dv[l]);
+    } else if (bf16) {
+      backward_kernel<false, kDh0Scratch, kRowMajor>
+          <<<hidden, kThreads, 0, s>>>(args, l);
     } else {
       backward_kernel<false><<<hidden, kThreads, 0, s>>>(args, l);
     }
@@ -469,12 +515,12 @@ cudaError_t launch_wdv_chain(const FieldArgs& args, bool bf16,
   }
   if (args.depth > 0) {
     const dim3 first(col_blocks(args.num_features), tiles, members);
-    if (bf16) {
-      tc_backward_kernel<true, kDh0Out>
+    if (bf16 && rounds_dh(kRowMajor, args.num_features)) {
+      tc_backward_kernel<true, kDh0>
           <<<first, kTcThreads, kTcSmemBytes, s>>>(args, 0, maps.w[0],
                                                    maps.dv[0]);
     } else {
-      backward_kernel<true, kDh0Out><<<first, kThreads, 0, s>>>(args, 0);
+      backward_kernel<true, kDh0><<<first, kThreads, 0, s>>>(args, 0);
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
@@ -509,7 +555,7 @@ inline cudaError_t launch_weight_grads(const FieldArgs& args, bool bf16,
     } else {
       const dim3 grid((width + kGTile - 1) / kGTile,
                       (fan_in + kGTile - 1) / kGTile, members);
-      wgrad_kernel<false><<<grid, kThreads, 0, s>>>(
+      wgrad_kernel<<<grid, kThreads, 0, s>>>(
           args.lhs[l], args.dv[l], dw, fan_in, width, len, ld, acc);
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return err;

@@ -1,10 +1,14 @@
-// The features-major field MLP for Hopper (sm_90a): its forward (K2) and
-// its backward (K3), layer by layer on the GEMMs of K1.
+// The field MLP for Hopper (sm_90a), in either layout of h0: its forward
+// (K2 features-major, K4a row-major) and its backward (K3, K4b), layer by
+// layer on the GEMMs of K1.
 //
-// Replaces the Pallas TPU kernels `_forward_kernel_t` (K2, reached through
-// `fused_field_mlp_t` / `_forward_t`) and `_backward_kernel_t` (K3, its
-// custom VJP, called by `_forward_t_bwd`) in bayesnf_tpu/ops/fused_mlp.py.
-// Per ensemble member e and row n, from h0 (E, F, N) features-major:
+// Replaces the Pallas TPU kernels of bayesnf_tpu/ops/fused_mlp.py
+// `_forward_kernel_t` (K2, reached through `fused_field_mlp_t` /
+// `_forward_t`), `_backward_kernel_t` (K3, its custom VJP, called by
+// `_forward_t_bwd`), `_forward_kernel` (K4a, reached through
+// `fused_field_mlp` / `_forward`) and `_backward_kernel` (K4b, called by
+// `_forward_bwd`). Per ensemble member e and row n, from h0 (E, F, N)
+// features-major or (E, N, F) row-major:
 //
 //   lhs_0 = h_0 / sqrt(F)
 //   z_l = s_l * (W_l^T lhs_l + b_l),  lhs_{l+1} = act(z_l) / sqrt(width)
@@ -13,7 +17,7 @@
 // with s = softplus(scales_raw), act(z) = w*elu(z) + (1-w)*tanh(z) and
 // w = sigmoid(logit); and for the cotangent g = d L / d pred (E, N),
 //
-//   dh0 (E, F, N),  dW_l = sum lhs_l dv_l^T,  db_l = sum dv_l,
+//   dh0 (laid out as h0),  dW_l = sum lhs_l dv_l^T,  db_l = sum dv_l,
 //   dv_out = g s_out,  dh_l = W_l dv_l / sqrt(fan_in_l),
 //   dz_l = dh_{l+1} act'(z_l),  dv_l = dz_l s_l,
 //   dscales_raw[l] = sum(dz_l z_l) / s_l * sigmoid(raw_l),
@@ -37,32 +41,42 @@
 // elementwise work in its epilogue: the layer kernels of
 // `field_layers.cuh`, on the SIMT engine (`simt_gemm.cuh`) under 'f32' and
 // on the tensor cores (`wgmma_gemm.cuh`: TMA, mbarrier stages, wgmma) under
-// 'bf16'. Per chunk, K2:
+// 'bf16'. The activations live features-major in the scratch (E, F, ld)
+// whatever h0's layout, so both layouts run the same GEMMs on the same
+// chunk plan; the layout shows only where h0 is read and dh0 written.
+// Per chunk, the forward:
 //   1. `prescale_kernel`, a thread per (row, member): lhs_0 = h0 / sqrt(F)
-//      into the scratch (E, F, ld), zero past N (the GEMMs read whole,
-//      16-byte aligned tiles; the caller's N is ragged), and its bf16 twin;
+//      into the scratch, zero past N (the GEMMs read whole, 16-byte aligned
+//      tiles; the caller's N is ragged), and its bf16 twin. Row-major it
+//      reads each row's F contiguous floats and transposes them as it
+//      writes;
 //   2. `forward_kernel<false>` per hidden layer (no z), its lhs_{l+1} in two
 //      ping-pong buffers;
 //   3. `output_kernel`, a thread per (row, member): pred for rows below N,
 //      in K1's fixed order (`head_v_out`).
-// K3, per chunk: the prescale; the forward with z (`forward_kernel<true>`);
-// `grad_head_kernel` (dv_out = g s_out, the tile's sum of g v_out, the last
-// hidden layer's dv, or at depth 0 dh_0); the W dv chain down to the
-// F-output product, whose epilogue writes dh0 into the caller's (E, F, N)
-// for rows below N (`backward_kernel<true, true>`); then the weight
+// The backward, per chunk: the prescale; the forward with z
+// (`forward_kernel<true>`); `grad_head_kernel` (dv_out = g s_out, the
+// tile's sum of g v_out, the last hidden layer's dv, or at depth 0 dh_0);
+// the W dv chain down to the F-output product, whose epilogue writes dh0
+// into the caller's (E, F, N) or (E, N, F) for rows below N
+// (`backward_kernel<true, kDh0Features or kDh0Rows>`); then the weight
 // gradients and row sums (`wgrad_kernel` or `tc_wgrad_kernel`,
 // `rowdot_kernel`), added chunk after chunk. Once at the end
 // `grad_finalize_kernel` sums the per-tile and per-column-block partials in
 // a fixed order. No atomics: two identical calls are bit-equal. Rows past N
 // read h0 = 0 and g = 0, so they add exactly zero to every sum.
 //
-// Precision. Under 'bf16' every product takes bf16 operands, exact products
-// and fp32 sums, as the features-major TPU kernels cast (`rounds_forward`):
-// all but the output layer's weight gradient, which stays fp32 in
-// `rowdot_kernel` (as does a hidden weight gradient of one column). The
-// hidden products read bf16 copies of the weights and bf16 twins of lhs_l
-// and dv_l; the output layer rounds its operands in registers. A refused
-// tensor map is an error the wrapper raises on: no SIMT fallback.
+// Precision. Under 'bf16' a product takes bf16 operands, exact products and
+// fp32 sums where the TPU kernels cast (`rounds_forward`, `rounds_dh`):
+// features-major every product but the output layer's weight gradient;
+// row-major also not a product whose result has one column (the output
+// layer's forward; at width 1 every hidden forward and the W dv products
+// of layers >= 1; with F = 1 the first layer's W dv product). A hidden
+// weight gradient of one column stays fp32 in `rowdot_kernel`, as the
+// output layer's does. The hidden products that round read bf16 copies of
+// the weights and bf16 twins of lhs_l and dv_l; the output layer rounds
+// its operands in registers. A refused tensor map is an error the wrapper
+// raises on: no SIMT fallback.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,15 +90,15 @@ namespace {
 // The output layer's v_out = W_out^T lhs_depth + b_out for the chunk's row
 // `col`, in the order of K1's head (`head_kernel` in `fused_train.cu`):
 // kHeadLanes strided FMA chains over the inputs, then the chains in order;
-// under kBf16 both operands rounded in registers.
-template <bool kBf16>
+// under kRound both operands rounded in registers.
+template <bool kRound>
 __device__ __forceinline__ float head_v_out(const FieldArgs& args, int e,
                                             int col) {
   const int depth = args.depth;
   const int fan_in = depth ? args.width : args.num_features;
   const size_t ld = args.ld;
   const float* w_out = args.w[depth] + (size_t)e * fan_in;
-  auto wo = [&](int k) { return maybe_round<kBf16>(__ldg(w_out + k), true); };
+  auto wo = [&](int k) { return maybe_round<kRound>(__ldg(w_out + k), true); };
   const float* hin = args.lhs[depth] + (size_t)e * fan_in * ld + col;
   float part[kHeadLanes];
 #pragma unroll
@@ -93,14 +107,14 @@ __device__ __forceinline__ float head_v_out(const FieldArgs& args, int e,
   for (; k + kHeadLanes <= fan_in; k += kHeadLanes) {
 #pragma unroll
     for (int q = 0; q < kHeadLanes; ++q) {
-      part[q] = fmaf(maybe_round<kBf16>(hin[(k + q) * ld], true), wo(k + q),
+      part[q] = fmaf(maybe_round<kRound>(hin[(k + q) * ld], true), wo(k + q),
                      part[q]);
     }
   }
 #pragma unroll
   for (int q = 0; q < kHeadLanes; ++q) {
     if (k + q < fan_in) {
-      part[q] = fmaf(maybe_round<kBf16>(hin[(k + q) * ld], true), wo(k + q),
+      part[q] = fmaf(maybe_round<kRound>(hin[(k + q) * ld], true), wo(k + q),
                      part[q]);
     }
   }
@@ -111,7 +125,8 @@ __device__ __forceinline__ float head_v_out(const FieldArgs& args, int e,
 }
 
 // The last hidden layer's cotangent for the chunk's row `col` from the
-// output layer's dv_out (`dvo_r`, rounded where W_out dv_out reads it), as
+// output layer's dv_out (`dvo_r`, rounded where W_out dv_out reads it;
+// `round`: W_out rounded too), as
 // K1's head computes it after its likelihood:
 // dh = W_out dv_out / sqrt(width), dv = dh act'(z) s (and its twin under
 // kBf16), with each column block's sums of dz z and dh dact/dw into the
@@ -120,12 +135,13 @@ __device__ __forceinline__ float head_v_out(const FieldArgs& args, int e,
 template <bool kBf16>
 __device__ __forceinline__ void last_hidden_dv(const FieldArgs& args, int e,
                                                int col, int tile, float dvo_r,
-                                               float* red, float* sums) {
+                                               bool round, float* red,
+                                               float* sums) {
   const int depth = args.depth;
   const int fan_in = args.width;
   const size_t ld = args.ld;
   const float* w_out = args.w[depth] + (size_t)e * fan_in;
-  auto wo = [&](int k) { return maybe_round<kBf16>(__ldg(w_out + k), true); };
+  auto wo = [&](int k) { return maybe_round<kBf16>(__ldg(w_out + k), round); };
   const float rs = args.rsqrt[depth];
   const float wgt = sigmoid(args.logit[e]);
   const int l = depth - 1;
@@ -159,9 +175,9 @@ __device__ __forceinline__ void last_hidden_dv(const FieldArgs& args, int e,
 }
 
 // --- 1. lhs_0 = h0 / sqrt(F) for the chunk's rows, zero past N, and under
-// kBf16 its twin (when a hidden layer reads it); grid (row tiles of the
-// chunk, members).
-template <bool kBf16>
+// kBf16 its twin (when a hidden layer reads it); h0 (E, F, N), or with
+// kRowMajor (E, N, F). Grid (row tiles of the chunk, members).
+template <bool kBf16, bool kRowMajor>
 __global__ void __launch_bounds__(kRowTile)
     prescale_kernel(const FieldArgs args, const float* __restrict__ h0) {
   const int e = blockIdx.y;
@@ -169,7 +185,10 @@ __global__ void __launch_bounds__(kRowTile)
   const int row = args.row0 + col;
   const bool valid = row < args.n_valid;
   const int f = args.num_features;
-  const float* src = h0 + (size_t)e * f * args.n_rows + row;
+  const size_t n = args.n_rows;
+  const float* src = kRowMajor ? h0 + ((size_t)e * n + row) * f
+                               : h0 + (size_t)e * f * n + row;
+  const size_t stride = kRowMajor ? 1 : n;
   const size_t off = (size_t)e * f * args.ld + col;
   float* dst = args.lhs[0] + off;
   __nv_bfloat16* dst_bf =
@@ -177,32 +196,33 @@ __global__ void __launch_bounds__(kRowTile)
   const float rs = args.rsqrt[0];
   for (int k = 0; k < f; ++k) {
     // Scaled, then rounded (where the tile kernel rounded its input).
-    const float v = valid ? __ldg(src + (size_t)k * args.n_rows) * rs : 0.f;
+    const float v = valid ? __ldg(src + k * stride) * rs : 0.f;
     dst[(size_t)k * args.ld] = v;
     if (dst_bf != nullptr) dst_bf[(size_t)k * args.ld] = __float2bfloat16_rn(v);
   }
 }
 
-// --- 3. K2's output layer: pred = s_out v_out for the chunk's rows below N;
-// grid (row tiles of the chunk, members).
-template <bool kBf16>
+// --- 3. The forward's output layer: pred = s_out v_out for the chunk's rows
+// below N, kRound where its product rounds; grid (row tiles of the chunk,
+// members).
+template <bool kRound>
 __global__ void __launch_bounds__(kRowTile)
     output_kernel(const FieldArgs args, float* __restrict__ out) {
   const int e = blockIdx.y;
   const int col = blockIdx.x * kRowTile + threadIdx.x;
   const int row = args.row0 + col;
   if (row >= args.n_valid) return;
-  const float v_out = head_v_out<kBf16>(args, e, col);
+  const float v_out = head_v_out<kRound>(args, e, col);
   const float s_out =
       softplus(args.scales_raw[(size_t)e * (args.depth + 1) + args.depth]);
   out[(size_t)e * args.n_rows + row] = s_out * v_out;
 }
 
-// --- K3's head: dv_out = g s_out, the row tile's sum of g v_out into
-// `partials` (E, num_tiles), and the last hidden layer's dv (at depth 0,
-// dh0 = W_out dv_out / sqrt(F) into the caller's output, rows below N);
-// grid (row tiles of the chunk, members).
-template <bool kBf16>
+// --- The backward's head: dv_out = g s_out, the row tile's sum of g v_out
+// into `partials` (E, num_tiles), and the last hidden layer's dv (at depth
+// 0, dh0 = W_out dv_out / sqrt(F) into the caller's output, laid out as h0,
+// rows below N); grid (row tiles of the chunk, members).
+template <bool kBf16, bool kRowMajor>
 __global__ void __launch_bounds__(kRowTile)
     grad_head_kernel(const FieldArgs args, const float* __restrict__ g,
                      float* __restrict__ partials) {
@@ -214,7 +234,8 @@ __global__ void __launch_bounds__(kRowTile)
   const int tile = args.tile0 + blockIdx.x;
   const bool valid = row < args.n_valid;
   const int depth = args.depth;
-  const float v_out = head_v_out<kBf16>(args, e, col);
+  const float v_out =
+      head_v_out<kBf16 && rounds_forward(kRowMajor, 1)>(args, e, col);
   const float s_out =
       softplus(args.scales_raw[(size_t)e * (depth + 1) + depth]);
   const float gg = valid ? __ldg(g + (size_t)e * args.n_rows + row) : 0.f;
@@ -223,21 +244,27 @@ __global__ void __launch_bounds__(kRowTile)
   const float gv = valid ? gg * v_out : 0.f;
   tile_sums(&gv, 1, red, sums);
   if (threadIdx.x == 0) partials[(size_t)e * args.num_tiles + tile] = sums[0];
-  // dh_depth = W_out dv_out / sqrt(fan_in), dv_out rounded for the product.
-  const float dvo_r = maybe_round<kBf16>(dvo, true);
+  // dh_depth = W_out dv_out / sqrt(fan_in), dv_out rounded for the product
+  // where it rounds.
+  const bool round =
+      rounds_dh(kRowMajor, depth ? args.width : args.num_features);
+  const float dvo_r = maybe_round<kBf16>(dvo, round);
   if (depth == 0) {
     if (!valid) return;
     const int f = args.num_features;
+    const size_t n = args.n_rows;
     const float rs = args.rsqrt[0];
     const float* w_out = args.w[0] + (size_t)e * f;
-    float* dh0 = args.dh0 + (size_t)e * f * args.n_rows + row;
+    float* dh0 = kRowMajor ? args.dh0 + ((size_t)e * n + row) * f
+                           : args.dh0 + (size_t)e * f * n + row;
+    const size_t stride = kRowMajor ? 1 : n;
     for (int c = 0; c < f; ++c) {
-      dh0[(size_t)c * args.n_rows] =
-          (maybe_round<kBf16>(__ldg(w_out + c), true) * dvo_r) * rs;
+      dh0[c * stride] =
+          (maybe_round<kBf16>(__ldg(w_out + c), round) * dvo_r) * rs;
     }
     return;
   }
-  last_hidden_dv<kBf16>(args, e, col, tile, dvo_r, red, sums);
+  last_hidden_dv<kBf16>(args, e, col, tile, dvo_r, round, red, sums);
 }
 
 struct FinalArgs {
@@ -252,10 +279,10 @@ struct FinalArgs {
   int col_blocks;
 };
 
-// --- K3, once: one block of 32 threads per member. Thread 0 sums g v_out
-// over the tiles in order, thread 1 + l layer l's two sums over the tiles
-// and their column blocks in order; thread 0 then applies the scalar chain
-// rules.
+// --- The backward, once: one block of 32 threads per member. Thread 0
+// sums g v_out over the tiles in order, thread 1 + l layer l's two sums
+// over the tiles and their column blocks in order; thread 0 then applies
+// the scalar chain rules.
 __global__ void grad_finalize_kernel(const FinalArgs args) {
   __shared__ float gv;
   __shared__ float dzz[kMaxLayers];
@@ -386,12 +413,14 @@ FieldArgs field_args(const void* const* weights, const void* const* biases,
   return a;
 }
 
-bool bad_call(int depth, int members, int num_features, int width, int n_rows,
-              int precision, int chunk_rows, const void* scratch) {
-  return depth < 0 || depth + 1 > kMaxLayers || members < 1 ||
-         members > 65535 || n_rows < 1 || num_features < 1 || width < 1 ||
-         precision < 0 || precision > 1 || chunk_rows < kRowTile ||
-         chunk_rows % kRowTile != 0 || chunk_rows / kRowTile > 65535 ||
+bool bad_call(int layout, int depth, int members, int num_features,
+              int width, int n_rows, int precision, int chunk_rows,
+              const void* scratch) {
+  return layout < 0 || layout > 1 || depth < 0 || depth + 1 > kMaxLayers ||
+         members < 1 || members > 65535 || n_rows < 1 || num_features < 1 ||
+         width < 1 || precision < 0 || precision > 1 ||
+         chunk_rows < kRowTile || chunk_rows % kRowTile != 0 ||
+         chunk_rows / kRowTile > 65535 ||
          reinterpret_cast<uintptr_t>(scratch) % 16 != 0;
 }
 
@@ -401,9 +430,87 @@ cudaError_t set_bwd_tc_smem() {
   cudaError_t err;
   if ((err = set_tc_smem(tc_forward_kernel<true>)) ||
       (err = set_tc_smem(tc_backward_kernel<false>)) ||
-      (err = set_tc_smem(tc_backward_kernel<true, true>)) ||
+      (err = set_tc_smem(tc_backward_kernel<true, kDh0Features>)) ||
+      (err = set_tc_smem(tc_backward_kernel<true, kDh0Rows>)) ||
       (err = set_tc_smem(tc_wgrad_kernel))) {
     return err;
+  }
+  return cudaSuccess;
+}
+
+// The forward's chunks (K2 features-major, K4a with kRowMajor), after the
+// call's set-up: the prescale, the hidden forwards and the output layer.
+template <bool kRowMajor>
+cudaError_t forward_chunks(FieldArgs args, bool bf16, const TcMaps& maps,
+                           const float* h0, float* pred, int members,
+                           cudaStream_t s) {
+  cudaError_t err;
+  for (int row0 = 0; row0 < args.n_rows; row0 += args.ld) {
+    const int chunk =
+        args.n_rows - row0 < args.ld ? args.n_rows - row0 : args.ld;
+    const int tiles = (chunk + kRowTile - 1) / kRowTile;
+    const dim3 rows(tiles, members);
+    args.row0 = row0;
+    args.tile0 = row0 / kRowTile;
+    if (bf16) {
+      prescale_kernel<true, kRowMajor><<<rows, kRowTile, 0, s>>>(args, h0);
+    } else {
+      prescale_kernel<false, kRowMajor><<<rows, kRowTile, 0, s>>>(args, h0);
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = launch_forward_layers<false, kRowMajor>(args, bf16, maps, tiles,
+                                                  members, s);
+    if (err != cudaSuccess) return err;
+    if (bf16 && rounds_forward(kRowMajor, 1)) {
+      output_kernel<true><<<rows, kRowTile, 0, s>>>(args, pred);
+    } else {
+      output_kernel<false><<<rows, kRowTile, 0, s>>>(args, pred);
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// The backward's chunks (K3 features-major, K4b with kRowMajor), after the
+// call's set-up: the prescale, the forward with z, the head, the W dv chain
+// down to dh0 and the cross-row sums.
+template <bool kRowMajor>
+cudaError_t backward_chunks(FieldArgs args, bool bf16, const TcMaps& maps,
+                            const float* h0, const float* g, float* partials,
+                            void* const* dweights, void* const* dbiases,
+                            int members, cudaStream_t s) {
+  constexpr int kDh0 = kRowMajor ? kDh0Rows : kDh0Features;
+  cudaError_t err;
+  for (int row0 = 0; row0 < args.n_rows; row0 += args.ld) {
+    const int chunk =
+        args.n_rows - row0 < args.ld ? args.n_rows - row0 : args.ld;
+    const int tiles = (chunk + kRowTile - 1) / kRowTile;
+    const dim3 rows(tiles, members);
+    args.row0 = row0;
+    args.tile0 = row0 / kRowTile;
+    if (bf16) {
+      prescale_kernel<true, kRowMajor><<<rows, kRowTile, 0, s>>>(args, h0);
+    } else {
+      prescale_kernel<false, kRowMajor><<<rows, kRowTile, 0, s>>>(args, h0);
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = launch_forward_layers<true, kRowMajor>(args, bf16, maps, tiles,
+                                                 members, s);
+    if (err != cudaSuccess) return err;
+    if (bf16) {
+      grad_head_kernel<true, kRowMajor>
+          <<<rows, kRowTile, 0, s>>>(args, g, partials);
+    } else {
+      grad_head_kernel<false, kRowMajor>
+          <<<rows, kRowTile, 0, s>>>(args, g, partials);
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = launch_wdv_chain<kDh0, kRowMajor>(args, bf16, maps, tiles, members,
+                                            s);
+    if (err != cudaSuccess) return err;
+    err = launch_weight_grads(args, bf16, maps, dweights, dbiases, members,
+                              tiles * kRowTile, row0 > 0, s);
+    if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
@@ -414,8 +521,9 @@ extern "C" {
 
 // Global scratch (bytes) of one call: chunks of `chunk_rows` rows over
 // `n_rows` rows at `precision` (0 fp32; 1 bf16 adds the twins and the
-// weights' copies), for the forward (`backward` 0, K2) or the backward (1,
-// K3, with its partials). The wrapper sizes its chunks with it.
+// weights' copies), for the forward (`backward` 0, K2 and K4a) or the
+// backward (1, K3 and K4b, with its partials). The same in both layouts;
+// the wrapper sizes its chunks with it.
 size_t bnf_fused_mlp_t_scratch_bytes(int members, int num_features, int width,
                                      int depth, int chunk_rows, int n_rows,
                                      int precision, int backward) {
@@ -437,10 +545,11 @@ size_t bnf_fused_mlp_t_scratch_bytes(int members, int num_features, int width,
           bf16_elems * sizeof(__nv_bfloat16));
 }
 
-// K2: out (E, N) = the field MLP of h0 (E, F, N) at `precision` (0 fp32, 1
-// bf16) on `stream`. Pointers are device pointers to contiguous float32
-// tensors, except the host arrays `weights` and `biases` (depth + 1 device
-// pointers) and `rsqrts` (depth + 1 floats). `scratch` holds
+// K2 (`layout` 0: h0 (E, F, N)) or K4a (`layout` 1: h0 (E, N, F)): out
+// (E, N) = the field MLP of h0 at `precision` (0 fp32, 1 bf16) on `stream`.
+// Pointers are device pointers to contiguous float32 tensors, except the
+// host arrays `weights` and `biases` (depth + 1 device pointers) and
+// `rsqrts` (depth + 1 floats). `scratch` holds
 // bnf_fused_mlp_t_scratch_bytes(..., 0) bytes and is 16-byte aligned;
 // `chunk_rows` is a positive multiple of 128, at most 65,535 tiles. Returns
 // the first launch's cudaError_t that is not cudaSuccess, 2000 for a tensor
@@ -448,10 +557,10 @@ size_t bnf_fused_mlp_t_scratch_bytes(int members, int num_features, int width,
 int bnf_fused_mlp_t_fwd(const void* h0, const void* const* weights,
                         const void* const* biases, const void* scales_raw,
                         const void* logit, void* out, void* scratch,
-                        const float* rsqrts, int precision, int depth,
-                        int members, int num_features, int width, int n_rows,
-                        int chunk_rows, void* stream) {
-  if (bad_call(depth, members, num_features, width, n_rows, precision,
+                        const float* rsqrts, int layout, int precision,
+                        int depth, int members, int num_features, int width,
+                        int n_rows, int chunk_rows, void* stream) {
+  if (bad_call(layout, depth, members, num_features, width, n_rows, precision,
                chunk_rows, scratch)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -471,44 +580,26 @@ int bnf_fused_mlp_t_fwd(const void* h0, const void* const* weights,
   }
   const float* x = static_cast<const float*>(h0);
   float* pred = static_cast<float*>(out);
-  for (int row0 = 0; row0 < n_rows; row0 += chunk_rows) {
-    const int chunk = n_rows - row0 < chunk_rows ? n_rows - row0 : chunk_rows;
-    const int tiles = (chunk + kRowTile - 1) / kRowTile;
-    const dim3 rows(tiles, members);
-    args.row0 = row0;
-    args.tile0 = row0 / kRowTile;
-    if (bf16) {
-      prescale_kernel<true><<<rows, kRowTile, 0, s>>>(args, x);
-    } else {
-      prescale_kernel<false><<<rows, kRowTile, 0, s>>>(args, x);
-    }
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    err = launch_forward_layers<false>(args, bf16, maps, tiles, members, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (bf16) {
-      output_kernel<true><<<rows, kRowTile, 0, s>>>(args, pred);
-    } else {
-      output_kernel<false><<<rows, kRowTile, 0, s>>>(args, pred);
-    }
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  err = layout ? forward_chunks<true>(args, bf16, maps, x, pred, members, s)
+               : forward_chunks<false>(args, bf16, maps, x, pred, members, s);
+  return static_cast<int>(err);
 }
 
-// K3: the backward of K2 for the cotangent g (E, N): dh0 (E, F, N) and the
-// gradients of every weight, bias, scales_raw and logit, at `precision` on
-// `stream`. Pointers as for K2; `dweights` and `dbiases` are host arrays of
-// depth + 1 device pointers. `scratch` holds
-// bnf_fused_mlp_t_scratch_bytes(..., 1) bytes. Returns as K2.
+// K3 (`layout` 0) or K4b (1): the backward of K2 or K4a for the cotangent g
+// (E, N): dh0 laid out as h0 and the gradients of every weight, bias,
+// scales_raw and logit, at `precision` on `stream`. Pointers as for the
+// forward; `dweights` and `dbiases` are host arrays of depth + 1 device
+// pointers. `scratch` holds bnf_fused_mlp_t_scratch_bytes(..., 1) bytes.
+// Returns as the forward.
 int bnf_fused_mlp_t_bwd(const void* h0, const void* g,
                         const void* const* weights, const void* const* biases,
                         const void* scales_raw, const void* logit, void* dh0,
                         void* const* dweights, void* const* dbiases,
                         void* dscales, void* dlogit, void* scratch,
-                        const float* rsqrts, int precision, int depth,
-                        int members, int num_features, int width, int n_rows,
-                        int chunk_rows, void* stream) {
-  if (bad_call(depth, members, num_features, width, n_rows, precision,
+                        const float* rsqrts, int layout, int precision,
+                        int depth, int members, int num_features, int width,
+                        int n_rows, int chunk_rows, void* stream) {
+  if (bad_call(layout, depth, members, num_features, width, n_rows, precision,
                chunk_rows, scratch)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -529,32 +620,11 @@ int bnf_fused_mlp_t_bwd(const void* h0, const void* g,
   }
   const float* x = static_cast<const float*>(h0);
   const float* gg = static_cast<const float*>(g);
-  for (int row0 = 0; row0 < n_rows; row0 += chunk_rows) {
-    const int chunk = n_rows - row0 < chunk_rows ? n_rows - row0 : chunk_rows;
-    const int tiles = (chunk + kRowTile - 1) / kRowTile;
-    const dim3 rows(tiles, members);
-    args.row0 = row0;
-    args.tile0 = row0 / kRowTile;
-    if (bf16) {
-      prescale_kernel<true><<<rows, kRowTile, 0, s>>>(args, x);
-    } else {
-      prescale_kernel<false><<<rows, kRowTile, 0, s>>>(args, x);
-    }
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    err = launch_forward_layers<true>(args, bf16, maps, tiles, members, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (bf16) {
-      grad_head_kernel<true><<<rows, kRowTile, 0, s>>>(args, gg, partials);
-    } else {
-      grad_head_kernel<false><<<rows, kRowTile, 0, s>>>(args, gg, partials);
-    }
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    err = launch_wdv_chain<true>(args, bf16, maps, tiles, members, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = launch_weight_grads(args, bf16, maps, dweights, dbiases, members,
-                              tiles * kRowTile, row0 > 0, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  err = layout ? backward_chunks<true>(args, bf16, maps, x, gg, partials,
+                                       dweights, dbiases, members, s)
+               : backward_chunks<false>(args, bf16, maps, x, gg, partials,
+                                        dweights, dbiases, members, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   FinalArgs fin = {};
   fin.partials = partials;
   fin.layer_partials = args.layer_partials;

@@ -716,7 +716,7 @@ cudaError_t launch_chunk(const TrainArgs& args, int likelihood, bool bf16,
       launch_head<kZINB>(args, bf16, rows, s);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  err = launch_wdv_chain<false>(args, bf16, maps, tiles, members, s);
+  err = launch_wdv_chain<kDh0Scratch>(args, bf16, maps, tiles, members, s);
   if (err != cudaSuccess) return err;
   encode_backward_kernel<<<rows, kRowTile, 0, s>>>(args);
   return cudaGetLastError();

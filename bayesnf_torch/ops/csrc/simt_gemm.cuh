@@ -1,5 +1,5 @@
 // A register-tiled fp32 GEMM engine on Hopper's SIMT pipe (sm_90a), for the
-// layer-wise products of the training kernel (`fused_train.cu`):
+// layer-wise products of the field MLP's kernels (`field_layers.cuh`):
 //
 //   out(m, n) = sum_k A(k, m) * B(k, n),  m < M, k < K, n in the block's tile,
 //
@@ -17,12 +17,12 @@
 // (16-byte copies along contiguous rows, 4-byte copies where the m-major
 // operand is transposed as it lands, zero-fill past M and K), so loads stay
 // kSgStages - 1 stages ahead with one barrier per stage. The B tile is
-// always whole (the caller pads N to the tile; `fused_train.cu` sizes its
+// always whole (the caller pads N to the tile: the callers size their
 // scratch in 128-row tiles).
 //
-// Order. Every output is one fp32 FMA chain over k = 0, 1, ..., K - 1 (no
-// split-K, no atomics), as `block_matmul` and `narrow_matmul` sum, so a
-// result does not depend on the tiling. (The 'bf16' products run on the
+// Order. Every output is one fp32 FMA chain over k = 0, 1, ..., K - 1, in
+// one thread (no split-K, no atomics), so a result does not depend on the
+// tiling or on the other blocks. (The 'bf16' products run on the
 // tensor cores instead: `wgmma_gemm.cuh`.)
 
 #pragma once

@@ -25,8 +25,8 @@ member, or stored once per group of `rep` consecutive members (rep = 1: one
 minibatch per member; rep = S: a VI member's minibatch feeds its S draws).
 
 On CUDA tensors the entry points launch the hand-written CUDA kernels
-(`csrc/fused_mlp_t.cu`: K2 and K3; `csrc/fused_mlp_fwd.cu`: K4a;
-`csrc/fused_mlp_bwd.cu`: K4b; `csrc/fused_train.cu`: K1), and on CPU
+(`csrc/fused_mlp_t.cu`: K2, K3, K4a and K4b; `csrc/fused_train.cu`: K1),
+and on CPU
 tensors they compute their plain PyTorch versions
 (`fused_field_mlp_t_reference`, `fused_field_mlp_reference`,
 `fused_train_reference`). They never fall back: on a CUDA tensor each
@@ -45,16 +45,11 @@ from bayesnf_torch.models import likelihoods
 from bayesnf_torch.ops import _build
 from bayesnf_torch.ops import mixed
 
-_LIB_NAME = 'fused_mlp_fwd'
-_BWD_LIB_NAME = 'fused_mlp_bwd'
 _T_LIB_NAME = 'fused_mlp_t'
 _TRAIN_LIB_NAME = 'fused_train'
 MAX_DEPTH = 8  # kMaxLayers - 1 in the kernel sources.
 MAX_MEMBERS = 65535  # gridDim.y.
-# Opt-in shared memory of one block on sm_90 (227 KB).
-MAX_SHARED_BYTES = 232448
-TILE_ROWS = (32, 16)  # K4a/K4b's instantiations, largest first.
-# The row tile of the layer-wise kernels (K1, K2, K3; kRowTile in
+# The row tile of the layer-wise kernels (kRowTile in
 # csrc/field_layers.cuh): their chunks are whole tiles, at most gridDim.y of
 # them (their GEMMs' grid).
 TRAIN_ROW_TILE = 128
@@ -68,8 +63,11 @@ MAX_PARTIALS = 32
 LIKELIHOOD_CODES = {'NORMAL': 0, 'NB': 1, 'ZINB': 2}
 # Its precision codes: 'highest' runs the fp32 kernel (see `ops/mixed.py`).
 PRECISION_CODES = {'f32': 0, 'highest': 0, 'bf16': 1}
+# The field MLP's layout codes in `csrc/fused_mlp_t.cu`: h0 (E, F, N)
+# features-major (K2, K3), or (E, N, F) row-major (K4a, K4b).
+LAYOUT_CODES = {'features': 0, 'rows': 1}
 # Global scratch one `fused_train` call, or one call of the field MLP's
-# kernels (K2, K3, K4b), may hold; rows are processed in chunks that fit it.
+# kernels, may hold; rows are processed in chunks that fit it.
 TRAIN_SCRATCH_BYTES = 2 << 30
 
 
@@ -166,75 +164,9 @@ def fused_field_mlp_vjp_reference(
   return (dh0[0], *rest)
 
 
-def pick_tile_rows(num_features: int, width: int,
-                   backward: bool = False) -> int:
-  """Rows per block of the row-major forward K4a (or, with `backward`, of
-  K4b's tile kernel): the largest instantiated tile whose buffers fit.
-
-  Raises:
-    ValueError: if even the smallest tile does not fit in shared memory.
-  """
-  fn = (_bwd_lib().bnf_fused_mlp_bwd_smem_bytes if backward
-        else _lib().bnf_fused_mlp_fwd_smem_bytes)
-  for tile_rows in TILE_ROWS:
-    if fn(tile_rows, num_features, width) <= MAX_SHARED_BYTES:
-      return tile_rows
-  raise ValueError(
-      f'fused field MLP {"backward" if backward else "forward"}: width '
-      f'{width} with {num_features} input features does not fit a '
-      f'{TILE_ROWS[-1]}-row tile in {MAX_SHARED_BYTES} bytes of shared '
-      'memory.'
-  )
-
-
 def _declare_common(lib):
   lib.bnf_cuda_error_string.argtypes = [ctypes.c_int]
   lib.bnf_cuda_error_string.restype = ctypes.c_char_p
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-  lib = _build.load_library(_LIB_NAME)
-  ptr, ptrs, i32 = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int
-  lib.bnf_fused_mlp_fwd.argtypes = [
-      ptr, ptrs, ptrs,  # h0, weights, biases
-      ptr, ptr, ptr,  # scales_raw, logit, out
-      ctypes.POINTER(ctypes.c_float),  # rsqrts
-      ptrs,  # buffers for the bf16-rounded weights (precision code 1)
-      i32,  # precision
-      i32, i32, i32, i32, i32, i32,  # depth, members, features, width, rows, tile
-      ptr,  # stream
-  ]
-  lib.bnf_fused_mlp_fwd.restype = ctypes.c_int
-  lib.bnf_fused_mlp_fwd_smem_bytes.argtypes = [i32] * 3
-  lib.bnf_fused_mlp_fwd_smem_bytes.restype = ctypes.c_size_t
-  _declare_common(lib)
-  return lib
-
-
-@functools.cache
-def _bwd_lib() -> ctypes.CDLL:
-  lib = _build.load_library(_BWD_LIB_NAME)
-  ptr, ptrs, i32 = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int
-  lib.bnf_fused_mlp_bwd.argtypes = [
-      ptr, ptr, ptrs, ptrs,  # h0, g, weights, biases
-      ptr, ptr, ptr,  # scales_raw, logit, dh0
-      ptrs, ptrs, ptr, ptr,  # dweights, dbiases, dscales, dlogit
-      ptr,  # scratch
-      ptrs,  # buffers for the bf16-rounded weights (precision code 1)
-      ctypes.POINTER(ctypes.c_float),  # rsqrts
-      i32,  # precision
-      i32, i32, i32, i32, i32,  # depth, members, features, width, rows
-      i32, i32,  # tile_rows, chunk_rows
-      ptr,  # stream
-  ]
-  lib.bnf_fused_mlp_bwd.restype = ctypes.c_int
-  lib.bnf_fused_mlp_bwd_smem_bytes.argtypes = [i32] * 3
-  lib.bnf_fused_mlp_bwd_smem_bytes.restype = ctypes.c_size_t
-  lib.bnf_fused_mlp_bwd_scratch_bytes.argtypes = [i32] * 7
-  lib.bnf_fused_mlp_bwd_scratch_bytes.restype = ctypes.c_size_t
-  _declare_common(lib)
-  return lib
 
 
 @functools.cache
@@ -242,7 +174,8 @@ def _t_lib() -> ctypes.CDLL:
   lib = _build.load_library(_T_LIB_NAME)
   ptr, ptrs, i32 = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int
   rsqrts = ctypes.POINTER(ctypes.c_float)
-  sizes = [i32] * 6  # precision, depth, members, features, width, rows
+  # layout, precision, depth, members, features, width, rows
+  sizes = [i32] * 7
   lib.bnf_fused_mlp_t_fwd.argtypes = [
       ptr, ptrs, ptrs,  # h0, weights, biases
       ptr, ptr, ptr, ptr,  # scales_raw, logit, out, scratch
@@ -265,8 +198,7 @@ def _t_lib() -> ctypes.CDLL:
 
 def check_forward_shape(depth):
   """Raises ValueError for a depth the field-MLP kernels do not take (above
-  MAX_DEPTH). K2 and K3 take any width; K4a and K4b's width limit is
-  `pick_tile_rows`'."""
+  MAX_DEPTH). They take any width."""
   if not 0 <= depth <= MAX_DEPTH:
     raise ValueError(f'depth must be in [0, {MAX_DEPTH}], got {depth}.')
 
@@ -342,7 +274,7 @@ def _entry(layout):
 
 
 def _chunk_rows(scratch_bytes, n):
-  """Rows per chunk of a layer-wise call (K1, K2, K3): as many whole
+  """Rows per chunk of a layer-wise call (K1, K2-K4b): as many whole
   TRAIN_ROW_TILE-row tiles as TRAIN_SCRATCH_BYTES holds beside what the call
   holds whatever its rows (under 'bf16' the weights' bf16 copies), at most
   MAX_TRAIN_CHUNK_TILES of them, and no more than n's own tiles.
@@ -357,9 +289,10 @@ def _chunk_rows(scratch_bytes, n):
   return min(tiles * tile, -(-n // tile) * tile)
 
 
-def _t_scratch(lib, h0, width, depth, code, backward):
-  """(chunk rows, scratch tensor) of a K2 (`backward` 0) or K3 (1) call."""
-  e, f, n = h0.shape
+def _t_scratch(lib, h0, layout, width, depth, code, backward):
+  """(chunk rows, scratch tensor) of a forward (`backward` 0) or backward
+  (1) call of the field MLP; the plan does not depend on the layout."""
+  e, f, n = _dims(h0, layout)
 
   def scratch_bytes(rows, total):
     return lib.bnf_fused_mlp_t_scratch_bytes(e, f, width, depth, rows, total,
@@ -371,42 +304,44 @@ def _t_scratch(lib, h0, width, depth, code, backward):
   return chunk_rows, scratch
 
 
-def _launch_k2(lib, stream, depth, precision, width, h0, weights, biases,
-               scales_raw, logit):
-  """One K2 call of `lib` on `stream`, layer-wise over chunks of whole
-  128-row tiles; `width` is what `_check_inputs` returned."""
-  e, f, n = h0.shape
+def _launch_k2(lib, stream, layout, depth, precision, width, h0, weights,
+               biases, scales_raw, logit):
+  """One forward call of `lib` on `stream` (K2 features-major, K4a
+  row-major), layer-wise over chunks of whole 128-row tiles; `width` is
+  what `_check_inputs` returned."""
+  e, f, n = _dims(h0, layout)
   code = PRECISION_CODES[precision]
-  chunk_rows, scratch = _t_scratch(lib, h0, width, depth, code, 0)
+  chunk_rows, scratch = _t_scratch(lib, h0, layout, width, depth, code, 0)
   out = torch.empty((e, n), dtype=torch.float32, device=h0.device)
   err = lib.bnf_fused_mlp_t_fwd(
       h0.data_ptr(), _ptrs(weights), _ptrs(biases), scales_raw.data_ptr(),
       logit.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-      _rsqrts([f] + [width] * depth), code, depth, e, f, width, n,
-      chunk_rows, stream)
-  _raise_on(err, lib, 'fused_field_mlp_t')
+      _rsqrts([f] + [width] * depth), LAYOUT_CODES[layout], code, depth, e,
+      f, width, n, chunk_rows, stream)
+  _raise_on(err, lib, _entry(layout).__name__)
   return out
 
 
-def _launch_k3(lib, stream, depth, precision, width, h0, weights, biases,
-               scales_raw, logit, g):
-  """One K3 call of `lib` on `stream`, as `_launch_k2`.
+def _launch_k3(lib, stream, layout, depth, precision, width, h0, weights,
+               biases, scales_raw, logit, g):
+  """One backward call of `lib` on `stream` (K3 features-major, K4b
+  row-major), as `_launch_k2`.
 
   Returns:
-    (dh0 (E, F, N), dweights, dbiases, dscales_raw, dlogit).
+    (dh0 laid out as h0, dweights, dbiases, dscales_raw, dlogit).
   """
-  e, f, n = h0.shape
+  e, f, n = _dims(h0, layout)
   code = PRECISION_CODES[precision]
-  chunk_rows, scratch = _t_scratch(lib, h0, width, depth, code, 1)
+  chunk_rows, scratch = _t_scratch(lib, h0, layout, width, depth, code, 1)
   dh0, dws, dbs, dscales, dlogit = outs = _empty_grads(h0, weights, biases,
                                                        scales_raw, logit)
   err = lib.bnf_fused_mlp_t_bwd(
       h0.data_ptr(), g.data_ptr(), _ptrs(weights), _ptrs(biases),
       scales_raw.data_ptr(), logit.data_ptr(), dh0.data_ptr(), _ptrs(dws),
       _ptrs(dbs), dscales.data_ptr(), dlogit.data_ptr(), scratch.data_ptr(),
-      _rsqrts([f] + [width] * depth), code, depth, e, f, width, n,
-      chunk_rows, stream)
-  _raise_on(err, lib, 'fused_field_mlp_t backward')
+      _rsqrts([f] + [width] * depth), LAYOUT_CODES[layout], code, depth, e,
+      f, width, n, chunk_rows, stream)
+  _raise_on(err, lib, f'{_entry(layout).__name__} backward')
   return outs
 
 
@@ -420,32 +355,14 @@ def _launch_forward(layout, depth, precision, h0, weights, biases,
                     scales_raw, logit):
   """One K2 (features-major) or K4a (row-major) call on the current stream."""
   width = _check_inputs(depth, h0, weights, biases, scales_raw, logit, layout)
-  e, f, n = _dims(h0, layout)
+  e, _, n = _dims(h0, layout)
   if n == 0:
     return torch.empty((e, 0), dtype=torch.float32, device=h0.device)
-  if layout == 'features':
-    with torch.cuda.device(h0.device):
-      out = _launch_k2(_t_lib(), torch.cuda.current_stream().cuda_stream,
-                       depth, precision, width, h0, weights, biases,
-                       scales_raw, logit)
-    fused_field_mlp_t.launches += 1
-    return out
-  tile_rows = pick_tile_rows(f, width)
-  code = PRECISION_CODES[precision]
-  out = torch.empty((e, n), dtype=torch.float32, device=h0.device)
-  # Under 'bf16' the kernel writes the rounded weights here (held until the
-  # call returns; later allocations on the stream are ordered after it).
-  weights16 = [torch.empty_like(w) for w in weights] if code else None
-  lib = _lib()
   with torch.cuda.device(h0.device):
-    err = lib.bnf_fused_mlp_fwd(
-        h0.data_ptr(), _ptrs(weights), _ptrs(biases), scales_raw.data_ptr(),
-        logit.data_ptr(), out.data_ptr(), _rsqrts([f] + [width] * depth),
-        _ptrs(weights16) if code else None, code, depth, e, f, width, n,
-        tile_rows, torch.cuda.current_stream().cuda_stream,
-    )
-  _raise_on(err, lib, 'fused_field_mlp')
-  fused_field_mlp.launches += 1
+    out = _launch_k2(_t_lib(), torch.cuda.current_stream().cuda_stream,
+                     layout, depth, precision, width, h0, weights, biases,
+                     scales_raw, logit)
+  _entry(layout).launches += 1
   return out
 
 
@@ -457,7 +374,7 @@ def _launch_backward(layout, depth, precision, h0, weights, biases,
     (dh0 laid out as h0, dweights, dbiases, dscales_raw, dlogit).
   """
   width = _check_inputs(depth, h0, weights, biases, scales_raw, logit, layout)
-  e, f, n = _dims(h0, layout)
+  e, _, n = _dims(h0, layout)
   if tuple(g.shape) != (e, n) or g.dtype != torch.float32 or (
       g.device != h0.device):
     raise ValueError(
@@ -468,38 +385,11 @@ def _launch_backward(layout, depth, precision, h0, weights, biases,
     for t in (outs[0], *outs[1], *outs[2], *outs[3:]):
       t.zero_()
     return outs
-  if layout == 'features':
-    with torch.cuda.device(h0.device):
-      outs = _launch_k3(_t_lib(), torch.cuda.current_stream().cuda_stream,
-                        depth, precision, width, h0, weights, biases,
-                        scales_raw, logit, g)
-    fused_field_mlp_t.bwd_launches += 1
-    return outs
-  outs = _empty_grads(h0, weights, biases, scales_raw, logit)
-  tile_rows = pick_tile_rows(f, width, backward=True)
-  lib = _bwd_lib()
-  scratch_bytes = functools.partial(lib.bnf_fused_mlp_bwd_scratch_bytes, e,
-                                    f, width, depth)
-  # Rows per chunk: as many whole tiles as the scratch budget holds.
-  per_row = scratch_bytes(1, 0, tile_rows)
-  chunk_rows = max(1, TRAIN_SCRATCH_BYTES // per_row // tile_rows) * tile_rows
-  chunk_rows = min(chunk_rows, -(-n // tile_rows) * tile_rows)
-  scratch = torch.empty(scratch_bytes(chunk_rows, n, tile_rows) // 4,
-                        dtype=torch.float32, device=h0.device)
-  code = PRECISION_CODES[precision]
-  weights16 = [torch.empty_like(w) for w in weights] if code else None
-  dh0, dws, dbs, dscales, dlogit = outs
   with torch.cuda.device(h0.device):
-    err = lib.bnf_fused_mlp_bwd(
-        h0.data_ptr(), g.data_ptr(), _ptrs(weights), _ptrs(biases),
-        scales_raw.data_ptr(), logit.data_ptr(), dh0.data_ptr(), _ptrs(dws),
-        _ptrs(dbs), dscales.data_ptr(), dlogit.data_ptr(), scratch.data_ptr(),
-        _ptrs(weights16) if code else None, _rsqrts([f] + [width] * depth),
-        code, depth, e, f, width, n, tile_rows, chunk_rows,
-        torch.cuda.current_stream().cuda_stream,
-    )
-  _raise_on(err, lib, 'fused_field_mlp backward')
-  fused_field_mlp.bwd_launches += 1
+    outs = _launch_k3(_t_lib(), torch.cuda.current_stream().cuda_stream,
+                      layout, depth, precision, width, h0, weights, biases,
+                      scales_raw, logit, g)
+  _entry(layout).bwd_launches += 1
   return outs
 
 
@@ -599,7 +489,8 @@ def fused_field_mlp_t(
   On CUDA, K2 and K3 run layer-wise (`csrc/fused_mlp_t.cu`): over chunks
   of whole 128-row tiles sized under `TRAIN_SCRATCH_BYTES`, one GEMM per
   layer and direction (SIMT fp32 under 'f32', tensor cores under 'bf16'),
-  so any width fits.
+  so any width fits. `fused_field_mlp` runs the same kernels on the same
+  plan.
 
   Raises:
     ValueError: on an unknown precision, or on CUDA on shapes, dtypes,
@@ -647,14 +538,19 @@ def fused_field_mlp(
 
   On CPU tensors it returns :func:`fused_field_mlp_reference`; on CUDA
   tensors it launches K4a (`fused_field_mlp.launches`), and autograd through
-  the result launches K4b (`fused_field_mlp.bwd_launches`). Under 'bf16' the
-  products round where the row-major TPU kernels round: not the output
-  layer's h @ W_out or its weight gradient, nor, with F = 1, d h0.
+  the result launches K4b (`fused_field_mlp.bwd_launches`), which returns
+  dh0 (E, N, F) and the gradient of every parameter. K4a and K4b are K2's
+  and K3's layer-wise kernels (`csrc/fused_mlp_t.cu`) reading h0 and
+  writing dh0 row-major, so any width fits. Under 'bf16' the products
+  round where the row-major TPU kernels round: not a product whose result
+  has one column (the output layer's h @ W_out and its weight gradient; at
+  width 1 the hidden forwards and the W dv products of layers >= 1; with
+  F = 1 the first layer's d h0).
 
   Raises:
-    ValueError: as :func:`fused_field_mlp_t`, and for a width whose tile
-      does not fit in shared memory (`pick_tile_rows`).
-    RuntimeError: if a kernel fails to build or to launch.
+    ValueError: as :func:`fused_field_mlp_t`.
+    RuntimeError: if a kernel fails to build or to launch, or a tensor map
+      of the 'bf16' products is refused.
   """
   tensors = (h0, *weights, *biases, scales_raw, logit)
   if not _on_cuda('rows', precision, tensors):

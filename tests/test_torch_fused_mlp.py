@@ -6,10 +6,10 @@ it to rtol/atol 2e-5 (the JAX package's own forward bound). The CUDA kernel
 itself is compared with the plain version on the card by
 `tests/test_torch_gpu.py` and by `chip_smoke.py` at the main path's shapes.
 
-The host code of K2 and K3 (`csrc/fused_mlp_t.cu`, layer-wise over chunks
-of whole 128-row tiles) runs here against a stand-in for the compiled
-library: the chunk plan under `TRAIN_SCRATCH_BYTES` and the arguments each
-launch passes.
+The host code of K2, K3, K4a and K4b (`csrc/fused_mlp_t.cu`, layer-wise
+over chunks of whole 128-row tiles, both layouts through one pair of C
+entries) runs here against a stand-in for the compiled library: the chunk
+plan under `TRAIN_SCRATCH_BYTES` and the arguments each launch passes.
 """
 
 import jax.numpy as jnp
@@ -100,12 +100,15 @@ def test_input_checks():
 
 
 class _FakeFieldLib:
-  """Stands in for the compiled K2/K3 library on the CPU: the C side's
+  """Stands in for the compiled field-MLP library on the CPU: the C side's
   scratch formula (per chunk row and member: the forward's lhs_0 and two
   ping-pong width buffers, the backward's lhs_l, z_l and dv_l; under 'bf16'
   their bf16 twins, and per member the hidden weights' bf16 copies, rows
-  padded to a multiple of 8; the backward's partials per 128-row tile), and
-  launches that record their arguments and return `err`."""
+  padded to a multiple of 8; the backward's partials per 128-row tile; the
+  same in both layouts), and launches that record their arguments and
+  return `err`. The entries' trailing arguments, after the host arrays:
+  rsqrts, layout, precision, depth, members, features, width, rows, chunk
+  rows and the stream."""
 
   def __init__(self, err=0):
     self.err = err
@@ -129,13 +132,18 @@ class _FakeFieldLib:
     bf16 = (chunk_rows * twins + copies) * 2 if precision == 1 else 0
     return members * ((chunk_rows * floats + partials) * 4 + bf16)
 
-  def bnf_fused_mlp_t_fwd(self, *args):
-    self.calls.append(args)
+  TRAILING = ('rsqrts', 'layout', 'precision', 'depth', 'members',
+              'features', 'width', 'rows', 'chunk_rows', 'stream')
+
+  def _record(self, args):
+    self.calls.append(dict(zip(self.TRAILING, args[-len(self.TRAILING):])))
     return self.err
 
+  def bnf_fused_mlp_t_fwd(self, *args):
+    return self._record(args)
+
   def bnf_fused_mlp_t_bwd(self, *args):
-    self.calls.append(args)
-    return self.err
+    return self._record(args)
 
   @staticmethod
   def bnf_cuda_error_string(err):
@@ -185,35 +193,76 @@ def test_k2_k3_chunk_plan_of_a_480_member_predict():
   assert _plan(64, 49, 512, 2, 4096, 'f32', 0) == 4096
 
 
+def _launch_call(lib, layout, precision, h0, params, g=None):
+  """The last launch's recorded arguments, as `_FakeFieldLib` names them,
+  and what the wrapper returned."""
+  if g is None:
+    got = t_fused._launch_k2(  # pylint: disable=protected-access
+        lib, 'stream', layout, 2, precision, 16, h0, *params)
+  else:
+    got = t_fused._launch_k3(  # pylint: disable=protected-access
+        lib, 'stream', layout, 2, precision, 16, h0, *params, g)
+  call = dict(lib.calls[-1])
+  rsqrts = list(call.pop('rsqrts'))
+  np.testing.assert_allclose(rsqrts, [9 ** -0.5, 0.25, 0.25], rtol=1e-7)
+  return call, got
+
+
 @pytest.mark.parametrize('precision', ['f32', 'bf16'])
 def test_k2_and_k3_launches_pass_the_plan_and_the_shapes(precision):
   args = _torch_args(_inputs(2, (6, 3), n=300, width=16, members=3))
   h0 = torch.cat(args.pop('h0_groups'), 1)
   params = (args['weights'], args['biases'], args['scales_raw'],
             args['logit'])
-  code = t_fused.PRECISION_CODES[precision]
+  want = dict(layout=0, precision=t_fused.PRECISION_CODES[precision],
+              depth=2, members=3, features=9, width=16, rows=300,
+              chunk_rows=384, stream='stream')
   lib = _FakeFieldLib()
-  out = t_fused._launch_k2(  # pylint: disable=protected-access
-      lib, 'stream', 2, precision, 16, h0, *params)
-  assert out.shape == (3, 300)
-  *_, rsqrts, got_code, depth, e, f, width, n, chunk_rows, stream = (
-      lib.calls[-1])
-  assert (got_code, depth, e, f, width, n, chunk_rows, stream) == (
-      code, 2, 3, 9, 16, 300, 384, 'stream')
-  np.testing.assert_allclose(list(rsqrts), [9 ** -0.5, 0.25, 0.25],
-                             rtol=1e-7)
+  call, out = _launch_call(lib, 'features', precision, h0, params)
+  assert call == want and out.shape == (3, 300)
   g = torch.ones((3, 300))
-  dh0, dws, dbs, dscales, dlogit = t_fused._launch_k3(  # pylint: disable=protected-access
-      lib, 'stream', 2, precision, 16, h0, *params, g)
-  assert lib.calls[-1][-8:] == (code, 2, 3, 9, 16, 300, 384, 'stream')
+  call, (dh0, dws, dbs, dscales, dlogit) = _launch_call(
+      lib, 'features', precision, h0, params, g)
+  assert call == want
   assert dh0.shape == h0.shape
   assert [t.shape for t in (*dws, *dbs, dscales, dlogit)] == [
       t.shape for t in (*args['weights'], *args['biases'],
                         args['scales_raw'], args['logit'])]
   with pytest.raises(RuntimeError, match='fused_field_mlp_t kernel launch '
                      'failed: CUDA error 7 .error 7'):
-    t_fused._launch_k2(  # pylint: disable=protected-access
-        _FakeFieldLib(err=7), 'stream', 2, precision, 16, h0, *params)
-  with pytest.raises(RuntimeError, match='backward kernel launch failed'):
-    t_fused._launch_k3(  # pylint: disable=protected-access
-        _FakeFieldLib(err=2000), 'stream', 2, precision, 16, h0, *params, g)
+    _launch_call(_FakeFieldLib(err=7), 'features', precision, h0, params)
+  with pytest.raises(RuntimeError, match='fused_field_mlp_t backward kernel '
+                     'launch failed'):
+    _launch_call(_FakeFieldLib(err=2000), 'features', precision, h0, params,
+                 g)
+
+
+@pytest.mark.parametrize('precision', ['f32', 'bf16'])
+def test_k4a_and_k4b_launches_pass_the_plan_and_the_shapes(precision):
+  # A row-major call reaches the same C entries with layout 1, plans the
+  # chunks of the features-major call of the same shape (the scratch is
+  # (E, F, ld) in both layouts) and returns dh0 as (E, N, F).
+  args = _torch_args(_inputs(2, (6, 3), n=300, width=16, members=3))
+  h0_t = torch.cat(args.pop('h0_groups'), 1)
+  h0 = h0_t.transpose(1, 2).contiguous()
+  params = (args['weights'], args['biases'], args['scales_raw'],
+            args['logit'])
+  lib = _FakeFieldLib()
+  features, _ = _launch_call(lib, 'features', precision, h0_t, params)
+  call, out = _launch_call(lib, 'rows', precision, h0, params)
+  assert call == dict(features, layout=1) and out.shape == (3, 300)
+  g = torch.ones((3, 300))
+  features, _ = _launch_call(lib, 'features', precision, h0_t, params, g)
+  call, (dh0, dws, dbs, dscales, dlogit) = _launch_call(
+      lib, 'rows', precision, h0, params, g)
+  assert call == dict(features, layout=1)
+  assert dh0.shape == (3, 300, 9)
+  assert [t.shape for t in (*dws, *dbs, dscales, dlogit)] == [
+      t.shape for t in (*args['weights'], *args['biases'],
+                        args['scales_raw'], args['logit'])]
+  with pytest.raises(RuntimeError, match='fused_field_mlp kernel launch '
+                     'failed: CUDA error 7 .error 7'):
+    _launch_call(_FakeFieldLib(err=7), 'rows', precision, h0, params)
+  with pytest.raises(RuntimeError, match='fused_field_mlp backward kernel '
+                     'launch failed: CUDA error 2000'):
+    _launch_call(_FakeFieldLib(err=2000), 'rows', precision, h0, params, g)

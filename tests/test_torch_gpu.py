@@ -708,32 +708,23 @@ def test_predict_launches_no_backward(cuda):
 
 @pytest.mark.gpu
 def test_field_mlp_refuses_what_it_cannot_take(cuda):
-  # The row-major tile kernels: width 1,350 with 16-row tiles fits the
-  # forward's shared memory but not the backward's (which also stages its
-  # cotangent row); 4,096 fits neither. Both raise before any launch. The
-  # features-major K2 and K3 run layer-wise and take both widths.
-  for width in (4096, 1350):
-    args = _inputs(1, (5,), 8, width, members=2, device=cuda)
-    leaves = _mlp_leaves(args, 'features')
-    pred = _mlp_call(fused_mlp.fused_field_mlp_t, 'features', 1, leaves,
-                     'f32')
-    grads = torch.autograd.grad(pred.sum(), leaves)
-    assert all(bool(torch.isfinite(g).all()) for g in grads)
-  args = _inputs(1, (5,), 8, 4096, members=2, device=cuda)
-  with pytest.raises(ValueError, match='shared memory'):
-    _mlp_call(fused_mlp.fused_field_mlp, 'rows', 1,
-              _mlp_leaves(args, 'rows'), 'f32')
-  args = _inputs(1, (5,), 8, 1350, members=2, device=cuda)
-  leaves = _mlp_leaves(args, 'rows')
-  pred = _mlp_call(fused_mlp.fused_field_mlp, 'rows', 1, leaves, 'f32')
-  with pytest.raises(ValueError, match='backward: width 1350'):
-    torch.autograd.grad(pred.sum(), leaves)
+  # Both layouts run layer-wise, so widths 4,096 and 1,350 (past what the
+  # old row-major tile kernels' shared memory held) run forward and
+  # backward with finite gradients; an unknown precision raises.
+  for layout, fn in (('features', fused_mlp.fused_field_mlp_t),
+                     ('rows', fused_mlp.fused_field_mlp)):
+    for width in (4096, 1350):
+      args = _inputs(1, (5,), 8, width, members=2, device=cuda)
+      leaves = _mlp_leaves(args, layout)
+      pred = _mlp_call(fn, layout, 1, leaves, 'f32')
+      grads = torch.autograd.grad(pred.sum(), leaves)
+      assert all(bool(torch.isfinite(g).all()) for g in grads)
   with pytest.raises(ValueError, match='Unknown precision'):
     _mlp_call(fused_mlp.fused_field_mlp, 'rows', 1, leaves, 'fp16')
 
 
-# K2 and K3 layer-wise: (depth, width, rows, members, scratch budget in rows
-# of the backward, or None). Width 100 is not a multiple of 8 (TMA's
+# K2 and K3 layer-wise, and K4a and K4b on the same kernels: (depth, width,
+# rows, members, scratch budget in rows of the backward, or None). Width 100 is not a multiple of 8 (TMA's
 # 16-byte strides); 333 and 129 rows are ragged in 128-row tiles; the budget
 # case runs many chunks.
 K2K3_SHAPES = [
@@ -757,54 +748,94 @@ def _k2k3(monkeypatch, cuda, depth, width, n, members, budget_rows):
   return args, g
 
 
-def _k2k3_outputs(depth, args, g, precision, kernel=True):
-  fwd, vjp = ((fused_mlp.fused_field_mlp_t, fused_mlp.fused_field_mlp_t_vjp)
-              if kernel else (fused_mlp.fused_field_mlp_t_reference,
-                              fused_mlp.fused_field_mlp_t_vjp_reference))
-  dh0, dws, dbs, dscales, dlogit = vjp(depth, **args, g=g,
+# Per layout: (forward, backward alone, their plain versions).
+FIELD_MLP_FNS = {
+    'features': (fused_mlp.fused_field_mlp_t, fused_mlp.fused_field_mlp_t_vjp,
+                 fused_mlp.fused_field_mlp_t_reference,
+                 fused_mlp.fused_field_mlp_t_vjp_reference),
+    'rows': (fused_mlp.fused_field_mlp, fused_mlp.fused_field_mlp_vjp,
+             fused_mlp.fused_field_mlp_reference,
+             fused_mlp.fused_field_mlp_vjp_reference),
+}
+
+
+def _k2k3_outputs(depth, args, g, precision, kernel=True, layout='features'):
+  """K2's prediction and K3's leaves (row-major: K4a's and K4b's), or their
+  plain versions'."""
+  fns = FIELD_MLP_FNS[layout]
+  fwd, vjp = fns[:2] if kernel else fns[2:]
+  h0 = (args['h0_groups'] if layout == 'features' else
+        torch.cat(args['h0_groups'], 1).transpose(1, 2).contiguous())
+  params = (args['weights'], args['biases'], args['scales_raw'],
+            args['logit'])
+  dh0, dws, dbs, dscales, dlogit = vjp(depth, h0, *params, g,
                                        precision=precision)
-  return [fwd(depth, **args, precision=precision), *dh0, *dws, *dbs, dscales,
-          dlogit]
+  dh0 = list(dh0) if layout == 'features' else [dh0]
+  return [fwd(depth, h0, *params, precision=precision), *dh0, *dws, *dbs,
+          dscales, dlogit]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize('precision', ['f32', 'bf16'])
-@pytest.mark.parametrize('depth,width,n,members,budget_rows', K2K3_SHAPES,
-                         ids=K2K3_IDS)
-def test_k2_k3_match_plain(cuda, monkeypatch, precision, depth, width, n,
-                           members, budget_rows):
-  # K2's prediction and K3's leaves against the plain versions ('bf16'
-  # against plain 'bf16', and within the JAX package's bf16 bound of plain
-  # fp32); two identical calls bit-equal.
-  args, g = _k2k3(monkeypatch, cuda, depth, width, n, members, budget_rows)
-  before = (fused_mlp.fused_field_mlp_t.launches,
-            fused_mlp.fused_field_mlp_t.bwd_launches)
-  got = _k2k3_outputs(depth, args, g, precision)
+def _check_k2k3(args, g, depth, precision, layout):
+  """K2's prediction and K3's leaves (row-major K4a's and K4b's) against
+  the plain versions ('bf16' against plain 'bf16', and within the JAX
+  package's bf16 bound of plain fp32); two identical calls bit-equal; one
+  launch of each kernel a call."""
+  fn = FIELD_MLP_FNS[layout][0]
+  before = (fn.launches, fn.bwd_launches)
+  got = _k2k3_outputs(depth, args, g, precision, layout=layout)
   torch.cuda.synchronize()
-  assert (fused_mlp.fused_field_mlp_t.launches,
-          fused_mlp.fused_field_mlp_t.bwd_launches) == (before[0] + 1,
-                                                        before[1] + 1)
-  want = _k2k3_outputs(depth, args, g, precision, kernel=False)
+  assert (fn.launches, fn.bwd_launches) == (before[0] + 1, before[1] + 1)
+  want = _k2k3_outputs(depth, args, g, precision, kernel=False, layout=layout)
   if precision == 'f32':
     torch.testing.assert_close(got[0], want[0], **KERNEL_TOL)
   else:
     torch.testing.assert_close(got[0], want[0], rtol=1e-3, atol=2e-3)
-    f32 = _k2k3_outputs(depth, args, g, 'f32', kernel=False)
+    f32 = _k2k3_outputs(depth, args, g, 'f32', kernel=False, layout=layout)
     for k, f in zip(got, f32):
       off = (k - f).abs() - BF16_F32_TOL * f.abs()
       assert off.max().item() <= BF16_F32_TOL * f.abs().max().item()
   _assert_leaves_close(got[1:], want[1:], MLP_LEAF_TOL[precision])
-  again = _k2k3_outputs(depth, args, g, precision)
+  again = _k2k3_outputs(depth, args, g, precision, layout=layout)
   assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize('layout', ['features', 'rows'])
+@pytest.mark.parametrize('precision', ['f32', 'bf16'])
+@pytest.mark.parametrize('depth,width,n,members,budget_rows', K2K3_SHAPES,
+                         ids=K2K3_IDS)
+def test_k2_k3_match_plain(cuda, monkeypatch, layout, precision, depth, width,
+                           n, members, budget_rows):
+  args, g = _k2k3(monkeypatch, cuda, depth, width, n, members, budget_rows)
+  _check_k2k3(args, g, depth, precision, layout)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('depth,groups', [(2, (3, 10, 6)), (2, (1,)),
+                                          (0, (1,))],
+                         ids=['width1-depth2', 'one-feature',
+                              'one-feature-depth0'])
+def test_k4_bf16_keeps_one_column_products_fp32(cuda, depth, groups):
+  # Row-major 'bf16' keeps fp32 every product whose result has one column:
+  # at width 1 the hidden forwards and the W dv products of layers >= 1
+  # (the first layer's, F = 19 outputs, still rounds, reading dv_0's twin
+  # that the SIMT product of layer 1 writes); with F = 1 the first layer's
+  # d h0. K4a and K4b against the plain 'bf16' version with those sites.
+  width = 1 if groups[0] == 3 else 64
+  args = _inputs(depth, groups, 300, width, members=2, device=cuda)
+  g = torch.as_tensor(np.random.default_rng(1).normal(size=(2, 300)).astype(
+      np.float32), device=cuda)
+  _check_k2k3(args, g, depth, 'bf16', 'rows')
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('layout', ['features', 'rows'])
 @pytest.mark.parametrize('depth,width,n,members,budget_rows',
                          [K2K3_SHAPES[0], K2K3_SHAPES[-1]],
                          ids=[K2K3_IDS[0], K2K3_IDS[-1]])
-def test_k2_k3_highest_is_f32_bit_for_bit(cuda, monkeypatch, depth, width, n,
-                                          members, budget_rows):
+def test_k2_k3_highest_is_f32_bit_for_bit(cuda, monkeypatch, layout, depth,
+                                          width, n, members, budget_rows):
   args, g = _k2k3(monkeypatch, cuda, depth, width, n, members, budget_rows)
-  highest = _k2k3_outputs(depth, args, g, 'highest')
-  f32 = _k2k3_outputs(depth, args, g, 'f32')
+  highest = _k2k3_outputs(depth, args, g, 'highest', layout=layout)
+  f32 = _k2k3_outputs(depth, args, g, 'f32', layout=layout)
   assert all(torch.equal(a, b) for a, b in zip(highest, f32))
