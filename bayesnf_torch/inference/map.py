@@ -595,6 +595,8 @@ def ensemble_map(
 # initialization uses the seed itself).
 PERMUTATION_STREAM = 1
 VI_STEP_STREAM = 2
+# The CLI's CRPS draws (`cli/evaluate.py`).
+CRPS_STREAM = 3
 
 
 def stream_seed(seed: int, stream: int, *key: int) -> int:

@@ -2,6 +2,7 @@
 
 Every parameter entry has an elementwise Logistic(loc, 1) density: loc 0
 everywhere except the NB shape parameter (loc -1.5), as `param_specs` lists.
+`sample_prior` draws one member from it by the logistic inverse CDF.
 """
 
 import torch
@@ -27,3 +28,23 @@ def prior_log_prob(config: field_lib.FieldConfig, params: tuple) -> torch.Tensor
     lp = special.logistic_log_prob(p, loc=spec.prior_loc)
     total = total + lp.reshape(e, -1).sum(dim=1)
   return total
+
+
+def logistic_quantile(u: torch.Tensor, loc: float) -> torch.Tensor:
+  """Logistic(loc, 1)'s inverse CDF at `u`, clipped to [1e-6, 1 - 1e-6]."""
+  u = u.clamp(1e-6, 1.0 - 1e-6)
+  return loc + torch.log(u) - torch.log1p(-u)
+
+
+def sample_prior(config: field_lib.FieldConfig,
+                 generator: torch.Generator) -> tuple:
+  """One member's params drawn from the prior, leaf by leaf in
+  `param_specs` order, by the logistic inverse CDF of uniforms from
+  `generator`, on its device. (The JAX package draws the uniforms from a
+  split key, so the same seed gives other values there.)"""
+  return tuple(
+      logistic_quantile(
+          torch.rand(spec.shape, generator=generator,
+                     device=generator.device, dtype=torch.float32),
+          spec.prior_loc)
+      for spec in field_lib.param_specs(config))

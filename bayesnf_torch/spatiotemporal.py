@@ -19,6 +19,8 @@ What the port does, and what it does not yet:
   predictive distribution object of `models/distributions.py`), on the
   'kernel' or 'torch' backend (`inference/backends.py`), row-parallel over
   the fit's mesh (`mesh_`). They return tensors on the parameters' device.
+  Their streamed form (`stream_chunk_rows`, `stream_cache_bytes`) raises
+  NotImplementedError.
 - `params_` carries the JAX package's group shape: (mesh size, E / size)
   when the mesh's size divides E, else (1, E). `save` writes the mesh's
   extents as `fit_mesh`; `load` rebuilds the mesh when their product is the
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from bayesnf_torch.calendar import seasonalities_to_array
+from bayesnf_torch.calendar import seasonality_to_float  # noqa: F401  (public)
 from bayesnf_torch.data import SpatiotemporalDataHandler
 from bayesnf_torch.inference import map as map_lib
 from bayesnf_torch.inference import predict as predict_lib
@@ -52,6 +55,15 @@ def _group_shape(ensemble_size: int, mesh=None) -> tuple[int, int]:
   if ensemble_size % num_devices == 0:
     return (num_devices, ensemble_size // num_devices)
   return (1, ensemble_size)
+
+
+def _check_in_memory(stream_chunk_rows, stream_cache_bytes):
+  """Raises NotImplementedError unless both streaming arguments are None."""
+  if stream_chunk_rows is not None or stream_cache_bytes is not None:
+    raise NotImplementedError(
+        'The streamed predict (stream_chunk_rows, stream_cache_bytes) is not '
+        'ported to PyTorch yet (ROADMAP.md, queue 1 item 13).'
+    )
 
 
 class BayesianNeuralFieldEstimator:
@@ -227,7 +239,8 @@ class BayesianNeuralFieldEstimator:
   # -- Prediction ------------------------------------------------------------
 
   def predict(self, table, quantiles=(0.5,), approximate_quantiles=False,
-              backend='auto'):
+              backend='auto', stream_chunk_rows=None,
+              stream_cache_bytes=None):
     """Predict the target at new field points.
 
     Args:
@@ -237,6 +250,9 @@ class BayesianNeuralFieldEstimator:
         root-finding.
       backend: 'auto' (the CUDA kernels when `params_` live on a CUDA
         device, plain PyTorch on the CPU) | 'torch' | 'kernel'.
+      stream_chunk_rows: the JAX package's streamed predict; only None (the
+        in-memory predict) is ported.
+      stream_cache_bytes: the streamed predict's cache budget; only None.
 
     Returns:
       (means, quantiles) as tensors on the device of `params_`: means has
@@ -246,7 +262,9 @@ class BayesianNeuralFieldEstimator:
 
     Raises:
       ValueError: if the estimator is unfitted.
+      NotImplementedError: for a streamed predict.
     """
+    _check_in_memory(stream_chunk_rows, stream_cache_bytes)
     self._require_fitted('predict with')
     test_data = self.data_handler.get_test(table)
     return predict_lib.predict_bnf(
@@ -261,12 +279,15 @@ class BayesianNeuralFieldEstimator:
         mesh=self.mesh_,
     )
 
-  def likelihood_model(self, table, backend='auto'):
+  def likelihood_model(self, table, backend='auto', stream_chunk_rows=None,
+                       stream_cache_bytes=None):
     """Predictive distribution object over the target at new points.
 
     Args:
       table: DataFrame of new field locations (target column optional).
       backend: 'auto' | 'torch' | 'kernel', as for :meth:`predict`.
+      stream_chunk_rows: as for :meth:`predict`; only None.
+      stream_cache_bytes: as for :meth:`predict`; only None.
 
     Returns:
       An `Independent` (`models/distributions.py`) over the rows, wrapping
@@ -276,7 +297,9 @@ class BayesianNeuralFieldEstimator:
 
     Raises:
       ValueError: if the estimator is unfitted.
+      NotImplementedError: for a streamed likelihood model.
     """
+    _check_in_memory(stream_chunk_rows, stream_cache_bytes)
     self._require_fitted('build the likelihood model of')
     test_data = self.data_handler.get_test(table)
     fp = predict_lib.forecast_params_bnf(

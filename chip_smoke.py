@@ -110,6 +110,15 @@ CUDA toolkit (nvcc). It imports nothing of JAX. Phases, one line each:
    `fused_train` on the same rows and parameters; then three Adam steps
    (`map.adam_update`) on the K2 + K3 gradients and three on K1's from the
    same parameters, whose losses must agree; ms per step of each path.
+14. The experiment harness (`bayesnf_torch/cli/evaluate.py`) on the card,
+   run before phase 13's line: `run_experiment(backend='kernel')` on the
+   bundled chickenpox-8 CSVs for map, mle and vi at the reference's mini
+   protocol must pass `tests/test_golden_mini_parity.py`'s assertions; then
+   `main` on a synthetic 38,096 + 4,096-row `air_quality.0` at the published
+   MAP stanza (width 512, 16 particles) for 3 epochs. Every run writes the
+   three artifacts with finite metrics, and its launch counters show K1 on
+   every step and K2 on every chunk of the predict and of the CRPS draws.
+   Then `bench_torch.py`'s main cell with 2 repeats.
 13. A JSON line of the kernels, with each one's time, its plain version's,
    the least time the card could take for the same products and bytes
    (`bound_ms`) and the PyTorch call that computes the same function, if
@@ -136,6 +145,8 @@ import torch
 import torch.profiler
 
 import bayesnf_torch
+from bayesnf_torch.cli import evaluate
+from bayesnf_torch.cli import registry
 from bayesnf_torch.inference import map as map_lib
 from bayesnf_torch.inference import vi as vi_lib
 from bayesnf_torch.models import field as field_lib
@@ -143,6 +154,7 @@ from bayesnf_torch.models import likelihoods
 from bayesnf_torch.ops import _build
 from bayesnf_torch.ops import fused_mlp
 from bayesnf_torch.parallel import mesh as mesh_lib
+import bench_torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, 'tests', 'test_data',
@@ -1783,6 +1795,161 @@ def check_differentiable_field(seed):
         **{k.replace('.', '_'): v for k, v in launches.items()})
   return launches
 
+# The reference's mini protocol (tests/test_golden_mini_parity.py:38-49).
+MINI_INFERENCE = {
+    'map': dict(num_particles=4, num_epochs=5, learning_rate=0.005),
+    'mle': dict(num_particles=4, num_epochs=5, learning_rate=0.005),
+    'vi': dict(batch_size=None, kl_weight=0.1, learning_rate=0.01,
+               num_epochs=2, num_particles=1, sample_size_divergence=5),
+}
+TEST_DATA = os.path.join(REPO, 'tests', 'test_data')
+LOG_KEYS = ['dataset', 'series_id', 'runtime', 'objective', 'metrics',
+            'dataset_config', 'model_config', 'inference_config']
+HARNESS_TEST_ROWS = 4096
+HARNESS_EPOCHS = 3
+
+
+def assert_mini_golden(pred_csv, objective):
+  """The assertions of tests/test_golden_mini_parity.py:82-131."""
+  read = lambda name: pd.read_csv(os.path.join(TEST_DATA, name), index_col=0)
+  ours = pd.read_csv(pred_csv, index_col=0)
+  golden = read(f'bnf-{objective}.chickenpox.8.mini.pred.csv')
+  assert list(ours.columns) == list(golden.columns)
+  assert ours.index.equals(golden.index)
+  idx_train = read('chickenpox.8.train.csv').index
+  idx_test = read('chickenpox.8.test.csv').index
+  o_tr, g_tr = ours.loc[idx_train], golden.loc[idx_train]
+  o_width = (o_tr.yhat_upper - o_tr.yhat_lower).values
+  g_width = (g_tr.yhat_upper - g_tr.yhat_lower).values
+  if objective in ('map', 'mle'):
+    np.testing.assert_allclose(o_width, g_width, rtol=0.02)
+  else:
+    w0 = 4.455
+    assert 0.93 * w0 < o_width.mean() < 1.12 * w0, (o_width.mean(), w0)
+    assert abs(o_width.mean() - g_width.mean()) / g_width.mean() < 0.3, (
+        o_width.mean(), g_width.mean())
+  assert np.abs(o_tr.yhat.values).max() < 2.0
+  assert np.abs(g_tr.yhat.values).max() < 2.0
+  assert np.abs(o_tr.yhat_p50.values - o_tr.yhat.values).max() < 1.0
+  assert np.abs(g_tr.yhat_p50.values - g_tr.yhat.values).max() < 1.0
+  o_te, g_te = ours.loc[idx_test], golden.loc[idx_test]
+  assert np.median(np.abs(g_te.yhat.values)) > 1e6
+  assert np.median(np.abs(o_te.yhat.values)) > 1e6
+  o_mag = np.log10(np.abs(o_te.yhat.values) + 1.0)
+  g_mag = np.log10(np.abs(g_te.yhat.values) + 1.0)
+  assert abs(np.median(o_mag) - np.median(g_mag)) < 3.0
+  return (float(o_width.mean()), float(g_width.mean()),
+          float(np.median(o_mag)), float(np.median(g_mag)))
+
+
+def check_artifacts(stem, rows, steps, particles):
+  """The CLI's three artifacts: log.json keys and finite metrics, one loss
+  column per particle, every row predicted, finite and ordered."""
+  with open(stem + '.log.json') as f:
+    log = json.load(f)
+  assert list(log) == LOG_KEYS, list(log)
+  assert log['runtime'] > 0
+  for region in ('train', 'test'):
+    assert sorted(log['metrics'][region]) == ['crps', 'mae', 'rmse']
+    assert all(np.isfinite(v) for v in log['metrics'][region].values())
+  loss = pd.read_csv(stem + '.loss.csv')
+  assert loss.shape == (steps, particles), loss.shape
+  assert np.isfinite(loss.values).all()
+  pred = pd.read_csv(stem + '.pred.csv', index_col=0)
+  assert list(pred.columns) == ['yhat', 'yhat_p50', 'yhat_lower',
+                                'yhat_upper']
+  assert len(pred) == rows and pred.index.is_monotonic_increasing
+  assert np.isfinite(pred.values).all()
+  assert (pred.yhat_lower <= pred.yhat_p50).all()
+  assert (pred.yhat_p50 <= pred.yhat_upper).all()
+  return log['metrics'], log['runtime']
+
+
+def harness_counts():
+  return (fused_mlp.fused_train.launches, fused_mlp.fused_train.bf16_launches,
+          fused_mlp.fused_field_mlp_t.launches)
+
+
+def check_harness(seed):
+  """Phase 14; returns the (K1 'f32', K1 'bf16', K2) launches counted while
+  it drove the CLI and the bench leg's main cell."""
+  totals = np.zeros(3, dtype=int)
+  fields = {}
+  with tempfile.TemporaryDirectory() as tmp:
+    for objective in ('map', 'mle', 'vi'):
+      torch.cuda.synchronize()
+      before = np.array(harness_counts())
+      _, means, _ = evaluate.run_experiment(
+          dataset='chickenpox', data_root=TEST_DATA, series_id='8',
+          output_dir=tmp, objective=objective, seed=0,
+          model_config=registry.model_config('chickenpox', objective),
+          inference_config=dict(MINI_INFERENCE[objective], backend='kernel'),
+          device='cuda')
+      k1, k1_bf16, k2 = np.array(harness_counts()) - before
+      steps = MINI_INFERENCE[objective]['num_epochs']  # Full batch.
+      # K1 every step; K2 on the predict's and the CRPS draws' one chunk.
+      assert (k1, k1_bf16, k2) == (steps, 0, 2), (objective, k1, k1_bf16, k2)
+      assert means.is_cuda
+      stem = os.path.join(tmp, f'bnf-{objective}.chickenpox.8')
+      widths = assert_mini_golden(stem + '.pred.csv', objective)
+      metrics, _ = check_artifacts(
+          stem, 308, steps, MINI_INFERENCE[objective]['num_particles'])
+      totals += (k1, k1_bf16, k2)
+      fields[f'{objective}_width'] = f'{widths[0]:.4f}/{widths[1]:.4f}'
+      fields[f'{objective}_test_log10'] = f'{widths[2]:.3f}/{widths[3]:.3f}'
+      fields[f'{objective}_crps'] = '/'.join(
+          f'{metrics[r]["crps"]:.6g}' for r in ('train', 'test'))
+
+    # Full width: the published air_quality MAP stanza through main().
+    data = os.path.join(tmp, 'data')
+    os.makedirs(data)
+    table = bench_torch.hourly_table(N_ROWS + HARNESS_TEST_ROWS, seed)
+    table.iloc[:N_ROWS].to_csv(os.path.join(data, 'air_quality.0.train.csv'))
+    table.iloc[N_ROWS:].to_csv(os.path.join(data, 'air_quality.0.test.csv'))
+    out = os.path.join(tmp, 'out')
+    torch.cuda.synchronize()
+    before = np.array(harness_counts())
+    evaluate.main(['--dataset', 'air_quality', '--objective', 'map',
+                   '--data_root', data, '--output_dir', out, '--start_id',
+                   '0', '--stop_id', '1', '--num_epochs',
+                   str(HARNESS_EPOCHS), '--backend', 'kernel'])
+    k1, k1_bf16, k2 = np.array(harness_counts()) - before
+    chunks = -(-len(table) // CHUNK)
+    assert (k1, k1_bf16, k2) == (HARNESS_EPOCHS, 0, 2 * chunks), (
+        k1, k1_bf16, k2)
+    particles = registry.inference_config('air_quality', 'map')[
+        'num_particles']
+    metrics, runtime = check_artifacts(
+        os.path.join(out, 'bnf-map.air_quality.0'), len(table),
+        HARNESS_EPOCHS, particles)
+    totals += (k1, k1_bf16, k2)
+
+  before = np.array(harness_counts())
+  start = time.perf_counter()
+  assert bench_torch.main(['--cells', 'main', '--repeats', '2',
+                           '--seed', str(seed)]) == 0
+  bench_s = time.perf_counter() - start
+  bench = np.array(harness_counts()) - before
+  # Per 'kernel' leg ('f32', 'bf16'): K1 on a 1-epoch warm-up fit and 2
+  # repeats of its timed epochs, K2 on every chunk of its predicts.
+  kernel_legs = [l for l in bench_torch.CELLS['main'] if l.backend == 'kernel']
+  per_leg = 1 + 2 * kernel_legs[0].timed_epochs
+  assert tuple(bench) == (
+      len(kernel_legs) * per_leg, per_leg,
+      len(kernel_legs) * bench_torch.PREDICT_CALLS * -(-N_ROWS // CHUNK)), (
+          tuple(bench))
+  totals += (bench[0] - bench[1], bench[1], bench[2])
+  phase('14 harness', goldens='map/mle/vi', **fields,
+        full_width=f'air_quality map width 512 x {particles} particles, '
+        f'{N_ROWS}+{HARNESS_TEST_ROWS} rows, {HARNESS_EPOCHS} epochs',
+        full_width_runtime_s=f'{runtime:.2f}',
+        full_width_crps='/'.join(
+            f'{metrics[r]["crps"]:.6g}' for r in ('train', 'test')),
+        bench_main_s=f'{bench_s:.1f}',
+        k1_launches=int(totals[0]), k1_bf16_launches=int(totals[1]),
+        k2_launches=int(totals[2]))
+  return tuple(int(t) for t in totals)
+
 
 def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
@@ -1831,6 +1998,7 @@ def main(argv=None):
                                                        f32_losses['full'])
   assert fused_mlp.fused_field_mlp_t.bwd_launches == 0
   field_launches = check_differentiable_field(args.seed)
+  harness_k1, harness_k1_bf16, harness_k2 = check_harness(args.seed)
 
   def case_fields(case):
     """(max abs error, kernel ms, plain ms, bound) as JSON fields."""
@@ -1861,7 +2029,8 @@ def main(argv=None):
       'replaces': 'bayesnf_tpu/ops/fused_mlp.py:488',
       'launches': (launches + vi_k2_launches + count_k2_launches
                    + count_vi_k2_launches + mesh_k2_launches
-                   + field_launches['fused_field_mlp_t.launches']),
+                   + field_launches['fused_field_mlp_t.launches']
+                   + harness_k2),
       'max_abs_err': max_err,
       'ms': ms,
       'plain_ms': plain_ms,
@@ -1878,7 +2047,7 @@ def main(argv=None):
       'replaces': 'bayesnf_tpu/ops/fused_mlp.py:1412',
       'launches': (train_launches + vi_k1_launches + count_k1_launches
                    + count_vi_k1_launches + mesh_k1_launches
-                   + field_launches['fused_train.launches']),
+                   + field_launches['fused_train.launches'] + harness_k1),
       'max_abs_err': max(train_cases['main'][0], train_cases['grouped'][0]),
       'ms': train_cases['main'][1],
       'plain_ms': train_cases['main'][2],
@@ -1894,7 +2063,7 @@ def main(argv=None):
                 if name != 'main' and not name.endswith('bf16')},
       'launches_by_likelihood': {
           'NORMAL': (train_launches + vi_k1_launches + mesh_k1_launches
-                     + field_launches['fused_train.launches']),
+                     + field_launches['fused_train.launches'] + harness_k1),
           'NB': count_k1_launches, 'ZINB': count_vi_k1_launches},
   }, {
       # K1 at precision 'bf16': the hidden GEMMs on the tensor cores (wgmma,
@@ -1904,7 +2073,7 @@ def main(argv=None):
       'route': 'cuda',
       'source': 'bayesnf_torch/ops/csrc/fused_train.cu',
       'replaces': 'bayesnf_tpu/ops/fused_mlp.py:1412',
-      'launches': bf16_launches,
+      'launches': bf16_launches + harness_k1_bf16,
       'max_abs_err': max(train_cases['main-bf16'][0],
                          train_cases['grouped-bf16'][0]),
       'ms': train_cases['main-bf16'][1],

@@ -3,7 +3,8 @@
 `bayesnf_tpu/__init__.py` imports JAX, so importing any `bayesnf_tpu` module
 would too. The check runs in a fresh interpreter and compares
 `sys.modules` before and after the import, since an interpreter may load
-`jax` at start-up; the sources (and `chip_smoke.py`) are also scanned.
+`jax` at start-up; the sources (and `chip_smoke.py` and `bench_torch.py`)
+are also scanned.
 """
 
 import ast
@@ -17,7 +18,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ('jax', 'jaxlib', 'bayesnf_tpu', 'triton')
 SOURCES = sorted((ROOT / 'bayesnf_torch').rglob('*.py')) + [
-    ROOT / 'chip_smoke.py'
+    ROOT / 'chip_smoke.py', ROOT / 'bench_torch.py'
 ]
 
 _PROBE = """
@@ -38,6 +39,8 @@ def test_importing_the_port_loads_no_jax():
   added = json.loads(out.strip().splitlines()[-1])
   assert 'bayesnf_torch.spatiotemporal' in added
   assert 'bayesnf_torch.ops.fused_mlp' in added
+  assert 'bayesnf_torch.cli.evaluate' in added
+  assert 'bayesnf_torch.utils.profiling' in added
   assert [m for m in added if m.split('.')[0] in FORBIDDEN] == []
 
 
