@@ -23,8 +23,11 @@ Differences from the JAX package's CLI: seeds are ints
 (``2023100400 + series_id``); the CRPS draws come from a `torch.Generator`
 seeded with `map.stream_seed(seed, map.CRPS_STREAM)` where the JAX package
 folds 1 into its key (an RNG deviation: the draws differ, the estimator is
-the same); `--data_devices` makes a single-process mesh; the streaming
-flags raise NotImplementedError until the port has streaming.
+the same); `--data_devices` makes a single-process mesh; the streamed
+predict's flags (`--stream_chunk_rows`, `--stream_cache_bytes`) raise
+NotImplementedError until the port has it. `--stream_chunk_steps` and
+`--stream_member_remix` stream the fit (`parallel/streaming.py`), with the
+port's batch schedule (its own entropy and remix RNG).
 """
 
 import argparse
@@ -52,21 +55,19 @@ _ESTIMATORS = {
 # Posterior-predictive draws per member for the CRPS, as the JAX package.
 CRPS_DRAWS = 8
 
-_STREAM_KEYS = ('stream_chunk_steps', 'stream_member_remix',
-                'stream_chunk_rows', 'stream_cache_bytes')
+_PREDICT_STREAM_KEYS = ('stream_chunk_rows', 'stream_cache_bytes')
 
 
 def _check_in_memory(inference_config):
-  """Raises NotImplementedError if the config asks for streaming."""
+  """Raises NotImplementedError if the config asks for a streamed
+  predict."""
   # By identity: a budget of 0 asks for streaming too.
-  asked = [k for k in _STREAM_KEYS
-           if inference_config.get(k) is not None
-           and inference_config.get(k) is not False]
+  asked = [k for k in _PREDICT_STREAM_KEYS
+           if inference_config.get(k) is not None]
   if asked:
     raise NotImplementedError(
-        f'{", ".join(asked)}: host-streaming training (ROADMAP.md, queue 1 '
-        'item 12) and the streamed predict (item 13) are not ported to '
-        'PyTorch yet.'
+        f'{", ".join(asked)}: the streamed predict (ROADMAP.md, queue 1 '
+        'item 13) is not ported to PyTorch yet.'
     )
 
 
@@ -107,7 +108,8 @@ def run_experiment(
     dataset_config, model_config, inference_config: override the
       registry's stanzas. `inference_config` may also hold 'backend'
       ('auto' | 'torch' | 'kernel', for the fit, the predict and the
-      likelihood model), 'precision' and 'data_devices'.
+      likelihood model), 'precision', 'data_devices', and the fit's
+      'stream_chunk_steps' and 'stream_member_remix'.
     quantiles: the predicted quantiles (the CSV names three).
     device: where the fit runs; with 'data_devices' the mesh spans every
       device of its type, or the devices of a list given here (the CPU
@@ -118,7 +120,8 @@ def run_experiment(
     two tensors on its parameters' device.
 
   Raises:
-    NotImplementedError: if `inference_config` asks for streaming.
+    NotImplementedError: if `inference_config` asks for a streamed
+      predict.
   """
   dataset_config = dataset_config or registry.dataset_config(dataset)
   model_config = dict(model_config or registry.model_config(dataset, objective))
@@ -155,7 +158,8 @@ def run_experiment(
       batch_size=inference_config.get('batch_size'),
       ensemble_size=inference_config['num_particles'],
   )
-  for key in ('backend', 'precision'):
+  for key in ('backend', 'precision', 'stream_chunk_steps',
+              'stream_member_remix'):
     if key in inference_config:
       fit_kwargs[key] = inference_config[key]
   if inference_config.get('data_devices'):
@@ -263,7 +267,7 @@ def run_experiment(
 
 _NOT_PORTED = (
     'Not ported to PyTorch yet: setting it raises NotImplementedError '
-    '(ROADMAP.md, queue 1 item {item}).'
+    '(ROADMAP.md, queue 1 item 13).'
 )
 _STREAMED_CRPS = (
     ' Once ported, the streamed CRPS draws will use one generator seed per '
@@ -317,23 +321,25 @@ def main(argv=None):
   )
   parser.add_argument(
       '--stream_chunk_steps', type=int, default=None,
-      help='Host-streaming training in slices of this many SGD steps. '
-      + _NOT_PORTED.format(item=12),
+      help='Host-streaming training: keep the dataset in host RAM and '
+      'stream batches in slices of this many SGD steps (requires the '
+      "config's batch_size < rows; --batch_size overrides it).",
   )
   parser.add_argument(
       '--stream_chunk_rows', type=int, default=None,
       help='Out-of-core prediction in chunks of this many rows. '
-      + _NOT_PORTED.format(item=13) + _STREAMED_CRPS,
+      + _NOT_PORTED + _STREAMED_CRPS,
   )
   parser.add_argument(
       '--stream_cache_bytes', type=int, default=None,
       help='With --stream_chunk_rows: device cache budget of the streamed '
-      'predictor. ' + _NOT_PORTED.format(item=13) + _STREAMED_CRPS,
+      'predictor. ' + _NOT_PORTED + _STREAMED_CRPS,
   )
   parser.add_argument(
       '--stream_member_remix', action='store_true',
-      help='With --stream_chunk_steps: per-member slice repartitioning. '
-      + _NOT_PORTED.format(item=12),
+      help='With --stream_chunk_steps: each member repartitions every '
+      "slice's rows into its own batches on the device (the slice size is "
+      'then the remix window).',
   )
   args = parser.parse_args(argv)
 

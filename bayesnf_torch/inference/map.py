@@ -44,9 +44,23 @@
   'kernel' K1's (as its TPU kernel). 'highest' is 'f32' bit for bit. The
   'torch' backend's fp32 products run in true fp32 whatever the caller set
   (`mixed.fp32_matmuls`).
-
-Not ported yet, and raising NotImplementedError: checkpoints and host
-streaming (ROADMAP.md, queue 1).
+- Checkpoints (`checkpoint_dir`, `utils/checkpoint.py`): the fit trains in
+  chunks of `checkpoint_every` epochs and saves after each, the last one
+  included, its parameters, Adam state, the states of its permutation
+  generators, its losses and its epoch; a fit restarted on the directory
+  resumes from the newest save, bit for bit the uninterrupted fit, and
+  one that had finished returns its result without training. The
+  fingerprint (`open_checkpointer`) holds the JAX package's fields, the
+  resolved backend among them, and leaves `num_epochs` out, so a resume
+  may extend the budget.
+- Host streaming (`stream_chunk_steps`, `parallel/streaming.py`): the
+  table stays on the host and each epoch's steps take the batches of one
+  shared permutation (`stream_train`), sent to the card a slice at a
+  time; every member reads a step's batch as K1's shared (D, B) input,
+  or, with `stream_member_remix`, its own remix of the slice as (E, ., B)
+  inputs. Over several data shards a step's batch splits evenly over
+  them. The streamed fit's results do not depend on the slice size (but
+  with remix, whose window it is).
 """
 
 from typing import NamedTuple
@@ -62,6 +76,8 @@ from bayesnf_torch.ops import fused_mlp
 from bayesnf_torch.ops import mixed
 from bayesnf_torch.parallel import mesh as mesh_lib
 from bayesnf_torch.parallel import minibatch as minibatch_lib
+from bayesnf_torch.parallel import streaming as streaming_lib
+from bayesnf_torch.utils import checkpoint as ckpt_lib
 
 # Rows per autograd chunk on the 'torch' backend (the JAX package's
 # `grad_row_chunk`): one chunk's graph holds a few (E, width, ROW_CHUNK)
@@ -450,19 +466,37 @@ def init_ensemble(config, ensemble_size, seed: int, log_noise_init, device):
   )
 
 
-def check_supported(checkpoint_dir=None, checkpoint_every=None,
-                    stream_chunk_steps=None, stream_member_remix=False):
-  """Raises NotImplementedError for what the port does not train yet."""
-  if checkpoint_dir is not None or checkpoint_every is not None:
-    raise NotImplementedError(
-        'Checkpointing is not ported to PyTorch yet (ROADMAP.md, queue 1 '
-        'item 14).'
-    )
-  if stream_chunk_steps is not None or stream_member_remix:
-    raise NotImplementedError(
-        'Host streaming is not ported to PyTorch yet (ROADMAP.md, queue 1 '
-        'item 12).'
-    )
+def check_supported(batch_size, data_size, data_shards,
+                    stream_chunk_steps=None,
+                    stream_member_remix=False) -> bool:
+  """The JAX package's checks of the streaming arguments; returns whether
+  the fit streams.
+
+  Raises:
+    ValueError: for a slice of fewer than one step, a streamed full batch,
+      a streamed batch that does not split evenly over the data shards, or
+      a remix without streaming.
+  """
+  if stream_chunk_steps is None:
+    if stream_member_remix:
+      raise ValueError(
+          'stream_member_remix applies to host-streaming fits only '
+          '(set stream_chunk_steps); on-device minibatch training already '
+          'permutes per member.')
+    return False
+  if int(stream_chunk_steps) < 1:
+    raise ValueError(f'{stream_chunk_steps=} must be a positive int.')
+  if batch_size == data_size:
+    raise ValueError(
+        'stream_chunk_steps requires minibatch training (batch_size < '
+        'len(table)): a full-batch fit re-reads the whole dataset every '
+        'step, which defeats streaming — set batch_size or drop the flag.')
+  if batch_size % data_shards:
+    raise ValueError(
+        f'streaming training over a sharded data axis requires '
+        f'batch_size % data_shards == 0 (got {batch_size=}, '
+        f'{data_shards=}): each slice batch splits evenly over shards.')
+  return True
 
 
 def fit_mesh(mesh, device):
@@ -487,7 +521,7 @@ def resolve_fit_backend(backend, mesh, config, distribution, batch_size,
       batch_divisible=batch_size % shards == 0)
 
 
-def seeded_permutations(seed, members, data_size, batch_size, mesh):
+class SeededPermutations:
   """The `permutations` of a minibatch MAP fit (see `train`), drawn on the
   mesh's first device, each member from a generator of its own: every
   epoch member m's permutation of the rows from `stream_seed(seed,
@@ -495,25 +529,241 @@ def seeded_permutations(seed, members, data_size, batch_size, mesh):
   data shards, its local permutation of shard j from `stream_seed(seed,
   PERMUTATION_STREAM, m, j)` (an RNG deviation from the JAX package, which
   folds the shard into each member's key). A member's batches do not depend
-  on how many members an ensemble is padded to."""
-  device = mesh.first_device
-  shards = mesh.shape[mesh_lib.DATA_AXIS]
+  on how many members an ensemble is padded to.
 
-  def uniforms(n, *key):
-    generators = [torch.Generator(device=device).manual_seed(
+  Attributes:
+    generators: every generator drawn from, in a fixed order; their states
+      go into a fit's checkpoints.
+  """
+
+  def __init__(self, seed, members, data_size, batch_size, mesh):
+    device = mesh.first_device
+    shards = mesh.shape[mesh_lib.DATA_AXIS]
+    self._device = device
+    self._local = shards > 1 and batch_size % shards == 0
+    if self._local:
+      self._local_rows, self._counts = minibatch_lib.shard_counts(
+          data_size, shards)
+      self._count = data_size // batch_size * (batch_size // shards)
+      keys = [(j,) for j in range(shards)]
+    else:
+      self._local_rows = data_size
+      keys = [()]
+    self._per_key = [[torch.Generator(device=device).manual_seed(
         stream_seed(seed, PERMUTATION_STREAM, m, *key))
-                  for m in range(members)]
-    return lambda: torch.stack([torch.rand(n, generator=g, device=device)
-                                for g in generators])
+                      for m in range(members)] for key in keys]
+    self.generators = [g for gens in self._per_key for g in gens]
 
-  if shards > 1 and batch_size % shards == 0:
-    local_rows, counts = minibatch_lib.shard_counts(data_size, shards)
-    count = data_size // batch_size * (batch_size // shards)
-    draws = [uniforms(local_rows, j) for j in range(shards)]
-    return lambda _: [minibatch_lib.local_permutation(draw(), n_s, count)
-                      for draw, n_s in zip(draws, counts)]
-  draw = uniforms(data_size)
-  return lambda _: torch.argsort(draw(), dim=1)
+  def _uniforms(self, generators):
+    return torch.stack([
+        torch.rand(self._local_rows, generator=g, device=self._device)
+        for g in generators])
+
+  def __call__(self, epoch):
+    del epoch  # each call draws the next epoch's permutations
+    if self._local:
+      return [minibatch_lib.local_permutation(self._uniforms(gens), n_s,
+                                              self._count)
+              for gens, n_s in zip(self._per_key, self._counts)]
+    return torch.argsort(self._uniforms(self._per_key[0]), dim=1)
+
+
+def stream_batches(aug_s, y_s, num_inputs, mesh, group_size, remix=None):
+  """The `(group, step) -> row shards` of one streamed slice (see `train`'s
+  `batch_rows`).
+
+  Args:
+    aug_s: (S, D + 2F, B) inputs of the slice's S steps.
+    y_s: (S, B) targets.
+    num_inputs: D.
+    mesh: the fit's mesh; step k's batch splits into equal column blocks
+      over its data shards, block j on the group's device j.
+    group_size: members a group.
+    remix: None, every member the step's batch as shared (D, B) rows; or
+      (S, E, B / shards) positions (`streaming.remix_indices`) into each
+      shard's pool of the slice's rows, the per-member batches gathered as
+      (E, ., B / shards) inputs.
+  """
+  shards = mesh.shape[mesh_lib.DATA_AXIS]
+  local = aug_s.shape[-1] // shards
+  pieces = [(aug_s[..., j * local:(j + 1) * local],
+             y_s[..., j * local:(j + 1) * local]) for j in range(shards)]
+  if remix is not None:
+    pools = [streaming_lib.remix_pool(a, y) for a, y in pieces]
+
+  def batch(i, k):
+    out = []
+    for j, dev in enumerate(mesh.devices[i]):
+      if remix is None:
+        a = pieces[j][0][k].to(dev).contiguous()
+        y = pieces[j][1][k].to(dev).contiguous()
+        out.append((a[:num_inputs], a[num_inputs:], y))
+      else:
+        pool_aug, pool_y = pools[j]
+        idx = remix[k, i * group_size:(i + 1) * group_size]
+        out.append(tuple(t.to(dev) for t in gather_batch(
+            pool_aug[:num_inputs], pool_aug[num_inputs:], pool_y, idx)))
+    return out
+
+  return batch
+
+
+def slice_remix(remix_seed, slice_step, steps, members, rows, device):
+  """The member remix of the slice starting at `slice_step`
+  (`streaming.remix_indices`), or None without a `remix_seed`."""
+  if remix_seed is None:
+    return None
+  return streaming_lib.remix_indices(
+      [stream_seed(remix_seed, REMIX_STREAM, slice_step, m)
+       for m in range(members)], steps, rows, device)
+
+
+def stream_train(
+    params,
+    opt_state: AdamState,
+    stream: streaming_lib.HostBatchStream,
+    config: field_lib.FieldConfig,
+    distribution: likelihoods.LikelihoodDist,
+    learning_rate: float,
+    num_epochs: int,
+    prior_weight: float = 1.0,
+    backend: str = 'torch',
+    precision: str = 'f32',
+    mesh=None,
+    slice_steps: int = 1,
+    start_epoch: int = 0,
+    checkpoint_every: int | None = None,
+    on_chunk=None,
+    remix_seed: int | None = None,
+):
+  """Epochs `start_epoch` to `num_epochs` of a streamed fit, on one device
+  or over `mesh` (see `train`).
+
+  Every epoch takes `stream.num_batches` steps on the batches of `stream`
+  (`parallel/streaming.py`), sent to the mesh's first device `slice_steps`
+  steps at a time (`streaming.run_stream_driver`).
+
+  Args:
+    params, opt_state, config, distribution, learning_rate, prior_weight,
+      backend, precision, mesh: as for `train`.
+    stream: the host batch stream (`per_step_resample` False).
+    num_epochs: the fit's total epochs.
+    slice_steps: steps a slice (with remix, the remix window).
+    start_epoch: the first epoch (a resumed fit's).
+    checkpoint_every: epochs a chunk, or None (one chunk).
+    on_chunk: None, or `(params, opt_state, losses, epochs_done)` after each
+      chunk, with the chunk's losses (E, chunk epochs), all on the mesh's
+      first device.
+    remix_seed: None (the shared stream), or the fit's seed: each member
+      remixes each slice (`slice_remix`).
+
+  Returns:
+    (params, opt_state, losses) on the mesh's first device: losses
+    (E, num_epochs - start_epoch), the mean of each epoch's step losses.
+  """
+  mesh = fit_mesh(mesh, params[0].device)
+  shards = mesh.shape[mesh_lib.DATA_AXIS]
+  num_batches = stream.num_batches
+  check_batch_split(backend, stream.batch_size, stream.data_size, shards)
+  losses_and_grads = make_losses_and_grads(
+      config, distribution, prior_weight, backend,
+      lik_scale=stream.data_size / stream.batch_size, precision=precision)
+  members = params[0].shape[0]
+  first = mesh.first_device
+  groups = split_groups(params, mesh)
+  states = [AdamState(opt_state.count, mu, nu) for mu, nu in zip(
+      split_groups(opt_state.mu, mesh), split_groups(opt_state.nu, mesh))]
+  size = members // len(groups)
+  history = []
+
+  def run_slice(state, aug_s, y_s, slice_step):
+    groups, states = state
+    steps = aug_s.shape[0]
+    batch = stream_batches(
+        aug_s, y_s, config.num_inputs, mesh, size,
+        slice_remix(remix_seed, slice_step, steps, members,
+                    stream.batch_size // shards, first))
+    losses = []
+    for k in range(steps):
+      step_losses = []
+      for i, group_state in enumerate(states):
+        group_losses, grads = losses_and_grads(groups[i], batch(i, k))
+        updates, states[i] = adam_update(grads, group_state, learning_rate)
+        groups[i] = tuple(p + u for p, u in zip(groups[i], updates))
+        step_losses.append((group_losses,))
+      losses.append(gather_groups(step_losses, first)[0])
+    return state, losses
+
+  def chunk_done(state, step_losses, steps_done):
+    groups, states = state
+    epoch_losses = torch.stack([
+        torch.stack(step_losses[e:e + num_batches]).mean(dim=0)
+        for e in range(0, len(step_losses), num_batches)], dim=1)
+    history.append(epoch_losses)
+    if on_chunk is not None:
+      on_chunk(gather_groups(groups, first),
+               AdamState(states[0].count,
+                         gather_groups([s.mu for s in states], first),
+                         gather_groups([s.nu for s in states], first)),
+               epoch_losses, steps_done // num_batches)
+
+  groups, states = streaming_lib.run_stream_driver(
+      stream, device=first, run_slice=run_slice, state=(groups, states),
+      start_step=start_epoch * num_batches,
+      num_steps=int(num_epochs) * num_batches, slice_steps=int(slice_steps),
+      checkpoint_steps=(None if checkpoint_every is None
+                        else checkpoint_every * num_batches),
+      on_chunk=chunk_done)
+  losses = (torch.cat(history, dim=1) if history
+            else torch.zeros((members, 0), device=first))
+  return (gather_groups(groups, first),
+          AdamState(states[0].count,
+                    gather_groups([s.mu for s in states], first),
+                    gather_groups([s.nu for s in states], first)),
+          losses)
+
+
+def host_rows(aug_features, target):
+  """A streamed fit's table on the host: (D + 2F, N) float32 inputs, the
+  transposed view of `aug_features` (numpy, a memmap or a tensor), and (N,)
+  float32 targets."""
+  if isinstance(aug_features, torch.Tensor):
+    aug_features = aug_features.detach().cpu().numpy()
+  return (np.asarray(aug_features, dtype=np.float32).T,
+          np.asarray(target, dtype=np.float32))
+
+
+def open_checkpointer(checkpoint_dir, checkpoint_every, total, streaming,
+                      stream_member_remix, stream_chunk_steps, **fields):
+  """(checkpointer, newest saved state or None, epochs or steps a chunk) of
+  a fit of `total` epochs or steps whose fingerprint holds `fields` and
+  `stream`, and the remix keys only when remix is on (with the digest that
+  always held them accepted otherwise, as the JAX package does); a chunk
+  is `checkpoint_every`, by default total // 10 but at least 1. (None,
+  None, None) without a `checkpoint_dir`: the fit is one chunk.
+
+  Raises:
+    ValueError: for a `checkpoint_every` below 1, a remote URI, or a
+      directory of another fit.
+  """
+  if checkpoint_dir is None:
+    return None, None, None
+  if checkpoint_every is None:
+    checkpoint_every = max(1, int(total) // 10)
+  elif int(checkpoint_every) < 1:
+    raise ValueError(f'{checkpoint_every=} must be a positive int.')
+  fields['stream'] = streaming
+  if streaming and stream_member_remix:
+    fields.update(stream_remix=True,
+                  stream_remix_window=int(stream_chunk_steps))
+    legacy = ()
+  else:
+    legacy = (ckpt_lib.run_fingerprint(
+        **fields, stream_remix=False, stream_remix_window=None),)
+  checkpointer = ckpt_lib.TrainCheckpointer(
+      checkpoint_dir, fingerprint=ckpt_lib.run_fingerprint(**fields),
+      legacy_fingerprints=legacy)
+  return checkpointer, checkpointer.restore_latest(), int(checkpoint_every)
 
 
 def ensemble_map(
@@ -531,21 +781,27 @@ def ensemble_map(
     device='cuda',
     precision: str = 'f32',
     mesh=None,
-    **unported,
+    checkpoint_dir=None,
+    checkpoint_every: int | None = None,
+    stream_chunk_steps: int | None = None,
+    stream_member_remix: bool = False,
 ):
   """Train `ensemble_size` independent MAP/MLE members.
 
   Args:
     aug_features: (N, D + 2F) training inputs with seasonal features
-      appended (`field.aug_features`), numpy or a tensor.
+      appended (`field.aug_features`), numpy or a tensor; for a streamed
+      fit numpy or an `np.memmap` (`field.aug_features_host`), which stays
+      on the host.
     target: (N,) training targets (numpy).
     config: model config.
     distribution: observation model.
     ensemble_size: members to train.
     learning_rate: Adam learning rate.
     num_epochs: epochs (N // batch_size steps each).
-    seed: int seed of the initialization, and of the minibatch
-      permutations (`seeded_permutations`).
+    seed: int seed of the initialization, of the minibatch permutations
+      (`SeededPermutations`) and of a streamed fit's batches
+      (`stream_seed(seed, HOST_STREAM)`) and remix.
     batch_size: None or N (full batch), or B < N rows per step.
     prior_weight: prior multiplier (0 == MLE).
     backend: 'auto' | 'torch' | 'kernel' (`backends.resolve_backend`).
@@ -556,37 +812,108 @@ def ensemble_map(
       members are padded to a multiple of its 'ens' extent, drawn in order
       (the first `ensemble_size` are the meshless fit's), and the padding
       is dropped on the way out.
-    **unported: the JAX package's checkpoint and streaming arguments;
-      anything but their defaults raises.
+    checkpoint_dir: None, or a local directory: the fit trains in chunks
+      of `checkpoint_every` epochs, saves after each (`utils/checkpoint.py`)
+      and resumes from the newest save found there, bit for bit.
+    checkpoint_every: epochs a checkpoint chunk (default: num_epochs // 10,
+      at least 1).
+    stream_chunk_steps: None, or streamed training (minibatch fits only):
+      the table stays on the host and the batches go to the device in
+      slices of this many steps (`stream_train`).
+    stream_member_remix: (streaming only) each member remixes each slice's
+      rows into its own batches; `stream_chunk_steps` is then the remix
+      window, and checkpoint chunks must be whole windows.
 
   Returns:
     (params, losses): params with leading member axis (ensemble_size, ...)
     on `device` (with a mesh, its first device); losses (ensemble_size,
     num_epochs) as numpy.
+
+  Raises:
+    ValueError: for the streaming arguments `check_supported`
+      refuses, a remix misaligned with the checkpoint chunks, or a
+      checkpoint directory that is remote or holds another fit.
   """
   target_np = np.asarray(target)
-  check_supported(**unported)
   mesh = fit_mesh(mesh, device)
   n = target_np.shape[0]
   batch_size = n if batch_size is None else min(int(batch_size), n)
+  data_shards = mesh.shape[mesh_lib.DATA_AXIS]
+  streaming = check_supported(batch_size, n, data_shards,
+                              stream_chunk_steps, stream_member_remix)
   backend = resolve_fit_backend(backend, mesh, config, distribution,
                                 batch_size, n)
+  distribution = likelihoods.LikelihoodDist(distribution)
+  num_epochs = int(num_epochs)
   padded = mesh_lib.pad_ensemble_size(ensemble_size, mesh)
   first = mesh.first_device
   log_noise_init = np.log(np.nanstd(target_np) / 2.0)
   params = init_ensemble(
       config, padded, seed, float(np.float32(log_noise_init)), first)
-  aug_t = torch.as_tensor(
-      aug_features, dtype=torch.float32, device=first).T.contiguous()
-  y = torch.tensor(target_np, dtype=torch.float32, device=first)
-  params, _, losses = train(
-      params, init_opt_state(params), aug_t, y, config,
-      likelihoods.LikelihoodDist(distribution), learning_rate, num_epochs,
-      prior_weight=prior_weight, backend=backend, batch_size=batch_size,
-      permutations=(None if batch_size == n else
-                    seeded_permutations(seed, padded, n, batch_size, mesh)),
-      precision=precision, mesh=mesh,
-  )
+  opt_state = init_opt_state(params)
+  permutations = (None if streaming or batch_size == n else
+                  SeededPermutations(seed, padded, n, batch_size, mesh))
+  generators = () if permutations is None else permutations.generators
+  checkpointer, restored, checkpoint_every = open_checkpointer(
+      checkpoint_dir, checkpoint_every, num_epochs, streaming,
+      stream_member_remix, stream_chunk_steps, kind='map', config=config,
+      distribution=distribution.value, ensemble_size=ensemble_size,
+      learning_rate=float(learning_rate),
+      batch_size=int(batch_size), data_size=n,
+      prior_weight=float(prior_weight), precision=precision,
+      backend=backend, data_shards=data_shards)
+  epoch, loss_chunks = 0, []
+  if restored is not None:
+    params, (count, mu, nu) = restored.place(first)
+    opt_state = AdamState(count, mu, nu)
+    restored.restore_generators(generators)
+    loss_chunks = [t.to(first) for t in restored.losses]
+    epoch = restored.epoch
+
+  def save(params, opt_state, epochs_done):
+    if checkpointer is not None:
+      checkpointer.save(ckpt_lib.TrainState.from_fit(
+          params, opt_state, generators, loss_chunks, epochs_done))
+
+  if streaming:
+    aug_t, y = host_rows(aug_features, target_np)
+    stream = streaming_lib.HostBatchStream(
+        aug_t, y, batch_size, (stream_seed(seed, HOST_STREAM),))
+    if stream_member_remix:
+      streaming_lib.validate_remix_alignment(
+          int(stream_chunk_steps), epoch * stream.num_batches,
+          None if checkpoint_every is None
+          else checkpoint_every * stream.num_batches)
+
+    def on_chunk(params, opt_state, losses, epochs_done):
+      loss_chunks.append(losses)
+      save(params, opt_state, epochs_done)
+
+    params, opt_state, _ = stream_train(
+        params, opt_state, stream, config, distribution, learning_rate,
+        num_epochs, prior_weight=prior_weight, backend=backend,
+        precision=precision, mesh=mesh, slice_steps=int(stream_chunk_steps),
+        start_epoch=epoch, checkpoint_every=checkpoint_every,
+        on_chunk=on_chunk,
+        remix_seed=seed if stream_member_remix else None)
+  else:
+    aug_t = torch.as_tensor(
+        aug_features, dtype=torch.float32, device=first).T.contiguous()
+    y = torch.tensor(target_np, dtype=torch.float32, device=first)
+    while epoch < num_epochs:
+      chunk = (num_epochs - epoch if checkpoint_every is None
+               else min(checkpoint_every, num_epochs - epoch))
+      params, opt_state, losses = train(
+          params, opt_state, aug_t, y, config, distribution, learning_rate,
+          chunk, prior_weight=prior_weight, backend=backend,
+          batch_size=batch_size, permutations=permutations,
+          precision=precision, mesh=mesh)
+      loss_chunks.append(losses)
+      epoch += chunk
+      # The last chunk is saved too: a finished fit run again is a no-op.
+      save(params, opt_state, epoch)
+  losses = (torch.cat(loss_chunks, dim=1) if loss_chunks
+            else torch.zeros((padded, 0), device=first))
   return (tuple(p[:ensemble_size] for p in params),
           losses[:ensemble_size].cpu().numpy())
 
@@ -597,6 +924,10 @@ PERMUTATION_STREAM = 1
 VI_STEP_STREAM = 2
 # The CLI's CRPS draws (`cli/evaluate.py`).
 CRPS_STREAM = 3
+# A streamed fit's batch schedule (its `HostBatchStream` entropy), and its
+# member remix (`slice_remix`).
+HOST_STREAM = 4
+REMIX_STREAM = 5
 
 
 def stream_seed(seed: int, stream: int, *key: int) -> int:
@@ -635,10 +966,14 @@ def fit_map(
     device='cuda',
     precision: str = 'f32',
     mesh=None,
-    **unported,
+    checkpoint_dir=None,
+    checkpoint_every: int | None = None,
+    stream_chunk_steps: int | None = None,
+    stream_member_remix: bool = False,
 ):
   """Fit a MAP/MLE ensemble in `num_splits` sequential splits, each over
-  `mesh` if one is given (`ensemble_map`).
+  `mesh` if one is given (`ensemble_map`); with a `checkpoint_dir`, split
+  i checkpoints into `{checkpoint_dir}/split_{i}`.
 
   Returns:
     (params, losses): params leaves (num_particles, ...) on `device` (with
@@ -657,7 +992,12 @@ def fit_map(
         ensemble_size=per_split, learning_rate=learning_rate,
         num_epochs=num_epochs, seed=split_seed(seed, i, num_splits),
         batch_size=batch_size, prior_weight=prior_weight, backend=backend,
-        device=device, precision=precision, mesh=mesh, **unported,
+        device=device, precision=precision, mesh=mesh,
+        checkpoint_dir=(None if checkpoint_dir is None
+                        else f'{checkpoint_dir}/split_{i}'),
+        checkpoint_every=checkpoint_every,
+        stream_chunk_steps=stream_chunk_steps,
+        stream_member_remix=stream_member_remix,
     )
     params_splits.append(params_i)
     losses_splits.append(losses_i)

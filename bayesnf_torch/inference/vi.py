@@ -38,9 +38,17 @@
 
 The observation model is NORMAL, NB or ZINB, and `precision` sets the
 likelihood term's products as in `map.make_nll_and_grads` ('f32',
-'highest' or 'bf16'); sampling, log q and the prior are fp32. Not ported
-yet, and raising NotImplementedError: checkpoints and host streaming
-(ROADMAP.md, queue 1).
+'highest' or 'bf16'); sampling, log q and the prior are fp32.
+
+Checkpoints (`checkpoint_dir`) as in `map.ensemble_map`, in chunks of
+`checkpoint_every` steps; a save holds the surrogate, the Adam state and
+the step generator's state, so a resumed fit's surrogate, losses and
+posterior draws equal the uninterrupted fit's, bit for bit. Host streaming
+(`stream_chunk_steps`, `stream_train`): each step draws a fresh batch of B
+rows on the host (`streaming.step_sample`), shared by every surrogate and
+draw (K1's shared (D, B) input), or with `stream_member_remix` each
+member's own remix of the slice (grouped inputs); the generator then draws
+only the noise.
 """
 
 import numpy as np
@@ -53,6 +61,8 @@ from bayesnf_torch.models import priors
 from bayesnf_torch.ops import special
 from bayesnf_torch.parallel import mesh as mesh_lib
 from bayesnf_torch.parallel import minibatch as minibatch_lib
+from bayesnf_torch.parallel import streaming as streaming_lib
+from bayesnf_torch.utils import checkpoint as ckpt_lib
 
 # softplus_inverse(0.3), in double and rounded to float32 as the JAX package
 # takes it.
@@ -237,6 +247,90 @@ def posterior_draws(config, surrogate, num_samples: int, generator):
   return surrogate_sample(locs, surrogate_scales(raw_scales), noise)
 
 
+def stream_train(surrogate, opt_state, stream, config, distribution,
+                 learning_rate, num_steps, sample_size, kl_weight, generator,
+                 backend, precision='f32', mesh=None, slice_steps=1,
+                 start_step=0, checkpoint_every=None, on_chunk=None,
+                 remix_seed=None):
+  """Steps `start_step` to `num_steps` of a streamed VI fit, on one device
+  or over `mesh` (see `train` and `map.stream_train`).
+
+  Each step `generator` draws the noise of every member; its batch comes
+  from `stream` (`per_step_resample`), sent to the mesh's first device
+  `slice_steps` steps at a time.
+
+  Args:
+    checkpoint_every: steps a chunk, or None (one chunk).
+    on_chunk: None, or `(surrogate, opt_state, losses, steps_done)` after
+      each chunk, with the chunk's losses (E, chunk steps) times kl_weight,
+      all on the mesh's first device.
+    remix_seed: None (the shared stream), or the fit's seed: each member
+      remixes each slice (`map.slice_remix`).
+    (the rest as for `train`).
+
+  Returns:
+    (surrogate, opt_state, losses) on the mesh's first device: losses
+    (E, num_steps - start_step), times kl_weight.
+  """
+  mesh = map_lib.fit_mesh(mesh, surrogate[0][0].device)
+  shards = mesh.shape[mesh_lib.DATA_AXIS]
+  members = surrogate[0][0].shape[0]
+  map_lib.check_batch_split(backend, stream.batch_size, stream.data_size,
+                            shards)
+  step = make_step(config, distribution,
+                   (stream.data_size / stream.batch_size) / kl_weight,
+                   learning_rate, backend, precision)
+  first = mesh.first_device
+  surrogates = list(zip(map_lib.split_groups(surrogate[0], mesh),
+                        map_lib.split_groups(surrogate[1], mesh)))
+  states = [map_lib.AdamState(opt_state.count, mu, nu) for mu, nu in zip(
+      map_lib.split_groups(opt_state.mu, mesh),
+      map_lib.split_groups(opt_state.nu, mesh))]
+  size = members // len(surrogates)
+  history = []
+
+  def gathered(surrogates, states):
+    return (tuple(map_lib.gather_groups(part, first)
+                  for part in zip(*surrogates)),
+            map_lib.AdamState(
+                states[0].count,
+                map_lib.gather_groups([s.mu for s in states], first),
+                map_lib.gather_groups([s.nu for s in states], first)))
+
+  def run_slice(state, aug_s, y_s, slice_step):
+    surrogates, states = state
+    steps = aug_s.shape[0]
+    batch = map_lib.stream_batches(
+        aug_s, y_s, config.num_inputs, mesh, size,
+        map_lib.slice_remix(remix_seed, slice_step, steps, members,
+                            stream.batch_size // shards, first))
+    losses = []
+    for k in range(steps):
+      eps = map_lib.split_groups(
+          draw_noise(config, members, sample_size, generator), mesh)
+      step_losses = []
+      for i, group_state in enumerate(states):
+        surrogates[i], states[i], group_losses = step(
+            surrogates[i], group_state, eps[i], batch(i, k))
+        step_losses.append((group_losses,))
+      losses.append(map_lib.gather_groups(step_losses, first)[0])
+    return state, losses
+
+  def chunk_done(state, step_losses, steps_done):
+    history.append(torch.stack(step_losses, dim=1) * kl_weight)
+    if on_chunk is not None:
+      on_chunk(*gathered(*state), history[-1], steps_done)
+
+  surrogates, states = streaming_lib.run_stream_driver(
+      stream, device=first, run_slice=run_slice, state=(surrogates, states),
+      start_step=int(start_step), num_steps=int(num_steps),
+      slice_steps=int(slice_steps), checkpoint_steps=checkpoint_every,
+      on_chunk=chunk_done)
+  losses = (torch.cat(history, dim=1) if history
+            else torch.zeros((members, 0), device=first))
+  return (*gathered(surrogates, states), losses)
+
+
 def fit_vi(
     aug_features,
     target,
@@ -254,15 +348,22 @@ def fit_vi(
     device='cuda',
     precision: str = 'f32',
     mesh=None,
-    **unported,
+    checkpoint_dir=None,
+    checkpoint_every: int | None = None,
+    stream_chunk_steps: int | None = None,
+    stream_member_remix: bool = False,
 ):
   """Fit an ensemble of mean-field surrogate posteriors.
 
   Args:
     aug_features: (N, D + 2F) inputs with seasonal features
-      (`field.aug_features`), numpy or a tensor.
+      (`field.aug_features`), numpy or a tensor; for a streamed fit numpy
+      or an `np.memmap` (`field.aug_features_host`), which stays on the
+      host.
     target: (N,) targets (numpy).
-    seed: int seed of the init and of the per-step noise and batches.
+    seed: int seed of the init, of the per-step noise and batches, and of
+      a streamed fit's batches (`map.stream_seed(seed, map.HOST_STREAM)`)
+      and remix.
     observation_model: 'NORMAL' | 'NB' | 'ZINB'.
     config: model config.
     ensemble_size: surrogates to fit.
@@ -280,36 +381,102 @@ def fit_vi(
     mesh: None, or a `parallel.mesh.Mesh` to fit over (`train`); the
       surrogates are padded to a multiple of its 'ens' extent and the
       padding is dropped on the way out.
-    **unported: the JAX package's checkpoint and streaming arguments;
-      anything but their defaults raises.
+    checkpoint_dir: as for `map.ensemble_map`, in chunks of
+      `checkpoint_every` steps (default num_epochs // 10, at least 1).
+    checkpoint_every: steps a checkpoint chunk.
+    stream_chunk_steps: None, or streamed training in slices of this many
+      steps (`stream_train`; minibatch fits only).
+    stream_member_remix: as for `map.ensemble_map`.
 
   Returns:
     (surrogate, losses, draws): (locs, raw_scales) with leading member axis
     E on `device` (with a mesh, its first device); losses (E, num_epochs)
     as numpy (times kl_weight); draws, leaves (E, sample_size_posterior,
     ...) beside the surrogate.
+
+  Raises:
+    ValueError: as `map.ensemble_map`.
   """
   distribution = likelihoods.LikelihoodDist(observation_model)
-  map_lib.check_supported(**unported)
   mesh = map_lib.fit_mesh(mesh, device)
   target_np = np.asarray(target)
   n = int(target_np.shape[0])
   batch_size = n if batch_size is None else min(int(batch_size), n)
+  data_shards = mesh.shape[mesh_lib.DATA_AXIS]
+  streaming = map_lib.check_supported(
+      batch_size, n, data_shards, stream_chunk_steps, stream_member_remix)
   backend = map_lib.resolve_fit_backend(backend, mesh, config, distribution,
                                         batch_size, n)
+  num_steps = int(num_epochs)
+  sample_size = int(sample_size_divergence)
   first = mesh.first_device
   padded = mesh_lib.pad_ensemble_size(ensemble_size, mesh)
   surrogate = init_surrogate(config, padded, seed, first)
   opt_state = map_lib.init_opt_state((*surrogate[0], *surrogate[1]))
-  aug_t = torch.as_tensor(
-      aug_features, dtype=torch.float32, device=first).T.contiguous()
-  y = torch.tensor(target_np, dtype=torch.float32, device=first)
   generator = torch.Generator(device=first).manual_seed(
       map_lib.stream_seed(seed, map_lib.VI_STEP_STREAM))
-  surrogate, _, losses = train(
-      surrogate, opt_state, aug_t, y, config, distribution, learning_rate,
-      num_epochs, batch_size, int(sample_size_divergence), float(kl_weight),
-      generator, backend, precision, mesh=mesh)
+  checkpointer, restored, checkpoint_every = map_lib.open_checkpointer(
+      checkpoint_dir, checkpoint_every, num_steps, streaming,
+      stream_member_remix, stream_chunk_steps, kind='vi', config=config,
+      distribution=distribution.value, ensemble_size=ensemble_size,
+      learning_rate=float(learning_rate),
+      batch_size=int(batch_size), data_size=n,
+      sample_size_divergence=sample_size, kl_weight=float(kl_weight),
+      precision=precision, backend=backend, data_shards=data_shards)
+  step, loss_chunks = 0, []
+  if restored is not None:
+    leaves, (count, mu, nu) = restored.place(first)
+    num = len(leaves) // 2
+    surrogate = (leaves[:num], leaves[num:])
+    opt_state = map_lib.AdamState(count, mu, nu)
+    restored.restore_generators([generator])
+    loss_chunks = [t.to(first) for t in restored.losses]
+    step = restored.epoch
+
+  def save(surrogate, opt_state, steps_done):
+    if checkpointer is not None:
+      checkpointer.save(ckpt_lib.TrainState.from_fit(
+          (*surrogate[0], *surrogate[1]), opt_state, [generator],
+          loss_chunks, steps_done))
+
+  if streaming:
+    aug_t, y = map_lib.host_rows(aug_features, target_np)
+    stream = streaming_lib.HostBatchStream(
+        aug_t, y, batch_size,
+        (map_lib.stream_seed(seed, map_lib.HOST_STREAM),),
+        per_step_resample=True)
+    if stream_member_remix:
+      streaming_lib.validate_remix_alignment(
+          int(stream_chunk_steps), step, checkpoint_every)
+
+    def on_chunk(surrogate, opt_state, losses, steps_done):
+      loss_chunks.append(losses)
+      save(surrogate, opt_state, steps_done)
+
+    surrogate, opt_state, _ = stream_train(
+        surrogate, opt_state, stream, config, distribution, learning_rate,
+        num_steps, sample_size, float(kl_weight), generator, backend,
+        precision, mesh=mesh, slice_steps=int(stream_chunk_steps),
+        start_step=step, checkpoint_every=checkpoint_every,
+        on_chunk=on_chunk,
+        remix_seed=seed if stream_member_remix else None)
+  else:
+    aug_t = torch.as_tensor(
+        aug_features, dtype=torch.float32, device=first).T.contiguous()
+    y = torch.tensor(target_np, dtype=torch.float32, device=first)
+    while step < num_steps:
+      chunk = (num_steps - step if checkpoint_every is None
+               else min(checkpoint_every, num_steps - step))
+      surrogate, opt_state, losses = train(
+          surrogate, opt_state, aug_t, y, config, distribution,
+          learning_rate, chunk, batch_size, sample_size, float(kl_weight),
+          generator, backend, precision, mesh=mesh)
+      loss_chunks.append(losses)
+      step += chunk
+      # The last chunk is saved too: a finished fit run again is a no-op.
+      save(surrogate, opt_state, step)
+  losses = (torch.cat(loss_chunks, dim=1) if loss_chunks
+            else torch.zeros((padded, 0), device=first))
   draws = posterior_draws(config, surrogate, int(sample_size_posterior),
                           generator)
 

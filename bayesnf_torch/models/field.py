@@ -247,6 +247,41 @@ def aug_features(config: FieldConfig, x: torch.Tensor) -> torch.Tensor:
   return torch.cat([x, seasonal_features_for(config, x)], dim=-1)
 
 
+def aug_features_host(config: FieldConfig, x, block_rows: int = 1 << 20,
+                      out=None) -> np.ndarray:
+  """`aug_features` in numpy, on the CPU, `block_rows` rows at a time: the
+  rows of a streamed fit, which never exist whole on the device.
+
+  Args:
+    config: model config.
+    x: (N, D) raw inputs (numpy, or an `np.memmap`).
+    block_rows: rows whose seasonal features are computed at once.
+    out: None, or a float32 (N, D + 2F) array to write into, such as an
+      `np.memmap` on disk for a table larger than host memory.
+
+  Returns:
+    `out`, or a new float32 array.
+
+  Raises:
+    ValueError: if `out` has another shape or dtype.
+  """
+  x = x if isinstance(x, np.memmap) else np.asarray(x, dtype=np.float32)
+  n, d = x.shape
+  f2 = config.num_seasonal_features
+  if out is None:
+    out = np.empty((n, d + f2), dtype=np.float32)
+  elif out.shape != (n, d + f2) or out.dtype != np.float32:
+    raise ValueError(
+        f'out must be float32 of shape {(n, d + f2)}; got '
+        f'{out.dtype} {out.shape}.')
+  out[:, :d] = x
+  for lo in range(0, n, block_rows):
+    block = torch.as_tensor(np.asarray(x[lo:lo + block_rows],
+                                       dtype=np.float32))
+    out[lo:lo + block_rows, d:] = seasonal_features_for(config, block).numpy()
+  return out
+
+
 def grouped(t: torch.Tensor, members: int, ndim: int) -> torch.Tensor:
   """A data input as a (G, 1, ...) view for `members` members in G groups.
 

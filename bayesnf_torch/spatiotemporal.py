@@ -14,7 +14,10 @@ What the port does, and what it does not yet:
   (`parallel/mesh.py`: members split over 'ens', rows over 'data'), on the
   'kernel' (CUDA) or 'torch' backend (`inference/map.py`,
   `inference/vi.py`), at `precision` 'f32', 'highest' (the same) or 'bf16'
-  (`ops/mixed.py`). Checkpoints and streaming raise NotImplementedError.
+  (`ops/mixed.py`); with a `checkpoint_dir` it saves in chunks and resumes
+  bit for bit (`utils/checkpoint.py`, local directories only), and with
+  `stream_chunk_steps` the table stays on the host and the batches stream
+  to the device (`parallel/streaming.py`, `stream_member_remix` too).
 - `predict` (means and exact mixture quantiles) and `likelihood_model` (the
   predictive distribution object of `models/distributions.py`), on the
   'kernel' or 'torch' backend (`inference/backends.py`), row-parallel over
@@ -206,10 +209,12 @@ class BayesianNeuralFieldEstimator:
         num_seasonal_harmonics=self._get_num_seasonal_harmonics(),
     )
 
-  def _fit_inputs(self, table, batch_size, num_epochs, device, mesh):
+  def _fit_inputs(self, table, batch_size, num_epochs, device, mesh,
+                  host=False):
     """(config, aug features on `device`, or on the first device of
-    `mesh`, target, batch_size, num_epochs) of a fit: the batch is clamped
-    to the table, and VI counts its epochs in steps (times N //
+    `mesh`, or with `host` in host memory (`field.aug_features_host`, a
+    streamed fit's), target, batch_size, num_epochs) of a fit: the batch
+    is clamped to the table, and VI counts its epochs in steps (times N //
     batch_size), as the JAX package does."""
     device = (torch.device(device) if mesh is None
               else mesh_lib.check_mesh(mesh).first_device)
@@ -225,9 +230,12 @@ class BayesianNeuralFieldEstimator:
     if self._scale_epochs_by_batch_size:
       num_epochs = num_epochs * (n // batch_size)
     config = self._field_config((batch_size, train_data.shape[-1]))
-    aug = field_lib.aug_features(
-        config, torch.as_tensor(train_data, dtype=torch.float32,
-                                device=device))
+    if host:
+      aug = field_lib.aug_features_host(config, train_data)
+    else:
+      aug = field_lib.aug_features(
+          config, torch.as_tensor(train_data, dtype=torch.float32,
+                                  device=device))
     return config, aug, train_target, batch_size, num_epochs
 
   def _require_fitted(self, action: str) -> None:
@@ -477,7 +485,10 @@ class BayesianNeuralFieldMAP(BayesianNeuralFieldEstimator):
       device='cuda',
       precision='f32',
       mesh=None,
-      **unported,
+      checkpoint_dir=None,
+      checkpoint_every=None,
+      stream_chunk_steps=None,
+      stream_member_remix=False,
   ) -> 'BayesianNeuralFieldMAP':
     """Run stochastic ensemble MAP (or MLE) inference.
 
@@ -503,9 +514,19 @@ class BayesianNeuralFieldMAP(BayesianNeuralFieldEstimator):
         may repeat) to fit over: members split over 'ens' (padded to a
         multiple of its extent), rows over 'data' (`inference/map.py`).
         `params_` then live on its first device, and `predict` runs over it.
-      **unported: the JAX package's `checkpoint_dir`, `checkpoint_every`,
-        `stream_chunk_steps` and `stream_member_remix`; anything but their
-        defaults raises.
+      checkpoint_dir: None, or a local directory: the fit saves its state
+        every `checkpoint_every` epochs (split i of several into
+        `split_{i}` there), and a fit started on a directory that holds a
+        save of the same configuration resumes from it, bit for bit the
+        uninterrupted fit (`utils/checkpoint.py`).
+      checkpoint_every: epochs between saves (default num_epochs // 10).
+      stream_chunk_steps: None, or (with batch_size < len(table)) the
+        table's rows stay in host memory and each epoch's batches, drawn
+        from one permutation shared by every member, go to the device in
+        slices of this many steps (`parallel/streaming.py`).
+      stream_member_remix: (streaming only) each member remixes each
+        slice's rows into its own batches; `stream_chunk_steps` is then
+        the remix window.
 
     Returns:
       self, with `params_` leaves (g, ensemble_size / g, ...) and `losses_`
@@ -513,21 +534,26 @@ class BayesianNeuralFieldMAP(BayesianNeuralFieldEstimator):
       it divides ensemble_size, else 1.
 
     Raises:
-      NotImplementedError: for the unported arguments above.
       TypeError: if `mesh` is not a `parallel.mesh.Mesh`.
-      ValueError: for an unknown precision, or a minibatch on 'kernel' that
-        does not split evenly over the mesh's data shards.
+      ValueError: for an unknown precision, a minibatch on 'kernel' that
+        does not split evenly over the mesh's data shards, streaming
+        arguments the JAX package refuses (`map.check_supported`),
+        or a `checkpoint_dir` that is a remote URI or holds another fit.
       RuntimeError: if `device` is CUDA and CUDA is not available.
     """
     config, aug, train_target, batch_size, num_epochs = self._fit_inputs(
-        table, batch_size, num_epochs, device, mesh)
+        table, batch_size, num_epochs, device, mesh,
+        host=stream_chunk_steps is not None)
     params, losses = map_lib.fit_map(
         aug, train_target, seed=seed,
         observation_model=self.observation_model, config=config,
         num_particles=ensemble_size, learning_rate=learning_rate,
         num_epochs=num_epochs, prior_weight=self._prior_weight,
         batch_size=batch_size, num_splits=num_splits, backend=backend,
-        device=device, precision=precision, mesh=mesh, **unported,
+        device=device, precision=precision, mesh=mesh,
+        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+        stream_chunk_steps=stream_chunk_steps,
+        stream_member_remix=stream_member_remix,
     )
     g, m = _group_shape(ensemble_size, mesh)
     self.params_ = tuple(p.reshape((g, m) + tuple(p.shape[1:]))
@@ -574,7 +600,10 @@ class BayesianNeuralFieldVI(BayesianNeuralFieldEstimator):
       device='cuda',
       precision='f32',
       mesh=None,
-      **unported,
+      checkpoint_dir=None,
+      checkpoint_every=None,
+      stream_chunk_steps=None,
+      stream_member_remix=False,
   ) -> 'BayesianNeuralFieldVI':
     """Run stochastic ensemble variational inference.
 
@@ -596,7 +625,14 @@ class BayesianNeuralFieldVI(BayesianNeuralFieldEstimator):
       precision: as for :meth:`BayesianNeuralFieldMAP.fit`.
       mesh: as for :meth:`BayesianNeuralFieldMAP.fit`; every data shard of
         an ensemble group sees the same Monte-Carlo draws.
-      **unported: as for :meth:`BayesianNeuralFieldMAP.fit`.
+      checkpoint_dir: as for :meth:`BayesianNeuralFieldMAP.fit`; a save
+        also holds the state of the generator of the noise, batches and
+        posterior draws, so a resumed fit's `params_` are the
+        uninterrupted fit's too.
+      checkpoint_every: steps between saves (default steps // 10).
+      stream_chunk_steps: as for :meth:`BayesianNeuralFieldMAP.fit`, but
+        each step draws a fresh batch of rows, shared by every surrogate.
+      stream_member_remix: as for :meth:`BayesianNeuralFieldMAP.fit`.
 
     Returns:
       self, with `surrogate_` (locs, raw_scales) of leaves (ensemble_size,
@@ -608,7 +644,8 @@ class BayesianNeuralFieldVI(BayesianNeuralFieldEstimator):
       As :meth:`BayesianNeuralFieldMAP.fit`.
     """
     config, aug, train_target, batch_size, num_epochs = self._fit_inputs(
-        table, batch_size, num_epochs, device, mesh)
+        table, batch_size, num_epochs, device, mesh,
+        host=stream_chunk_steps is not None)
     surrogate, losses, draws = vi_lib.fit_vi(
         aug, train_target, seed=seed,
         observation_model=self.observation_model, config=config,
@@ -616,7 +653,10 @@ class BayesianNeuralFieldVI(BayesianNeuralFieldEstimator):
         num_epochs=num_epochs, sample_size_divergence=sample_size_divergence,
         sample_size_posterior=sample_size_posterior, kl_weight=kl_weight,
         batch_size=batch_size, backend=backend, device=device,
-        precision=precision, mesh=mesh, **unported,
+        precision=precision, mesh=mesh, checkpoint_dir=checkpoint_dir,
+        checkpoint_every=checkpoint_every,
+        stream_chunk_steps=stream_chunk_steps,
+        stream_member_remix=stream_member_remix,
     )
     self.surrogate_ = surrogate
     self.params_ = _posterior_params(draws, ensemble_size,

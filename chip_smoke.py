@@ -119,6 +119,21 @@ CUDA toolkit (nvcc). It imports nothing of JAX. Phases, one line each:
    three artifacts with finite metrics, and its launch counters show K1 on
    every step and K2 on every chunk of the predict and of the CRPS draws.
    Then `bench_torch.py`'s main cell with 2 repeats.
+15. Long fits at full width on 'kernel', run before phase 13's line: (a)
+   checkpoints: phase 6's full-batch fit for 6 epochs against one stopped
+   after 4 (saved every 2) and resumed to 6, under 'f32' and 'bf16', and
+   phase 7's VI stanza for 20 steps against 10 and a resume; losses, every
+   leaf and the posterior draws bit for bit; (b) streaming
+   (`stream_chunk_steps`): a minibatch MAP fit (batch 3,500) streamed in
+   slices of 3 and of 10 steps, bit for bit, against the 'torch' streamed
+   fit to rtol 1e-4; a streamed fit stopped, then resumed, bit for bit; a
+   remix fit that differs from the shared stream and resumes bit for bit;
+   one K1 call a step; (c) memory: one streamed 'bf16' epoch over a
+   2,000,000-row `np.memmap` built by `aug_features_host(out=...)`, whose
+   peak device memory exceeds the 38,096-row streamed epoch's by less than
+   16 MiB; member-steps/s of 3 minibatch epochs on the card's rows and
+   streamed ('f32', 'bf16', twice in turns), the peaks, and the ms of one
+   checkpoint save of the full-width MAP state.
 13. A JSON line of the kernels, with each one's time, its plain version's,
    the least time the card could take for the same products and bytes
    (`bound_ms`) and the PyTorch call that computes the same function, if
@@ -134,6 +149,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -154,6 +170,8 @@ from bayesnf_torch.models import likelihoods
 from bayesnf_torch.ops import _build
 from bayesnf_torch.ops import fused_mlp
 from bayesnf_torch.parallel import mesh as mesh_lib
+from bayesnf_torch.parallel import streaming as streaming_lib
+from bayesnf_torch.utils import checkpoint as ckpt_lib
 import bench_torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1951,6 +1969,294 @@ def check_harness(seed):
   return tuple(int(t) for t in totals)
 
 
+# Phase 15: long fits. A full-batch MAP fit of LONG_EPOCHS epochs against
+# one stopped after LONG_STOP (saved every LONG_EVERY) and resumed; the VI
+# stanza's LONG_VI_EPOCHS epochs (10 steps each) against one stopped after
+# one epoch and resumed; streamed MAP fits of STREAM_EPOCHS epochs in
+# slices of STREAM_SLICES steps (a remix window of REMIX_WINDOW); a
+# streamed 'bf16' epoch over a memmap of MEMMAP_ROWS rows, whose peak device
+# memory may exceed the 38,096-row streamed epoch's by less than
+# MEMORY_GAP_BYTES (the card holds the model and two slices, not the
+# table); RATE_EPOCHS epochs timed on the card's rows and streamed.
+LONG_EPOCHS = 6
+LONG_STOP = 4
+LONG_EVERY = 2
+LONG_VI_EPOCHS = 2
+STREAM_EPOCHS = 2
+STREAM_SLICES = (3, 10)
+REMIX_WINDOW = 5
+MEMMAP_ROWS = 2_000_000
+MEMORY_GAP_BYTES = 16 << 20
+RATE_EPOCHS = 3
+
+
+def k1_counts():
+  return np.array([fused_mlp.fused_train.launches,
+                   fused_mlp.fused_train.bf16_launches])
+
+
+def assert_bit_equal(got, want, what):
+  """Leaves (tensors) and losses (numpy) equal bit for bit."""
+  (got_leaves, got_losses), (want_leaves, want_losses) = got, want
+  assert np.array_equal(got_losses, want_losses), what
+  assert len(got_leaves) == len(want_leaves), what
+  for i, (a, b) in enumerate(zip(got_leaves, want_leaves)):
+    assert a.dtype == b.dtype and torch.equal(a, b), (what, i)
+
+
+def leaves_of(est):
+  """An estimator's fitted tensors: parameters (VI: surrogate and draws)."""
+  extra = () if est.surrogate_ is None else (*est.surrogate_[0],
+                                             *est.surrogate_[1])
+  return [*extra, *est.params_]
+
+
+def long_map_fit(table, seed, precision, **kwargs):
+  est = bench_estimator().fit(
+      table, seed, ensemble_size=MEMBERS, learning_rate=0.005,
+      backend='kernel', device='cuda', precision=precision, **kwargs)
+  return leaves_of(est), est.losses_
+
+
+def long_vi_fit(table, seed, **kwargs):
+  est = bench_estimator(bayesnf_torch.BayesianNeuralFieldVI).fit(
+      table, seed, ensemble_size=VI_MEMBERS, learning_rate=VI_LR,
+      sample_size_posterior=VI_POSTERIOR, sample_size_divergence=VI_SAMPLES,
+      kl_weight=VI_KL_WEIGHT, batch_size=BATCH, backend='kernel',
+      device='cuda', **kwargs)
+  return leaves_of(est), est.losses_
+
+
+def stream_fit(table, seed, slice_steps, backend='kernel', **kwargs):
+  kwargs.setdefault('num_epochs', STREAM_EPOCHS)
+  est = bench_estimator().fit(
+      table, seed, ensemble_size=MEMBERS, learning_rate=0.005,
+      batch_size=BATCH, backend=backend, device='cuda',
+      stream_chunk_steps=slice_steps, **kwargs)
+  return leaves_of(est), est.losses_
+
+
+def checkpoint_save_ms(leaves, directory):
+  """Host ms of one save of a full-width MAP state (the parameters, Adam's
+  moments, copied to the host and written), and its bytes."""
+  state = map_lib.AdamState(7, tuple(leaves), tuple(leaves))
+  checkpointer = ckpt_lib.TrainCheckpointer(directory)
+  torch.cuda.synchronize()
+  start = time.perf_counter()
+  checkpointer.save(ckpt_lib.TrainState.from_fit(
+      leaves, state, [], [torch.zeros((MEMBERS, 1))], 1))
+  seconds = time.perf_counter() - start
+  path = os.path.join(directory, 'step_1.pt')
+  return seconds * 1e3, os.path.getsize(path)
+
+
+def memmap_rows(config, rows, seed, directory):
+  """(memmap of `rows` augmented rows built by `aug_features_host(out=)`,
+  targets): hourly time, two standard-normal coordinates."""
+  rng = np.random.default_rng(seed)
+  t = np.arange(rows, dtype=np.float32)
+  x = np.stack([t, *rng.standard_normal((2, rows), dtype=np.float32)], -1)
+  y = (10 * np.sin(2 * np.pi * t / 24.0) + x[:, 1]
+       + rng.standard_normal(rows, dtype=np.float32)).astype(np.float32)
+  aug = np.memmap(os.path.join(directory, 'aug.f32'), dtype=np.float32,
+                  mode='w+', shape=(rows, config.num_inputs
+                                    + config.num_seasonal_features))
+  return field_lib.aug_features_host(config, x, out=aug), y
+
+
+def streamed_epoch_peak(aug, target, config, seed, precision='bf16'):
+  """(peak device bytes above what was allocated before, seconds) of one
+  streamed epoch through `map.ensemble_map`."""
+  torch.cuda.synchronize()
+  base = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  start = time.perf_counter()
+  _, losses = map_lib.ensemble_map(
+      aug, target, config, likelihoods.LikelihoodDist.NORMAL, MEMBERS, 0.005,
+      1, seed, batch_size=BATCH, backend='kernel', device='cuda',
+      precision=precision, stream_chunk_steps=STREAM_SLICES[-1])
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - start
+  assert np.isfinite(losses).all()
+  return torch.cuda.max_memory_allocated() - base, seconds
+
+
+def training_rates(table, seed, config, aug_host):
+  """Member-steps/s of RATE_EPOCHS minibatch epochs on the card's rows
+  (`map.train`) and streamed (`map.stream_train`, slices of 10 steps) from
+  the same parameters, host clock around synchronized runs, at 'f32' and
+  'bf16', each twice in turns; and the on-device epoch's peak bytes."""
+  est = bench_estimator()
+  train = est.data_handler.get_train(table)
+  target = est.data_handler.get_target(table)
+  aug_t = field_lib.aug_features(
+      config, torch.as_tensor(train, dtype=torch.float32, device='cuda')
+  ).T.contiguous()
+  y = torch.tensor(target, dtype=torch.float32, device='cuda')
+  params = map_lib.init_ensemble(config, MEMBERS, seed, 0.0, 'cuda')
+  distribution = likelihoods.LikelihoodDist.NORMAL
+  mesh = mesh_lib.Mesh([['cuda']])
+  steps = RATE_EPOCHS * (len(table) // BATCH)
+  rates = {}
+  peak_bytes = {}
+  for precision in ('f32', 'bf16'):
+    for _ in range(2):
+      for how in ('device', 'stream'):
+        opt_state = map_lib.init_opt_state(params)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        if how == 'device':
+          map_lib.train(
+              params, opt_state, aug_t, y, config, distribution, 0.005,
+              RATE_EPOCHS, backend='kernel', batch_size=BATCH,
+              permutations=map_lib.SeededPermutations(
+                  seed, MEMBERS, len(table), BATCH, mesh),
+              precision=precision)
+        else:
+          map_lib.stream_train(
+              params, opt_state, streaming_lib.HostBatchStream(
+                  aug_host.T, np.asarray(target, np.float32), BATCH, (seed,)),
+              config, distribution, 0.005, RATE_EPOCHS, backend='kernel',
+              precision=precision, slice_steps=STREAM_SLICES[-1])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        rates.setdefault((precision, how), []).append(
+            MEMBERS * steps / seconds)
+        peak_bytes[precision, how] = (torch.cuda.max_memory_allocated()
+                                      - base)
+  return rates, peak_bytes
+
+
+def check_long_fits(seed):
+  """Phase 15; returns the K1 launches ('f32', 'bf16') counted while it
+  drove the checkpointed and streamed fits."""
+  table = bench_table(seed)
+  steps = len(table) // BATCH
+  fields = {}
+  torch.cuda.synchronize()
+  fused_mlp.fused_train.launches = 0
+  fused_mlp.fused_train.bf16_launches = 0
+  expected = np.zeros(2, dtype=int)
+  with tempfile.TemporaryDirectory() as tmp:
+    # (a) Checkpoints: stopped, then resumed, bit for bit the single fit.
+    for precision in ('f32', 'bf16'):
+      want = long_map_fit(table, seed, precision, num_epochs=LONG_EPOCHS)
+      ckdir = os.path.join(tmp, f'map-{precision}')
+      long_map_fit(table, seed, precision, num_epochs=LONG_STOP,
+                   checkpoint_dir=ckdir, checkpoint_every=LONG_EVERY)
+      got = long_map_fit(table, seed, precision, num_epochs=LONG_EPOCHS,
+                         checkpoint_dir=ckdir, checkpoint_every=LONG_EVERY)
+      assert_bit_equal(got, want, f'resumed full-batch MAP, {precision}')
+      shutil.rmtree(ckdir)  # ~220 MB a save at full width
+      assert np.isfinite(want[1]).all()
+      expected[precision == 'bf16'] += 2 * LONG_EPOCHS
+      if precision == 'f32':
+        # Leaves: 15 parameter leaves of 64 members; the estimator's group
+        # axis folded back.
+        leaves = [p.reshape((-1,) + tuple(p.shape[2:])) for p in got[0]]
+        save_ms, save_bytes = checkpoint_save_ms(
+            leaves, os.path.join(tmp, 'save'))
+    want = long_vi_fit(table, seed, num_epochs=LONG_VI_EPOCHS)
+    ckdir = os.path.join(tmp, 'vi')
+    long_vi_fit(table, seed, num_epochs=1, checkpoint_dir=ckdir,
+                checkpoint_every=steps)
+    got = long_vi_fit(table, seed, num_epochs=LONG_VI_EPOCHS,
+                      checkpoint_dir=ckdir, checkpoint_every=steps)
+    assert_bit_equal(got, want, 'resumed VI: surrogate, draws, losses')
+    expected[0] += 2 * LONG_VI_EPOCHS * steps
+
+    # (b) Streaming: slice sizes bit for bit, 'torch' to FIT_LOSS_RTOL, a
+    # checkpointed resume, and a remix resumed; one K1 call a step.
+    before = k1_counts()
+    fits = {s: stream_fit(table, seed, s) for s in STREAM_SLICES}
+    assert tuple(k1_counts() - before) == (
+        len(STREAM_SLICES) * STREAM_EPOCHS * steps, 0)
+    assert_bit_equal(fits[STREAM_SLICES[0]], fits[STREAM_SLICES[-1]],
+                     'slice sizes')
+    plain = stream_fit(table, seed, STREAM_SLICES[0], backend='torch')
+    np.testing.assert_allclose(fits[STREAM_SLICES[0]][1], plain[1],
+                               rtol=FIT_LOSS_RTOL)
+    stream_rel = np.abs(fits[3][1] - plain[1]) / np.abs(plain[1])
+    ckdir = os.path.join(tmp, 'stream')
+    stream_fit(table, seed, STREAM_SLICES[0], num_epochs=1,
+               checkpoint_dir=ckdir, checkpoint_every=1)
+    got = stream_fit(table, seed, STREAM_SLICES[0], checkpoint_dir=ckdir,
+                     checkpoint_every=1)
+    assert_bit_equal(got, fits[STREAM_SLICES[0]], 'resumed streamed fit')
+    shutil.rmtree(ckdir)
+    remix = dict(stream_member_remix=True)
+    before = k1_counts()
+    want = stream_fit(table, seed, REMIX_WINDOW, **remix)
+    assert tuple(k1_counts() - before) == (STREAM_EPOCHS * steps, 0)
+    assert not np.array_equal(want[1], stream_fit(
+        table, seed, REMIX_WINDOW)[1])
+    ckdir = os.path.join(tmp, 'remix')
+    stream_fit(table, seed, REMIX_WINDOW, num_epochs=1, checkpoint_dir=ckdir,
+               checkpoint_every=1, **remix)
+    got = stream_fit(table, seed, REMIX_WINDOW, checkpoint_dir=ckdir,
+                     checkpoint_every=1, **remix)
+    assert_bit_equal(got, want, 'resumed remix')
+    shutil.rmtree(ckdir)
+    expected[0] += (len(STREAM_SLICES) + 4) * STREAM_EPOCHS * steps
+
+    # (c) Memory: one streamed 'bf16' epoch of 38,096 rows, then of a
+    # memmap of MEMMAP_ROWS rows.
+    est = bench_estimator()
+    train = est.data_handler.get_train(table)
+    config = est._field_config(train.shape)  # pylint: disable=protected-access
+    target = est.data_handler.get_target(table)
+    aug_host = field_lib.aug_features_host(config, train)
+    small_peak, small_s = streamed_epoch_peak(aug_host, target, config, seed)
+    start = time.perf_counter()
+    big_aug, big_y = memmap_rows(config, MEMMAP_ROWS, seed, tmp)
+    build_s = time.perf_counter() - start
+    big_peak, big_s = streamed_epoch_peak(big_aug, big_y, config, seed)
+    big_steps = MEMMAP_ROWS // BATCH
+    assert big_peak - small_peak < MEMORY_GAP_BYTES, (big_peak, small_peak)
+    expected[1] += steps + big_steps
+    del big_aug
+  before = k1_counts()
+  rates, peaks = training_rates(table, seed, config, aug_host)
+  rate_steps = 2 * 2 * RATE_EPOCHS * steps
+  assert tuple(k1_counts() - before) == (2 * rate_steps, rate_steps)
+  expected += (rate_steps, rate_steps)
+  launches = k1_counts()
+  assert tuple(launches) == (expected[0] + expected[1], expected[1]), (
+      tuple(launches), tuple(expected))
+
+  def joined(values):
+    return '/'.join(f'{v:.2f}' for v in values)
+
+  for precision in ('f32', 'bf16'):
+    fields[f'{precision}_member_steps_per_s_device'] = joined(
+        rates[precision, 'device'])
+    fields[f'{precision}_member_steps_per_s_streamed'] = joined(
+        rates[precision, 'stream'])
+  phase('15 long-fits', rows=len(table), members=MEMBERS,
+        resume=f'MAP {LONG_STOP}+{LONG_EPOCHS - LONG_STOP} epochs f32/bf16, '
+        f'VI {steps}+{steps} steps: bit-exact',
+        slices='/'.join(str(s) for s in STREAM_SLICES) + ': bit-exact',
+        stream_vs_torch_rel_max=f'{stream_rel.max():.3e}',
+        stream_resume='bit-exact', remix_resume='bit-exact',
+        **fields,
+        memmap_rows=MEMMAP_ROWS, memmap_build_s=f'{build_s:.2f}',
+        memmap_epoch_s=f'{big_s:.2f}', memmap_steps=big_steps,
+        memmap_member_steps_per_s=f'{MEMBERS * big_steps / big_s:.2f}',
+        small_epoch_s=f'{small_s:.2f}',
+        peak_mib_streamed=f'{small_peak / 2**20:.2f}',
+        peak_mib_streamed_memmap=f'{big_peak / 2**20:.2f}',
+        peak_mib_device_f32=f'{peaks["f32", "device"] / 2**20:.2f}',
+        peak_mib_device_bf16=f'{peaks["bf16", "device"] / 2**20:.2f}',
+        peak_mib_stream_f32=f'{peaks["f32", "stream"] / 2**20:.2f}',
+        checkpoint_save_ms=f'{save_ms:.1f}',
+        checkpoint_mib=f'{save_bytes / 2**20:.1f}',
+        k1_launches=int(launches[0] - launches[1]),
+        k1_bf16_launches=int(launches[1]))
+  return int(launches[0] - launches[1]), int(launches[1])
+
+
 def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -1999,6 +2305,7 @@ def main(argv=None):
   assert fused_mlp.fused_field_mlp_t.bwd_launches == 0
   field_launches = check_differentiable_field(args.seed)
   harness_k1, harness_k1_bf16, harness_k2 = check_harness(args.seed)
+  long_k1, long_k1_bf16 = check_long_fits(args.seed)
 
   def case_fields(case):
     """(max abs error, kernel ms, plain ms, bound) as JSON fields."""
@@ -2047,7 +2354,8 @@ def main(argv=None):
       'replaces': 'bayesnf_tpu/ops/fused_mlp.py:1412',
       'launches': (train_launches + vi_k1_launches + count_k1_launches
                    + count_vi_k1_launches + mesh_k1_launches
-                   + field_launches['fused_train.launches'] + harness_k1),
+                   + field_launches['fused_train.launches'] + harness_k1
+                   + long_k1),
       'max_abs_err': max(train_cases['main'][0], train_cases['grouped'][0]),
       'ms': train_cases['main'][1],
       'plain_ms': train_cases['main'][2],
@@ -2063,7 +2371,8 @@ def main(argv=None):
                 if name != 'main' and not name.endswith('bf16')},
       'launches_by_likelihood': {
           'NORMAL': (train_launches + vi_k1_launches + mesh_k1_launches
-                     + field_launches['fused_train.launches'] + harness_k1),
+                     + field_launches['fused_train.launches'] + harness_k1
+                     + long_k1),
           'NB': count_k1_launches, 'ZINB': count_vi_k1_launches},
   }, {
       # K1 at precision 'bf16': the hidden GEMMs on the tensor cores (wgmma,
@@ -2073,7 +2382,7 @@ def main(argv=None):
       'route': 'cuda',
       'source': 'bayesnf_torch/ops/csrc/fused_train.cu',
       'replaces': 'bayesnf_tpu/ops/fused_mlp.py:1412',
-      'launches': bf16_launches + harness_k1_bf16,
+      'launches': bf16_launches + harness_k1_bf16 + long_k1_bf16,
       'max_abs_err': max(train_cases['main-bf16'][0],
                          train_cases['grouped-bf16'][0]),
       'ms': train_cases['main-bf16'][1],

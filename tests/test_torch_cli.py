@@ -9,8 +9,9 @@ on the CPU.
   predictions reproduce.
 - NaN targets with train/test CSVs that reuse index labels
   (`test_cli.py`'s case), `data_devices` over a repeated-'cpu' mesh, the
-  flags of `main`, the unported streaming flags and arguments, the
-  registry copy, and the profiling hooks.
+  flags of `main` (the streamed fit's among them), the streamed predict's
+  flags and arguments, which are not ported, the registry copy, and the
+  profiling hooks.
 """
 
 import json
@@ -211,11 +212,44 @@ def test_main_passes_its_flags_to_the_fit(tmp_path, monkeypatch):
       2, 3)
 
 
+def test_main_streams_the_fit(tmp_path, monkeypatch):
+  calls = []
+  fit = spatiotemporal.BayesianNeuralFieldMAP.fit
+
+  def spy(self, table, seed, **kwargs):
+    calls.append(kwargs)
+    self.width = 16  # Keep the CPU run small.
+    return fit(self, table, seed, **kwargs)
+
+  monkeypatch.setattr(spatiotemporal.BayesianNeuralFieldMAP, 'fit', spy)
+  evaluate.main([
+      '--dataset', 'chickenpox', '--objective', 'map', '--data_root',
+      DATA_ROOT, '--output_dir', str(tmp_path), '--start_id', '8',
+      '--stop_id', '9', '--device', 'cpu', '--backend', 'torch',
+      '--num_epochs', '2', '--batch_size', '50', '--num_particles', '3',
+      '--stream_chunk_steps', '3', '--stream_member_remix'])
+  [kwargs] = calls
+  assert kwargs['stream_chunk_steps'] == 3
+  assert kwargs['stream_member_remix'] is True
+  losses = pd.read_csv(tmp_path / 'bnf-map.chickenpox.8.loss.csv')
+  assert losses.shape == (2, 3) and np.isfinite(losses.to_numpy()).all()
+  with open(tmp_path / 'bnf-map.chickenpox.8.log.json') as f:
+    assert json.load(f)['inference_config']['stream_chunk_steps'] == 3
+
+
 @pytest.mark.parametrize('flag', [
     ['--stream_chunk_steps', '4'], ['--stream_member_remix'],
     ['--stream_chunk_rows', '128'], ['--stream_cache_bytes', '0']])
 def test_stream_flags_raise_not_implemented(tmp_path, flag):
-  with pytest.raises(NotImplementedError, match='queue 1 item 12'):
+  """The streamed predict's flags raise NotImplementedError; the streamed
+  fit's reach `fit`, which refuses what the JAX package refuses before any
+  step: chickenpox's MAP stanza is full batch, and a remix needs
+  streaming."""
+  error, match = {
+      '--stream_chunk_steps': (ValueError, 'requires minibatch'),
+      '--stream_member_remix': (ValueError, 'host-streaming'),
+  }.get(flag[0], (NotImplementedError, 'queue 1 item 13'))
+  with pytest.raises(error, match=match):
     evaluate.main([
         '--dataset', 'chickenpox', '--data_root', DATA_ROOT, '--output_dir',
         str(tmp_path), '--start_id', '8', '--stop_id', '9', '--device', 'cpu',

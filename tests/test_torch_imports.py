@@ -41,6 +41,8 @@ def test_importing_the_port_loads_no_jax():
   assert 'bayesnf_torch.ops.fused_mlp' in added
   assert 'bayesnf_torch.cli.evaluate' in added
   assert 'bayesnf_torch.utils.profiling' in added
+  assert 'bayesnf_torch.utils.checkpoint' in added
+  assert 'bayesnf_torch.parallel.streaming' in added
   assert [m for m in added if m.split('.')[0] in FORBIDDEN] == []
 
 

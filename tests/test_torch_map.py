@@ -455,11 +455,14 @@ def test_minibatch_fit_takes_n_over_b_steps_per_epoch(cls):
 
 
 @pytest.mark.parametrize('change,error,match', [
-    # A mesh is ported (tests/test_torch_parallel.py); what is not the
-    # port's `Mesh` is refused.
+    # A mesh, checkpoints and streaming are ported (tests/test_torch_
+    # parallel.py, test_torch_checkpoint.py, test_torch_streaming.py); what
+    # `fit` refuses: a mesh that is not the port's `Mesh`, a remote
+    # checkpoint directory (local only, unlike the JAX package), and, as
+    # the JAX package, streaming a full batch.
     (dict(mesh=object()), TypeError, 'bayesnf_torch.parallel.mesh.Mesh'),
-    (dict(checkpoint_dir='ckpt'), NotImplementedError, 'ROADMAP'),
-    (dict(stream_chunk_steps=4), NotImplementedError, 'ROADMAP'),
+    (dict(checkpoint_dir='gs://bucket/ckpt'), ValueError, 'remote URI'),
+    (dict(stream_chunk_steps=4), ValueError, 'requires minibatch'),
 ], ids=['mesh', 'checkpoint', 'stream'])
 def test_fit_refuses_what_is_not_ported(change, error, match):
   est = bayesnf_torch.BayesianNeuralFieldMAP(**ESTIMATOR_KWARGS)

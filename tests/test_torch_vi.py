@@ -331,8 +331,14 @@ def test_vi_refusals_and_errors():
   with pytest.raises(TypeError, match='bayesnf_torch.parallel.mesh.Mesh'):
     est.fit(_table(), seed=0, ensemble_size=2, num_epochs=1, device='cpu',
             mesh=object())
-  for change in (dict(checkpoint_dir='ckpt'), dict(stream_chunk_steps=2)):
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+  # Checkpoints and streaming are ported (tests/test_torch_checkpoint.py,
+  # test_torch_streaming.py); a remote directory, a streamed full batch and
+  # a remix without streaming are refused.
+  for change, match in ((dict(checkpoint_dir='gs://bucket/ckpt'),
+                         'remote URI'),
+                        (dict(stream_chunk_steps=2), 'requires minibatch'),
+                        (dict(stream_member_remix=True), 'host-streaming')):
+    with pytest.raises(ValueError, match=match):
       est.fit(_table(), seed=0, ensemble_size=2, num_epochs=1, device='cpu',
               **change)
   with pytest.raises(ValueError, match='CUDA device'):
