@@ -23,14 +23,20 @@ Differences from the JAX package's CLI: seeds are ints
 (``2023100400 + series_id``); the CRPS draws come from a `torch.Generator`
 seeded with `map.stream_seed(seed, map.CRPS_STREAM)` where the JAX package
 folds 1 into its key (an RNG deviation: the draws differ, the estimator is
-the same); `--data_devices` makes a single-process mesh; the streamed
-predict's flags (`--stream_chunk_rows`, `--stream_cache_bytes`) raise
-NotImplementedError until the port has it. `--stream_chunk_steps` and
-`--stream_member_remix` stream the fit (`parallel/streaming.py`), with the
-port's batch schedule (its own entropy and remix RNG).
+the same); `--data_devices` makes a single-process mesh.
+`--stream_chunk_steps` and `--stream_member_remix` stream the fit
+(`parallel/streaming.py`), with the port's batch schedule (its own entropy
+and remix RNG). `--stream_chunk_rows` streams the predict (`inference/predict_stream.py`) and the CRPS draws: each chunk
+of that many rows gets its own streamed `likelihood_model` and its draws
+from a generator seeded `map.stream_seed(seed, map.CRPS_STREAM, chunk)`,
+as the JAX package folds one key per chunk, so a streamed run's CRPS draws
+differ from an in-memory run's (`log.json` says which: `crps_draws`).
+`--stream_cache_bytes` is accepted for the JAX package's flags and ignored:
+the streamed predict keeps no device cache.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -55,20 +61,43 @@ _ESTIMATORS = {
 # Posterior-predictive draws per member for the CRPS, as the JAX package.
 CRPS_DRAWS = 8
 
-_PREDICT_STREAM_KEYS = ('stream_chunk_rows', 'stream_cache_bytes')
+
+def _on_device(value, device):
+  """A distribution object of `models/distributions.py` with its tensors on
+  `device`."""
+  if isinstance(value, torch.Tensor):
+    return value.to(device)
+  if dataclasses.is_dataclass(value):
+    return dataclasses.replace(value, **{
+        f.name: _on_device(getattr(value, f.name), device)
+        for f in dataclasses.fields(value)})
+  return value
 
 
-def _check_in_memory(inference_config):
-  """Raises NotImplementedError if the config asks for a streamed
-  predict."""
-  # By identity: a budget of 0 asks for streaming too.
-  asked = [k for k in _PREDICT_STREAM_KEYS
-           if inference_config.get(k) is not None]
-  if asked:
-    raise NotImplementedError(
-        f'{", ".join(asked)}: the streamed predict (ROADMAP.md, queue 1 '
-        'item 13) is not ported to PyTorch yet.'
-    )
+def _crps_draws(model, df_all, seed, backend, stream_rows):
+  """(CRPS_DRAWS x members, rows) posterior-predictive draws as numpy: from
+  one `likelihood_model` and one generator, or, with `stream_rows`, from a
+  streamed one a chunk of that many rows, each with a generator of its own
+  (`map.stream_seed(seed, map.CRPS_STREAM, chunk)`), so that the device
+  holds one chunk's draws at a time."""
+  device = model.params_[0].device
+  if stream_rows is None:
+    generator = torch.Generator(device=device).manual_seed(
+        map_lib.stream_seed(seed, map_lib.CRPS_STREAM))
+    dist = model.likelihood_model(df_all, backend=backend)
+    # Every leading (draw and ensemble) axis flattens into the sample axis.
+    return dist.sample(generator, (CRPS_DRAWS,)).reshape(
+        -1, len(df_all)).cpu().numpy()
+  parts = []
+  for ci, lo in enumerate(range(0, len(df_all), stream_rows)):
+    sub = df_all.iloc[lo:lo + stream_rows]
+    generator = torch.Generator(device=device).manual_seed(
+        map_lib.stream_seed(seed, map_lib.CRPS_STREAM, ci))
+    dist = _on_device(model.likelihood_model(
+        sub, backend=backend, stream_chunk_rows=stream_rows), device)
+    parts.append(dist.sample(generator, (CRPS_DRAWS,)).reshape(
+        -1, len(sub)).cpu().numpy())
+  return np.concatenate(parts, axis=1)
 
 
 def _mesh_devices(device):
@@ -104,12 +133,14 @@ def run_experiment(
     output_dir: where the artifacts go (created if missing).
     objective: 'map' | 'mle' | 'vi'.
     seed: int seed of the fit; the CRPS draws use
-      `map.stream_seed(seed, map.CRPS_STREAM)`.
+      `map.stream_seed(seed, map.CRPS_STREAM)` (streamed, with the chunk's
+      index).
     dataset_config, model_config, inference_config: override the
       registry's stanzas. `inference_config` may also hold 'backend'
       ('auto' | 'torch' | 'kernel', for the fit, the predict and the
-      likelihood model), 'precision', 'data_devices', and the fit's
-      'stream_chunk_steps' and 'stream_member_remix'.
+      likelihood model), 'precision', 'data_devices', the fit's
+      'stream_chunk_steps' and 'stream_member_remix', and the predict's
+      'stream_chunk_rows' and 'stream_cache_bytes'.
     quantiles: the predicted quantiles (the CSV names three).
     device: where the fit runs; with 'data_devices' the mesh spans every
       device of its type, or the devices of a list given here (the CPU
@@ -117,18 +148,14 @@ def run_experiment(
 
   Returns:
     (losses_ as numpy, means, quantiles) of the fitted estimator, the last
-    two tensors on its parameters' device.
-
-  Raises:
-    NotImplementedError: if `inference_config` asks for a streamed
-      predict.
+    two tensors on its parameters' device (a streamed predict's on the
+    CPU).
   """
   dataset_config = dataset_config or registry.dataset_config(dataset)
   model_config = dict(model_config or registry.model_config(dataset, objective))
   inference_config = dict(
       inference_config or registry.inference_config(dataset, objective)
   )
-  _check_in_memory(inference_config)
 
   df_train = pd.read_csv(
       os.path.join(data_root, f'{dataset}.{series_id}.train.csv'),
@@ -181,6 +208,7 @@ def run_experiment(
         num_splits=inference_config.get('num_particle_splits', 1)
     )
   backend = inference_config.get('backend', 'auto')
+  stream_rows = inference_config.get('stream_chunk_rows')
 
   start = time.perf_counter()
   with profiling.maybe_trace(os.environ.get('BNF_PROFILE_DIR')):
@@ -189,7 +217,8 @@ def run_experiment(
     )
     df_all = pd.concat([df_train, df_test])
     means, quants = model.predict(df_all, quantiles=quantiles,
-                                  backend=backend)
+                                  backend=backend,
+                                  stream_chunk_rows=stream_rows)
     if means.is_cuda:
       # Predict returns before the card is done.
       torch.cuda.synchronize(means.device)
@@ -208,12 +237,7 @@ def run_experiment(
   yhat_all = means_host.mean(
       axis=tuple(range(means_host.ndim - 1))
   )[valid]
-  generator = torch.Generator(device=model.params_[0].device).manual_seed(
-      map_lib.stream_seed(seed, map_lib.CRPS_STREAM))
-  dist = model.likelihood_model(df_all, backend=backend)
-  # Every leading (draw and ensemble) axis flattens into the sample axis.
-  draws = dist.sample(generator, (CRPS_DRAWS,)).reshape(
-      -1, len(valid)).cpu().numpy()[:, valid]
+  draws = _crps_draws(model, df_all, seed, backend, stream_rows)[:, valid]
   n_train_valid = int(df_train[target_col].notna().sum())
   is_train = np.arange(len(y_all)) < n_train_valid
   metrics_block = {}
@@ -236,6 +260,7 @@ def run_experiment(
             'runtime': runtime,
             'objective': objective,
             'metrics': metrics_block,
+            'crps_draws': 'single' if stream_rows is None else 'chunked',
             'dataset_config': dataset_config,
             'model_config': model_config,
             'inference_config': inference_config,
@@ -263,17 +288,6 @@ def run_experiment(
   pred_df.to_csv(f'{stem}.pred.csv', index=True)
 
   return losses, means, quants
-
-
-_NOT_PORTED = (
-    'Not ported to PyTorch yet: setting it raises NotImplementedError '
-    '(ROADMAP.md, queue 1 item 13).'
-)
-_STREAMED_CRPS = (
-    ' Once ported, the streamed CRPS draws will use one generator seed per '
-    'row chunk, as the JAX package folds one key per chunk, so their values '
-    'will differ from an in-memory run\'s.'
-)
 
 
 def main(argv=None):
@@ -327,13 +341,15 @@ def main(argv=None):
   )
   parser.add_argument(
       '--stream_chunk_rows', type=int, default=None,
-      help='Out-of-core prediction in chunks of this many rows. '
-      + _NOT_PORTED + _STREAMED_CRPS,
+      help='Out-of-core prediction: the rows stream through the device in '
+      'chunks of this many rows, and so do the CRPS draws, a generator seed '
+      'per chunk (log.json: "crps_draws": "chunked"), so their values '
+      "differ from an in-memory run's.",
   )
   parser.add_argument(
       '--stream_cache_bytes', type=int, default=None,
-      help='With --stream_chunk_rows: device cache budget of the streamed '
-      'predictor. ' + _NOT_PORTED + _STREAMED_CRPS,
+      help="Accepted for the JAX package's flags and ignored: the streamed "
+      'predictor keeps no device cache (device memory stays O(chunk)).',
   )
   parser.add_argument(
       '--stream_member_remix', action='store_true',

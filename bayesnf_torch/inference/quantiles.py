@@ -149,15 +149,28 @@ def normal_mixture_quantile_approx(means, scales, q, axis=(0, 1)):
 
 
 def normal_mixture_quantiles(
-    means, scales, quantiles, axis=(0, 1), approximate=False
+    means, scales, quantiles, axis=(0, 1), approximate=False, stats=None
 ):
-  """A list of Normal-mixture quantiles (one (N,) tensor per q)."""
-  fn = (
-      normal_mixture_quantile_approx
-      if approximate
-      else normal_mixture_quantile_root
-  )
-  return [fn(means, scales[..., None], q, axis) for q in quantiles]
+  """A list of Normal-mixture quantiles (one (N,) tensor per q).
+
+  Args:
+    means: (..., N) per-member means; `axis` indexes the ensemble dims.
+    scales: per-member scales, the shape of `means` without its row axis.
+    quantiles: sequence of quantiles in (0, 1).
+    axis: ensemble axes to average over.
+    approximate: the moment-matched Normal instead of root-finding.
+    stats: optional (min_mean, max_mean) over all rows, so that chunks of
+      one table's rows searched apart share one bracket (root-finding
+      only).
+  """
+  scales = scales[..., None]
+  if approximate:
+    return [normal_mixture_quantile_approx(means, scales, q, axis)
+            for q in quantiles]
+  if stats is not None:
+    stats = (*stats, torch.amax(scales))
+  return [normal_mixture_quantile_root(means, scales, q, axis, stats=stats)
+          for q in quantiles]
 
 
 def count_mixture_quantile_root(dist, q, ensemble_axes=(0, 1), stats=None):

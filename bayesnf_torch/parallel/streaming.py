@@ -192,17 +192,84 @@ def validate_remix_alignment(window: int, start_step: int,
 
 
 class _Slot:
-  """One slice's staging buffers: pinned host memory and its twin on the
-  card, with the events of the last copy into them and of the last step
-  that read them."""
+  """One upload's buffers: pinned host memory and its twin on the card, with
+  the events of the last copy into them and of the last work that read
+  them."""
 
-  def __init__(self, shape_aug, shape_y, device):
-    self.host_aug = torch.empty(shape_aug, pin_memory=True)
-    self.host_y = torch.empty(shape_y, pin_memory=True)
-    self.dev_aug = torch.empty(shape_aug, device=device)
-    self.dev_y = torch.empty(shape_y, device=device)
+  def __init__(self, shapes, device):
+    self.host = [torch.empty(s, pin_memory=True) for s in shapes]
+    self.dev = [torch.empty(s, device=device) for s in shapes]
+    self.rows = 0
     self.copied = None
     self.consumed = None
+
+
+class HostUploads:
+  """Host-to-device uploads through two slots of pinned buffers (the copy
+  pipeline of the module docstring), shared by the streamed fits and the
+  streamed predict.
+
+  `send` fills the next slot's pinned buffers on the host and copies them
+  to the card on a side stream; `receive` makes the current stream wait for
+  that copy and returns the device buffers; `release`, called once the
+  work that reads them is queued, lets the slot be refilled after that
+  work. Before a slot is refilled the host waits for its last copy (so the
+  pinned buffer is free) and the copy stream for its last reader (so the
+  device buffer is). On the CPU each upload is a new array and the three
+  calls need no streams.
+
+  Args:
+    shapes: the shape of each buffer of a slot; an upload fills a leading
+      run of rows of each.
+    device: where the uploads go.
+  """
+
+  def __init__(self, shapes, device):
+    self.shapes = [tuple(int(d) for d in s) for s in shapes]
+    self.device = torch.device(device)
+    self.cuda = self.device.type == 'cuda'
+    if self.cuda:
+      self._slots = [_Slot(self.shapes, self.device) for _ in range(2)]
+      self._copies = torch.cuda.Stream(self.device)
+      self._compute = torch.cuda.current_stream(self.device)
+    self._count = 0
+
+  def send(self, fill):
+    """Starts an upload: `fill(arrays)` writes the host arrays (numpy views
+    of the slot's buffers, one per shape) and returns how many leading rows
+    to copy. Returns the upload's handle."""
+    if not self.cuda:
+      host = [np.empty(s, dtype=np.float32) for s in self.shapes]
+      rows = fill(host)
+      return [torch.from_numpy(h[:rows]) for h in host]
+    slot = self._slots[self._count % 2]
+    self._count += 1
+    if slot.copied is not None:
+      slot.copied.synchronize()  # the pinned buffer is free again
+    slot.rows = fill([h.numpy() for h in slot.host])
+    with torch.cuda.stream(self._copies):
+      if slot.consumed is not None:
+        self._copies.wait_event(slot.consumed)  # nothing reads it any more
+      for dev, host in zip(slot.dev, slot.host):
+        dev[:slot.rows].copy_(host[:slot.rows], non_blocking=True)
+      slot.copied = torch.cuda.Event()
+      slot.copied.record(self._copies)
+    return slot
+
+  def receive(self, handle):
+    """The uploaded device tensors, the current stream ordered after their
+    copy."""
+    if not self.cuda:
+      return handle
+    self._compute.wait_event(handle.copied)
+    return [dev[:handle.rows] for dev in handle.dev]
+
+  def release(self, handle):
+    """Marks the upload's device buffers free once the work queued so far
+    on the current stream is done."""
+    if self.cuda:
+      handle.consumed = torch.cuda.Event()
+      handle.consumed.record(self._compute)
 
 
 def run_stream_driver(stream: HostBatchStream, *, device, run_slice, state,
@@ -231,45 +298,25 @@ def run_stream_driver(stream: HostBatchStream, *, device, run_slice, state,
   Returns:
     The final state.
   """
-  device = torch.device(device)
-  cuda = device.type == 'cuda'
-  if cuda:
-    features = stream.aug_t.shape[0]
-    slots = [_Slot((slice_steps, features, stream.batch_size),
-                   (slice_steps, stream.batch_size), device)
-             for _ in range(2)]
-    copies = torch.cuda.Stream(device)
-    compute = torch.cuda.current_stream(device)
-  k = 0
+  features = stream.aug_t.shape[0]
+  uploads = HostUploads([(slice_steps, features, stream.batch_size),
+                         (slice_steps, stream.batch_size)], device)
   step = start_step
   while step < num_steps:
     chunk = (num_steps - step if checkpoint_steps is None
              else min(checkpoint_steps, num_steps - step))
     chunk_losses = []
     for slice_step, s in slice_bounds(step, chunk, slice_steps):
-      if cuda:
-        slot = slots[k % 2]
-        if slot.copied is not None:
-          slot.copied.synchronize()  # the pinned buffer is free again
-        stream.slice_at(slice_step, s,
-                        out=(slot.host_aug.numpy(), slot.host_y.numpy()))
-        with torch.cuda.stream(copies):
-          if slot.consumed is not None:
-            copies.wait_event(slot.consumed)  # no step reads it any more
-          slot.dev_aug[:s].copy_(slot.host_aug[:s], non_blocking=True)
-          slot.dev_y[:s].copy_(slot.host_y[:s], non_blocking=True)
-          slot.copied = torch.cuda.Event()
-          slot.copied.record(copies)
-        compute.wait_event(slot.copied)
-        aug, y = slot.dev_aug[:s], slot.dev_y[:s]
-      else:
-        aug, y = (torch.from_numpy(a) for a in stream.slice_at(slice_step, s))
+
+      def fill(host, slice_step=slice_step, s=s):
+        stream.slice_at(slice_step, s, out=host)
+        return s
+
+      upload = uploads.send(fill)
+      aug, y = uploads.receive(upload)
       state, losses = run_slice(state, aug, y, slice_step)
       chunk_losses.extend(losses)
-      if cuda:
-        slot.consumed = torch.cuda.Event()
-        slot.consumed.record(compute)
-      k += 1
+      uploads.release(upload)
     step += chunk
     on_chunk(state, chunk_losses, step)
   return state

@@ -21,9 +21,12 @@ What the port does, and what it does not yet:
 - `predict` (means and exact mixture quantiles) and `likelihood_model` (the
   predictive distribution object of `models/distributions.py`), on the
   'kernel' or 'torch' backend (`inference/backends.py`), row-parallel over
-  the fit's mesh (`mesh_`). They return tensors on the parameters' device.
-  Their streamed form (`stream_chunk_rows`, `stream_cache_bytes`) raises
-  NotImplementedError.
+  the fit's mesh (`mesh_`). They return tensors on the parameters' device;
+  with `stream_chunk_rows` the table streams through the device in chunks
+  of that many rows (`inference/predict_stream.py`) and they return CPU
+  tensors, bit for bit the in-memory ones. `stream_cache_bytes` is
+  accepted for the JAX package's signature and ignored: the streamed
+  predict keeps no device cache.
 - `params_` carries the JAX package's group shape: (mesh size, E / size)
   when the mesh's size divides E, else (1, E). `save` writes the mesh's
   extents as `fit_mesh`; `load` rebuilds the mesh when their product is the
@@ -58,15 +61,6 @@ def _group_shape(ensemble_size: int, mesh=None) -> tuple[int, int]:
   if ensemble_size % num_devices == 0:
     return (num_devices, ensemble_size // num_devices)
   return (1, ensemble_size)
-
-
-def _check_in_memory(stream_chunk_rows, stream_cache_bytes):
-  """Raises NotImplementedError unless both streaming arguments are None."""
-  if stream_chunk_rows is not None or stream_cache_bytes is not None:
-    raise NotImplementedError(
-        'The streamed predict (stream_chunk_rows, stream_cache_bytes) is not '
-        'ported to PyTorch yet (ROADMAP.md, queue 1 item 13).'
-    )
 
 
 class BayesianNeuralFieldEstimator:
@@ -258,21 +252,24 @@ class BayesianNeuralFieldEstimator:
         root-finding.
       backend: 'auto' (the CUDA kernels when `params_` live on a CUDA
         device, plain PyTorch on the CPU) | 'torch' | 'kernel'.
-      stream_chunk_rows: the JAX package's streamed predict; only None (the
-        in-memory predict) is ported.
-      stream_cache_bytes: the streamed predict's cache budget; only None.
+      stream_chunk_rows: None (the table on the device at once), or the
+        rows of a chunk of the streamed predict: the table stays on the
+        host, device memory is O(chunk), and the results are CPU tensors,
+        bit for bit the in-memory ones (the approximate quantiles to within
+        rounding).
+      stream_cache_bytes: accepted for the JAX package's signature and
+        ignored (the streamed predict keeps no device cache).
 
     Returns:
-      (means, quantiles) as tensors on the device of `params_`: means has
-      the ensemble leading dims `(num_devices, ensemble_size // num_devices,
-      len(table))`; each quantile tensor has length `len(table)`. A fit
+      (means, quantiles) as tensors on the device of `params_` (streamed,
+      the CPU): means has the ensemble leading dims `(num_devices,
+      ensemble_size // num_devices, len(table))`; each quantile tensor has
+      length `len(table)`. A fit
       over a mesh predicts over it too (row-parallel, `mesh_`).
 
     Raises:
       ValueError: if the estimator is unfitted.
-      NotImplementedError: for a streamed predict.
     """
-    _check_in_memory(stream_chunk_rows, stream_cache_bytes)
     self._require_fitted('predict with')
     test_data = self.data_handler.get_test(table)
     return predict_lib.predict_bnf(
@@ -285,6 +282,8 @@ class BayesianNeuralFieldEstimator:
         approximate_quantiles=approximate_quantiles,
         backend=backend,
         mesh=self.mesh_,
+        stream_chunk_rows=stream_chunk_rows,
+        stream_cache_bytes=stream_cache_bytes,
     )
 
   def likelihood_model(self, table, backend='auto', stream_chunk_rows=None,
@@ -294,20 +293,19 @@ class BayesianNeuralFieldEstimator:
     Args:
       table: DataFrame of new field locations (target column optional).
       backend: 'auto' | 'torch' | 'kernel', as for :meth:`predict`.
-      stream_chunk_rows: as for :meth:`predict`; only None.
-      stream_cache_bytes: as for :meth:`predict`; only None.
+      stream_chunk_rows: as for :meth:`predict`: streamed, the parameters
+        are CPU tensors.
+      stream_cache_bytes: as for :meth:`predict`.
 
     Returns:
       An `Independent` (`models/distributions.py`) over the rows, wrapping
       a `Normal` or the count distribution of `count_obs_dist`, whose
       parameters carry the ensemble axes of `params_` and live on their
-      device.
+      device (streamed, the CPU).
 
     Raises:
       ValueError: if the estimator is unfitted.
-      NotImplementedError: for a streamed likelihood model.
     """
-    _check_in_memory(stream_chunk_rows, stream_cache_bytes)
     self._require_fitted('build the likelihood model of')
     test_data = self.data_handler.get_test(table)
     fp = predict_lib.forecast_params_bnf(
@@ -318,6 +316,8 @@ class BayesianNeuralFieldEstimator:
         ensemble_dims=self._ensemble_dims,
         backend=backend,
         mesh=self.mesh_,
+        stream_chunk_rows=stream_chunk_rows,
+        stream_cache_bytes=stream_cache_bytes,
     )
     if likelihoods.LikelihoodDist(self.observation_model) == (
         likelihoods.LikelihoodDist.NORMAL):

@@ -3,7 +3,7 @@
 CUDA card.
 
     python3 bench_torch.py [--cells main,widths,sst,nb,vi] [--repeats 5]
-                           [--seed 0]
+                           [--seed 0] [--peak-rows 0]
 
 Run from the root of a checkout on a machine with an NVIDIA card and nvcc
 (the 'kernel' backend builds the port's CUDA kernels at first use). It
@@ -19,6 +19,13 @@ then one JSON line per leg (a cell on one backend and precision):
   (pandas included), 10 calls: p50, p90, min, max and every call;
 - the leg's backend, precision, width, rows, members, batch size, and the
   card's name and power limit.
+
+With `--peak-rows N` it then prints one more line, `cell: "peak"`: main's
+model on 'kernel' ('f32', fitted 1 epoch on its table) predicting N rows of
+the same generator in memory, once to warm up and once measured: the
+predict's peak device memory above what was allocated before it
+(`torch.cuda.max_memory_allocated` after `reset_peak_memory_stats`) and its
+ms.
 
 On 'kernel' every timed step must launch K1 once and every predict K2 once
 per 4,096-row chunk (the launch counters of `ops/fused_mlp.py`); on 'torch'
@@ -308,6 +315,27 @@ def run_leg(leg, repeats, seed, device, card):
   }
 
 
+def predict_peak(rows, seed, device, card):
+  """The `--peak-rows` line (module docstring)."""
+  device = torch.device(device)
+  leg = CELLS['main'][0]
+  est = make_estimator(leg)
+  est.fit(make_table(leg, seed), seed, ensemble_size=leg.members,
+          learning_rate=leg.learning_rate, num_epochs=1, backend=leg.backend,
+          device=device, precision=leg.precision)
+  table = hourly_table(rows, seed)
+  timed_predict(leg, est, table, device)
+  _sync(device)
+  base = torch.cuda.memory_allocated(device)
+  torch.cuda.reset_peak_memory_stats(device)
+  ms, launches = timed_predict(leg, est, table, device)
+  peak = torch.cuda.max_memory_allocated(device) - base
+  _check_launches(leg, 'K2', launches, math.ceil(rows / PREDICT_CHUNK))
+  return {'cell': 'peak', 'backend': leg.backend,
+          'precision': leg.precision, 'rows': rows, 'members': leg.members,
+          'predict_peak_mib': peak / 2**20, 'predict_ms': ms, 'card': card}
+
+
 def card_line():
   """The card's `name, power.limit`, as nvidia-smi prints them."""
   return subprocess.run(
@@ -322,6 +350,9 @@ def main(argv=None):
                       help=f'Comma-separated subset of {",".join(CELLS)}.')
   parser.add_argument('--repeats', type=int, default=DEFAULT_REPEATS)
   parser.add_argument('--seed', type=int, default=0)
+  parser.add_argument('--peak-rows', type=int, default=0,
+                      help='Rows of the in-memory predict whose peak device '
+                      'memory is measured (0: none).')
   args = parser.parse_args(argv)
   cells = args.cells.split(',')
   unknown = sorted(set(cells) - set(CELLS))
@@ -339,6 +370,9 @@ def main(argv=None):
     for leg in CELLS[cell]:
       print(json.dumps(run_leg(leg, args.repeats, args.seed, 'cuda', card)),
             flush=True)
+  if args.peak_rows:
+    print(json.dumps(predict_peak(args.peak_rows, args.seed, 'cuda', card)),
+          flush=True)
   return 0
 
 

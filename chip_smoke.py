@@ -134,6 +134,22 @@ CUDA toolkit (nvcc). It imports nothing of JAX. Phases, one line each:
    16 MiB; member-steps/s of 3 minibatch epochs on the card's rows and
    streamed ('f32', 'bf16', twice in turns), the peaks, and the ms of one
    checkpoint save of the full-width MAP state.
+16. The streamed predict (`inference/predict_stream.py`), run before phase
+   13's line: (a) phase 5's model (64 members, width 512, depth 2, F = 49)
+   on the 38,096-row table in host chunks of 8,192 rows (5 chunks, a
+   ragged tail), on 'kernel' and 'torch': the means and three exact
+   quantiles bit for bit the in-memory predict's, and the streamed
+   `likelihood_model`'s parameters the in-memory ones; phase 8's NB fit
+   and phase 9's ZINB VI draws on its first 6,001 rows in chunks of 4,096:
+   the same, their predicts on 'kernel' only (the count search is the same
+   PyTorch on either backend); one K2 call a forward chunk; the
+   approximate quantiles to rtol 1e-6 / atol 1e-7 with the means bit for
+   bit; (b) `cli/stream_scale_run.py` at 2,000,000 rows (a streamed fit
+   and predict of 8 members), both its identity checks true; (c) the
+   streamed predict's peak device memory in chunks of 65,536 rows over
+   2,000,000 rows within 16 MiB of its peak over 131,072, beside the
+   in-memory predict's; rows/s streamed and in memory at 38,096 and
+   2,000,000 rows.
 13. A JSON line of the kernels, with each one's time, its plain version's,
    the least time the card could take for the same products and bytes
    (`bound_ms`) and the PyTorch call that computes the same function, if
@@ -145,6 +161,9 @@ Any failed check raises, and the script exits non-zero with no result.
 
 import argparse
 import concurrent.futures
+import contextlib
+import dataclasses
+import io
 import json
 import math
 import os
@@ -163,7 +182,9 @@ import torch.profiler
 import bayesnf_torch
 from bayesnf_torch.cli import evaluate
 from bayesnf_torch.cli import registry
+from bayesnf_torch.cli import stream_scale_run
 from bayesnf_torch.inference import map as map_lib
+from bayesnf_torch.inference import predict as predict_lib
 from bayesnf_torch.inference import vi as vi_lib
 from bayesnf_torch.models import field as field_lib
 from bayesnf_torch.models import likelihoods
@@ -1044,6 +1065,18 @@ def mixture_cdf_residual(x, means, scales, q):
   return (torch.special.ndtr(z).mean(dim=(0, 1)) - q).abs().max().item()
 
 
+def random_params(config, table, seed):
+  """An estimator's `params_`, (1, MEMBERS, ...) on the card, drawn by
+  `init_params` from `seed` (the noise scale from the table's targets)."""
+  generator = torch.Generator(device='cuda').manual_seed(seed)
+  log_noise = math.log(float(np.std(table['y'])) / 2)
+  members = [field_lib.init_params(config, generator, 'cuda', log_noise)
+             for _ in range(MEMBERS)]
+  return tuple(
+      torch.stack(leaves).reshape((1, MEMBERS) + tuple(leaves[0].shape))
+      for leaves in zip(*members))
+
+
 def check_main_path(seed):
   """Phase 5; returns the kernel launches counted while it drove the path."""
   table = bench_table(seed)
@@ -1051,13 +1084,7 @@ def check_main_path(seed):
   train = est.data_handler.get_train(table)
   config = est._field_config(train.shape)  # pylint: disable=protected-access
   assert config.encoded_dim == 49, config.encoded_dim
-  generator = torch.Generator(device='cuda').manual_seed(seed)
-  log_noise = math.log(float(np.std(table['y'])) / 2)
-  members = [field_lib.init_params(config, generator, 'cuda', log_noise)
-             for _ in range(MEMBERS)]
-  est.params_ = tuple(
-      torch.stack(leaves).reshape((1, MEMBERS) + tuple(leaves[0].shape))
-      for leaves in zip(*members))
+  est.params_ = random_params(config, table, seed)
 
   with tempfile.TemporaryDirectory() as tmp:
     path = os.path.join(tmp, 'estimator.npz')
@@ -1376,7 +1403,7 @@ def timed_predict(est, table, backend, quantiles=QUANTILES):
 
 def check_count_path(seed):
   """Phase 8; returns (K1 launches, K2 launches) counted while it drove the
-  NB fits and predicts."""
+  NB fits and predicts, and the 'kernel' fit."""
   table = count_table(seed)
   nb = likelihoods.LikelihoodDist.NB
   fits = {}
@@ -1429,12 +1456,12 @@ def check_count_path(seed):
         quantile_rows_off='/'.join(str(r) for r in rows_off),
         quantile_medians='/'.join(
             f'{q.median().item():g}' for q in quantiles))
-  return k1_launches, k2_launches
+  return k1_launches, k2_launches, est
 
 
 def check_count_vi_path(seed):
   """Phase 9; returns (K1 launches, K2 launches) of the ZINB VI epoch and its
-  predict."""
+  predict, and the 'kernel' fit."""
   table = count_table(seed)
   steps = len(table) // BATCH
   fits = {}
@@ -1478,7 +1505,7 @@ def check_count_vi_path(seed):
         k2_launches=k2_launches, predict_ms_kernel=f'{predict_ms:.2f}',
         quantile_medians='/'.join(
             f'{q.median().item():g}' for q in quantiles))
-  return k1_launches, k2_launches
+  return k1_launches, k2_launches, est
 
 
 def check_bf16_path(seed, f32_losses):
@@ -1551,12 +1578,11 @@ def check_bf16_path(seed, f32_losses):
 
 
 def mesh_predict_launches(rows, mesh):
-  """K2 calls of a row-parallel predict: one per non-empty slice of each
-  chunk (CHUNK rounded up to a multiple of the mesh's size)."""
+  """K2 calls of a row-parallel predict: one per slice of each chunk (CHUNK
+  rounded up to a multiple of the mesh's size; the rows padded to whole
+  chunks)."""
   chunk = -(-CHUNK // mesh.size) * mesh.size
-  local = chunk // mesh.size
-  return sum(1 for lo in range(0, rows, chunk) for k in range(mesh.size)
-             if lo + k * local < rows)
+  return -(-rows // chunk) * mesh.size
 
 
 def check_mesh_path(seed, f32_full_losses):
@@ -1822,7 +1848,8 @@ MINI_INFERENCE = {
 }
 TEST_DATA = os.path.join(REPO, 'tests', 'test_data')
 LOG_KEYS = ['dataset', 'series_id', 'runtime', 'objective', 'metrics',
-            'dataset_config', 'model_config', 'inference_config']
+            'crps_draws', 'dataset_config', 'model_config',
+            'inference_config']
 HARNESS_TEST_ROWS = 4096
 HARNESS_EPOCHS = 3
 
@@ -1866,6 +1893,7 @@ def check_artifacts(stem, rows, steps, particles):
   with open(stem + '.log.json') as f:
     log = json.load(f)
   assert list(log) == LOG_KEYS, list(log)
+  assert log['crps_draws'] == 'single', log['crps_draws']
   assert log['runtime'] > 0
   for region in ('train', 'test'):
     assert sorted(log['metrics'][region]) == ['crps', 'mae', 'rmse']
@@ -2257,6 +2285,203 @@ def check_long_fits(seed):
   return int(launches[0] - launches[1]), int(launches[1])
 
 
+# Phase 16: the streamed predict. Main's table in host chunks of 8,192 rows
+# (5 chunks, a ragged tail of 5,328); the count models on fewer rows, a
+# row count that is not a multiple of 4, in 2 chunks of 4,096 (a count
+# search takes seconds a chunk whatever the rows: it is launch-bound); the
+# scale run at 2,000,000 rows; the memory envelope in chunks of 65,536 rows
+# at two table sizes that both fill whole chunks.
+STREAM_ROWS = 8_192
+COUNT_STREAM_ROWS = 6_001
+COUNT_STREAM_CHUNK = 4_096
+SCALE_ROWS = 2_000_000
+PEAK_CHUNK = 65_536
+PEAK_ROWS = (131_072, 2_000_000)
+# The approximate quantiles: the moment-matched Normal's chain of means and
+# a square root, held to rounding (the JAX package's bound).
+APPROX_TOL = dict(rtol=1e-6, atol=1e-7)
+
+
+def assert_same_predictions(got, want, what):
+  """Means and every quantile bit for bit (the streamed ones on the CPU)."""
+  assert got[0].device.type == 'cpu', (what, got[0].device)
+  assert torch.equal(got[0], want[0].cpu()), what
+  assert len(got[1]) == len(want[1]), what
+  for i, (g, w) in enumerate(zip(got[1], want[1])):
+    assert torch.equal(g, w.cpu()), (what, i)
+
+
+def dist_tensors(dist):
+  """The parameters of a likelihood model (an `Independent`)."""
+  base = dist.distribution
+  return [getattr(base, f.name) for f in dataclasses.fields(base)]
+
+
+def k2_counted(expected, fn):
+  """fn()'s result, asserting it launched K2 `expected` times."""
+  before = fused_mlp.fused_field_mlp_t.launches
+  out = fn()
+  launched = fused_mlp.fused_field_mlp_t.launches - before
+  assert launched == expected, (launched, expected)
+  return out
+
+
+def timed(fn):
+  """(fn()'s result, host ms up to a synchronize)."""
+  torch.cuda.synchronize()
+  start = time.perf_counter()
+  out = fn()
+  torch.cuda.synchronize()
+  return out, (time.perf_counter() - start) * 1e3
+
+
+def check_stream_identity(est, table, stream_rows, what, fields,
+                          predict_backends=('kernel', 'torch')):
+  """Phase 16 (a) for one estimator: the streamed likelihood model on
+  'kernel' and 'torch', and the streamed predict on `predict_backends`,
+  against the in-memory ones, bit for bit; K2 once per chunk on 'kernel'.
+  Writes the predicts' ms into `fields`."""
+  chunks = -(-len(table) // CHUNK)
+  for backend in ('kernel', 'torch'):
+    launches = chunks if backend == 'kernel' else 0
+    lm_want = k2_counted(launches, lambda: est.likelihood_model(  # pylint: disable=cell-var-from-loop
+        table, backend=backend))  # pylint: disable=cell-var-from-loop
+    lm_got = k2_counted(launches, lambda: est.likelihood_model(  # pylint: disable=cell-var-from-loop
+        table, backend=backend, stream_chunk_rows=stream_rows))  # pylint: disable=cell-var-from-loop
+    for g, w in zip(dist_tensors(lm_got), dist_tensors(lm_want)):
+      assert g.device.type == 'cpu' and torch.equal(g, w.cpu()), (
+          what, backend, 'likelihood model')
+    if backend not in predict_backends:
+      continue
+    want, ms = timed(lambda: k2_counted(launches, lambda: est.predict(  # pylint: disable=cell-var-from-loop
+        table, quantiles=QUANTILES, backend=backend)))  # pylint: disable=cell-var-from-loop
+    fields[f'{what}_{backend}_ms_in_memory'] = f'{ms:.2f}'
+    got, ms = timed(lambda: k2_counted(launches, lambda: est.predict(  # pylint: disable=cell-var-from-loop
+        table, quantiles=QUANTILES, backend=backend,  # pylint: disable=cell-var-from-loop
+        stream_chunk_rows=stream_rows)))
+    assert_same_predictions(got, want, (what, backend))
+    fields[f'{what}_{backend}_ms_streamed'] = f'{ms:.2f}'
+
+
+def streamed_peak(x, params, config, stream=True):
+  """(peak device bytes above what was allocated before, ms) of a predict
+  of `x` (streamed in chunks of PEAK_CHUNK rows, or in memory)."""
+  kwargs = dict(stream_chunk_rows=PEAK_CHUNK) if stream else {}
+  torch.cuda.synchronize()
+  base = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  (means, quantiles), ms = timed(lambda: predict_lib.predict_bnf(
+      x, 'NORMAL', params, config, QUANTILES, backend='kernel', **kwargs))
+  peak = torch.cuda.max_memory_allocated() - base
+  assert all(bool(torch.isfinite(t).all()) for t in (means, *quantiles))
+  return peak, ms
+
+
+def check_streamed_predict(seed, nb_est, zinb_est):
+  """Phase 16; returns the (K1, K2) launches counted while it drove the
+  streamed predicts, the in-memory ones they are held to, and the scale
+  run's fits."""
+  torch.cuda.synchronize()
+  fused_mlp.fused_train.launches = 0
+  fused_mlp.fused_field_mlp_t.launches = 0
+  fields = {}
+  # (a) Bit for bit: main's model at full width, then the count models.
+  table = bench_table(seed)
+  est = bench_estimator()
+  train = est.data_handler.get_train(table)
+  config = est._field_config(train.shape)  # pylint: disable=protected-access
+  est.params_ = random_params(config, table, seed)
+  check_stream_identity(est, table, STREAM_ROWS, 'normal', fields)
+  chunks = -(-len(table) // CHUNK)
+  want = est.predict(table, quantiles=QUANTILES, approximate_quantiles=True,
+                     backend='kernel')
+  got = est.predict(table, quantiles=QUANTILES, approximate_quantiles=True,
+                    backend='kernel', stream_chunk_rows=STREAM_ROWS)
+  assert torch.equal(got[0], want[0].cpu())
+  approx_err = 0.0
+  for g, w in zip(got[1], want[1]):
+    torch.testing.assert_close(g, w.cpu(), **APPROX_TOL)
+    approx_err = max(approx_err, (g - w.cpu()).abs().max().item())
+  # The count models' search is the same PyTorch on either backend, which
+  # decides only the forecast parameters: their predicts run on 'kernel'.
+  counts = count_table(seed).iloc[:COUNT_STREAM_ROWS]
+  check_stream_identity(nb_est, counts, COUNT_STREAM_CHUNK, 'nb', fields,
+                        predict_backends=('kernel',))
+  check_stream_identity(zinb_est, counts, COUNT_STREAM_CHUNK, 'zinb', fields,
+                        predict_backends=('kernel',))
+  # On 'kernel': in-memory and streamed predicts and likelihood models, and
+  # main's approximate quantiles in memory and streamed.
+  count_chunks = -(-len(counts) // CHUNK)
+  expected_k2 = chunks * 6 + 2 * count_chunks * 4
+  assert fused_mlp.fused_field_mlp_t.launches == expected_k2, (
+      fused_mlp.fused_field_mlp_t.launches, expected_k2)
+  rates = {key: len(table) / float(fields[f'normal_kernel_ms_{key}']) * 1e3
+           for key in ('in_memory', 'streamed')}
+
+  # (b) The scale run: a streamed fit and predict at 2,000,000 rows.
+  before = np.array([fused_mlp.fused_train.launches,
+                     fused_mlp.fused_field_mlp_t.launches])
+  with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.redirect_stdout(io.StringIO()):
+      scale = stream_scale_run.main([
+          '--rows', str(SCALE_ROWS), '--workdir', tmp,
+          '--json-out', os.path.join(tmp, 'scale.json')])
+  assert scale['fit_losses_bit_invariant_to_slice_size']
+  assert scale['predict_bit_identical_on_4096_sampled_rows']
+  scale_steps = 2 * scale['streamed_fit']['epochs'] * (
+      SCALE_ROWS // scale['streamed_fit']['batch_size'])
+  assert tuple(np.array([fused_mlp.fused_train.launches,
+                         fused_mlp.fused_field_mlp_t.launches]) - before) == (
+                             scale_steps, 2 * -(-SCALE_ROWS // CHUNK))
+
+  # (c) Memory: the streamed predict's peak is flat in the rows.
+  with tempfile.TemporaryDirectory() as tmp:
+    aug, _ = memmap_rows(config, PEAK_ROWS[-1], seed, tmp)
+    x = aug[:, :config.num_inputs]
+    peaks, ms = {}, {}
+    for rows in PEAK_ROWS:
+      peaks[rows], ms[rows] = streamed_peak(x[:rows], est.params_, config)
+    assert peaks[PEAK_ROWS[-1]] - peaks[PEAK_ROWS[0]] < MEMORY_GAP_BYTES, (
+        peaks)
+    memory_peak, memory_ms = streamed_peak(np.asarray(x), est.params_,
+                                           config, stream=False)
+    del aug, x
+  big = PEAK_ROWS[-1]
+  launches = (fused_mlp.fused_train.launches,
+              fused_mlp.fused_field_mlp_t.launches)
+  assert launches[1] - before[1] == 2 * -(-SCALE_ROWS // CHUNK) + sum(
+      -(-r // CHUNK) for r in (*PEAK_ROWS, big)), launches
+  mib = 2**20
+  phase('16 streamed-predict', rows=len(table), members=MEMBERS,
+        stream_chunk_rows=STREAM_ROWS, host_chunks=-(-len(table) // STREAM_ROWS),
+        identity=('normal predict and likelihood model x kernel/torch, '
+                  'nb/zinb predict x kernel and likelihood model x '
+                  'kernel/torch: bit-exact'),
+        count_rows=len(counts), approx_max_abs_err=f'{approx_err:.3e}',
+        **fields,
+        rows_per_s_38096='/'.join(f'{rates[k]:.0f}' for k in (
+            'in_memory', 'streamed')),
+        scale_rows=SCALE_ROWS,
+        scale_fit_s=f'{scale["streamed_fit"]["wall_s"]:.2f}',
+        scale_fit_member_steps_per_s=(
+            f'{scale["streamed_fit"]["member_steps_per_sec"]:.2f}'),
+        scale_predict_s=f'{scale["streamed_predict"]["wall_s"]:.2f}',
+        scale_predict_rows_per_s=(
+            f'{scale["streamed_predict"]["rows_per_sec"]:.0f}'),
+        scale_peak_mib_fit=(
+            f'{scale["streamed_fit"]["peak_device_bytes"] / mib:.2f}'),
+        scale_peak_mib_predict=(
+            f'{scale["streamed_predict"]["peak_device_bytes"] / mib:.2f}'),
+        scale_identity='fit slices/4096 rows: bit-exact',
+        peak_chunk=PEAK_CHUNK,
+        peak_mib_streamed='/'.join(f'{peaks[r] / mib:.2f}' for r in PEAK_ROWS),
+        peak_mib_in_memory=f'{memory_peak / mib:.2f}',
+        rows_per_s_2000000='/'.join(f'{big / t * 1e3:.0f}' for t in (
+            memory_ms, ms[big])),
+        k1_launches=launches[0], k2_launches=launches[1])
+  return launches
+
+
 def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -2297,8 +2522,9 @@ def main(argv=None):
   launches = check_main_path(args.seed)
   train_launches, f32_losses = check_training_path(args.seed)
   vi_k1_launches, vi_k2_launches, f32_losses['vi'] = check_vi_path(args.seed)
-  count_k1_launches, count_k2_launches = check_count_path(args.seed)
-  count_vi_k1_launches, count_vi_k2_launches = check_count_vi_path(args.seed)
+  count_k1_launches, count_k2_launches, nb_est = check_count_path(args.seed)
+  count_vi_k1_launches, count_vi_k2_launches, zinb_est = check_count_vi_path(
+      args.seed)
   bf16_launches = check_bf16_path(args.seed, f32_losses)
   mesh_k1_launches, mesh_k2_launches = check_mesh_path(args.seed,
                                                        f32_losses['full'])
@@ -2306,6 +2532,7 @@ def main(argv=None):
   field_launches = check_differentiable_field(args.seed)
   harness_k1, harness_k1_bf16, harness_k2 = check_harness(args.seed)
   long_k1, long_k1_bf16 = check_long_fits(args.seed)
+  stream_k1, stream_k2 = check_streamed_predict(args.seed, nb_est, zinb_est)
 
   def case_fields(case):
     """(max abs error, kernel ms, plain ms, bound) as JSON fields."""
@@ -2337,7 +2564,7 @@ def main(argv=None):
       'launches': (launches + vi_k2_launches + count_k2_launches
                    + count_vi_k2_launches + mesh_k2_launches
                    + field_launches['fused_field_mlp_t.launches']
-                   + harness_k2),
+                   + harness_k2 + stream_k2),
       'max_abs_err': max_err,
       'ms': ms,
       'plain_ms': plain_ms,
@@ -2355,7 +2582,7 @@ def main(argv=None):
       'launches': (train_launches + vi_k1_launches + count_k1_launches
                    + count_vi_k1_launches + mesh_k1_launches
                    + field_launches['fused_train.launches'] + harness_k1
-                   + long_k1),
+                   + long_k1 + stream_k1),
       'max_abs_err': max(train_cases['main'][0], train_cases['grouped'][0]),
       'ms': train_cases['main'][1],
       'plain_ms': train_cases['main'][2],
@@ -2372,7 +2599,7 @@ def main(argv=None):
       'launches_by_likelihood': {
           'NORMAL': (train_launches + vi_k1_launches + mesh_k1_launches
                      + field_launches['fused_train.launches'] + harness_k1
-                     + long_k1),
+                     + long_k1 + stream_k1),
           'NB': count_k1_launches, 'ZINB': count_vi_k1_launches},
   }, {
       # K1 at precision 'bf16': the hidden GEMMs on the tensor cores (wgmma,

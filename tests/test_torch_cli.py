@@ -10,8 +10,8 @@ on the CPU.
 - NaN targets with train/test CSVs that reuse index labels
   (`test_cli.py`'s case), `data_devices` over a repeated-'cpu' mesh, the
   flags of `main` (the streamed fit's among them), the streamed predict's
-  flags and arguments, which are not ported, the registry copy, and the
-  profiling hooks.
+  flags (its `pred.csv` bit for bit the in-memory run's, its CRPS draws
+  chunked) and arguments, the registry copy, and the profiling hooks.
 """
 
 import json
@@ -237,24 +237,63 @@ def test_main_streams_the_fit(tmp_path, monkeypatch):
     assert json.load(f)['inference_config']['stream_chunk_steps'] == 3
 
 
+def _main_args(output_dir, *flags):
+  """`main`'s arguments for the chickenpox-8 MAP experiment on the CPU."""
+  return ['--dataset', 'chickenpox', '--data_root', DATA_ROOT,
+          '--output_dir', str(output_dir), '--start_id', '8', '--stop_id',
+          '9', '--device', 'cpu', *flags]
+
+
+# Two epochs of two particles: seconds on the CPU.
+SMALL_RUN = ('--num_epochs', '2', '--num_particles', '2')
+
+
+@pytest.fixture(scope='module')
+def small_main_run(tmp_path_factory):
+  """The output directory of a small in-memory run of `main`."""
+  out = tmp_path_factory.mktemp('in-memory')
+  evaluate.main(_main_args(out, *SMALL_RUN))
+  return out
+
+
 @pytest.mark.parametrize('flag', [
     ['--stream_chunk_steps', '4'], ['--stream_member_remix'],
     ['--stream_chunk_rows', '128'], ['--stream_cache_bytes', '0']])
-def test_stream_flags_raise_not_implemented(tmp_path, flag):
-  """The streamed predict's flags raise NotImplementedError; the streamed
-  fit's reach `fit`, which refuses what the JAX package refuses before any
-  step: chickenpox's MAP stanza is full batch, and a remix needs
-  streaming."""
-  error, match = {
+def test_stream_flags_raise_not_implemented(tmp_path, flag, request):
+  """The streamed fit's flags reach `fit`, which refuses what the JAX
+  package refuses before any step: chickenpox's MAP stanza is full batch,
+  and a remix needs streaming. The streamed predict's flags run:
+  `--stream_chunk_rows` streams the predict and the CRPS draws (`pred.csv`
+  bit for bit the in-memory run's, `log.json` says 'chunked'), and a cache
+  budget alone leaves the in-memory run as it was."""
+  fit_errors = {
       '--stream_chunk_steps': (ValueError, 'requires minibatch'),
       '--stream_member_remix': (ValueError, 'host-streaming'),
-  }.get(flag[0], (NotImplementedError, 'queue 1 item 13'))
-  with pytest.raises(error, match=match):
-    evaluate.main([
-        '--dataset', 'chickenpox', '--data_root', DATA_ROOT, '--output_dir',
-        str(tmp_path), '--start_id', '8', '--stop_id', '9', '--device', 'cpu',
-        *flag])
-  assert not os.listdir(tmp_path)
+  }
+  if flag[0] in fit_errors:
+    error, match = fit_errors[flag[0]]
+    with pytest.raises(error, match=match):
+      evaluate.main(_main_args(tmp_path, *flag))
+    assert not os.listdir(tmp_path)
+    return
+  in_memory = request.getfixturevalue('small_main_run')
+  evaluate.main(_main_args(tmp_path, *SMALL_RUN, *flag))
+  stem = 'bnf-map.chickenpox.8'
+  with open(tmp_path / f'{stem}.pred.csv') as got, open(
+      in_memory / f'{stem}.pred.csv') as want:
+    assert got.read() == want.read()
+  with open(tmp_path / f'{stem}.log.json') as got, open(
+      in_memory / f'{stem}.log.json') as want:
+    log, want_log = json.load(got), json.load(want)
+  assert log['inference_config'][flag[0][2:]] == int(flag[1])
+  assert want_log['crps_draws'] == 'single'
+  if flag[0] == '--stream_chunk_rows':
+    assert log['crps_draws'] == 'chunked'
+    for region in ('train', 'test'):
+      assert np.isfinite(log['metrics'][region]['crps'])
+  else:
+    assert log['crps_draws'] == 'single'
+    assert log['metrics'] == want_log['metrics']
 
 
 def test_predict_and_likelihood_model_take_the_stream_arguments():
@@ -266,16 +305,20 @@ def test_predict_and_likelihood_model_take_the_stream_arguments():
              standardize=['latitude', 'longitude'])
   model = spatiotemporal.BayesianNeuralFieldMAP(**cfg).fit(
       table, 0, ensemble_size=2, num_epochs=1, device='cpu')
-  means, _ = model.predict(table, stream_chunk_rows=None,
-                           stream_cache_bytes=None)
+  means, quantiles = model.predict(table, stream_chunk_rows=None,
+                                   stream_cache_bytes=None)
   dist = model.likelihood_model(table, stream_chunk_rows=None,
                                 stream_cache_bytes=None)
   assert tuple(means.shape) == (1, 2, 100) == tuple(dist.mean().shape)
-  for kwargs in ({'stream_chunk_rows': 1024}, {'stream_cache_bytes': 0}):
-    with pytest.raises(NotImplementedError, match='queue 1 item 13'):
-      model.predict(table, **kwargs)
-    with pytest.raises(NotImplementedError, match='queue 1 item 13'):
-      model.likelihood_model(table, **kwargs)
+  # Streamed (a budget alone is ignored): the same values, bit for bit.
+  for kwargs in ({'stream_chunk_rows': 1024}, {'stream_cache_bytes': 0},
+                 {'stream_chunk_rows': 32, 'stream_cache_bytes': 1 << 20}):
+    got_means, got_quantiles = model.predict(table, **kwargs)
+    assert torch.equal(got_means, means)
+    assert all(torch.equal(g, w) for g, w in zip(got_quantiles, quantiles))
+    got = model.likelihood_model(table, **kwargs)
+    assert torch.equal(got.mean(), dist.mean())
+    assert torch.equal(got.stddev(), dist.stddev())
 
 
 def test_registry_is_the_jax_registry():

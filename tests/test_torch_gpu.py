@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import bayesnf_torch
+from bayesnf_torch.inference import predict
 from bayesnf_torch.models import field
 from bayesnf_torch.ops import fused_mlp
 from bayesnf_torch.ops import mixed
@@ -98,6 +99,30 @@ def test_served_predict_on_cuda_matches_torch_backend(cuda):
   noise = 0.01 + torch.exp(model.params_[0]).max().item()
   for got, want in zip(quantiles, t_quantiles):
     torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-3 * noise)
+
+
+@pytest.mark.gpu
+def test_streamed_predict_on_cuda_kernel_matches_in_memory(cuda):
+  model = bayesnf_torch.BayesianNeuralFieldMAP.load(
+      str(DATA / 'bnf-map.chickenpox.8.port.npz'), device=cuda)
+  table = pd.read_csv(DATA / 'chickenpox.8.train.csv', index_col=0,
+                      parse_dates=['datetime'])
+  features = model.data_handler.get_test(table)
+  config = model._field_config(features.shape)  # pylint: disable=protected-access
+  kwargs = dict(quantiles=(0.5, 0.025, 0.975), chunk_size=32,
+                backend='kernel')
+  want = predict.predict_bnf(features, 'NORMAL', model.params_, config,
+                             **kwargs)
+  before = fused_mlp.fused_field_mlp_t.launches
+  # 100 rows in host chunks of 64: two of two 32-row K2 chunks, the last
+  # 28 rows padding.
+  got = predict.predict_bnf(features, 'NORMAL', model.params_, config,
+                            stream_chunk_rows=64, **kwargs)
+  assert fused_mlp.fused_field_mlp_t.launches == before + 4
+  assert got[0].device.type == 'cpu'
+  assert torch.equal(got[0], want[0].cpu())
+  for g, w in zip(got[1], want[1]):
+    assert torch.equal(g, w.cpu())
 
 
 def _train_inputs(depth, width, n, members, device, seasonal=True,
