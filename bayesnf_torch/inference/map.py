@@ -24,7 +24,7 @@
   by autograd, after the likelihood. The observation model is NORMAL, NB
   or ZINB on both.
 - `fit_map` keeps the `num_splits` host loop over ensemble chunks.
-- A mesh (`parallel/mesh.py`, single process; a device may repeat): the
+- A mesh (`parallel/mesh.py`; in one process a device may repeat): the
   members, padded to a multiple of the 'ens' extent, split into groups,
   each on its row's first device; the rows go into the balanced layout of
   `parallel/minibatch.py`, data shard j of every group on the group's
@@ -38,6 +38,15 @@
   (`minibatch.local_permutation`), or, when the batch does not split evenly
   (the 'torch' backend only), the one-shard global permutation mapped into
   the stored layout. Without a mesh a fit runs on one device: a 1 x 1 mesh.
+- A mesh across ranks (`parallel/distributed.py`): every rank draws the
+  same init, permutations and noise, keeps only the groups and row shards
+  of its own cells, and drives only those cells. A group whose shards live
+  on several ranks gathers every shard's losses and gradients to each of
+  its ranks (`distributed.exchange_shards`), where they are added in shard
+  order as above, so every data rank of the group applies the same Adam
+  update to its own replica, and each cell computes the bits of the
+  single-process mesh of the same layout. The results are gathered on
+  every rank.
 - `precision` ('f32', 'highest' or 'bf16', `ops/mixed.py`) sets the
   products of both backends: on 'torch' every dense layer's product
   (`mixed.matmul_bf16` under 'bf16', as the JAX package's XLA path), on
@@ -74,6 +83,7 @@ from bayesnf_torch.models import likelihoods
 from bayesnf_torch.models import priors
 from bayesnf_torch.ops import fused_mlp
 from bayesnf_torch.ops import mixed
+from bayesnf_torch.parallel import distributed
 from bayesnf_torch.parallel import mesh as mesh_lib
 from bayesnf_torch.parallel import minibatch as minibatch_lib
 from bayesnf_torch.parallel import streaming as streaming_lib
@@ -213,7 +223,7 @@ def as_shards(rows):
   return rows[0] if len(rows) == 1 else (rows,)
 
 
-def sum_over_shards(nll_and_grads, params, shards):
+def sum_over_shards(nll_and_grads, params, shards, exchange=None):
   """`nll_and_grads` of `params` summed over row shards.
 
   Each shard is the arguments after `params` of one call (x_t, seasonal_t,
@@ -221,13 +231,24 @@ def sum_over_shards(nll_and_grads, params, shards):
   the shard's losses and gradients come back to the parameters' device and
   are added in shard order, so the sum does not depend on which device
   finishes first. One shard on the parameters' device is one plain call.
+  Across ranks (`exchange`, from `distributed.shard_exchange`) the shards
+  of the other ranks are None here and `exchange` fetches their results
+  from them before the sum, which is then the same on every rank of the
+  group.
   """
   home = params[0].device
-  total = None
+  results = []
   for shard in shards:
+    if shard is None:
+      results.append(None)
+      continue
     local = tuple(p.to(shard[2].device) for p in params)
     losses, grads = nll_and_grads(local, *shard)
-    losses, grads = losses.to(home), [g.to(home) for g in grads]
+    results.append((losses.to(home), [g.to(home) for g in grads]))
+  if exchange is not None:
+    results = exchange(results)
+  total = None
+  for losses, grads in results:
     total = (losses, grads) if total is None else (
         total[0] + losses, [a + b for a, b in zip(total[1], grads)])
   return total
@@ -240,12 +261,14 @@ def make_losses_and_grads(config, distribution, prior_weight, backend,
   negative log-likelihood of the step's rows (`make_nll_and_grads`, at
   `precision`), plus the prior, added once after the rows' sum. `rows`
   (`as_shards`) is x_t, seasonal_t and y, shared (D, B) or per member
-  (E, D, B), or a sequence of row shards."""
+  (E, D, B), or a sequence of row shards; `exchange` as for
+  `sum_over_shards`."""
   nll_and_grads = make_nll_and_grads(config, distribution, lik_scale, backend,
                                      precision)
 
-  def losses_and_grads(params, *rows):
-    losses, grads = sum_over_shards(nll_and_grads, params, as_shards(rows))
+  def losses_and_grads(params, *rows, exchange=None):
+    losses, grads = sum_over_shards(nll_and_grads, params, as_shards(rows),
+                                    exchange)
     if prior_weight != 0.0:
       prior_losses, prior_grads = _prior_losses_and_grads(
           config, params, prior_weight)
@@ -289,7 +312,8 @@ def batch_rows(rows, data_size, batch_size, perms, group_size):
   """The `(group, step) -> row shards` of one epoch over the shard layout
   `rows` (`minibatch.shard_rows`) with the epoch's `perms` (see `train`):
   the whole shards for a full batch, else each step's per-member batches of
-  `batch_size` rows, gathered on the shards' devices."""
+  `batch_size` rows, gathered on the shards' devices; None for a cell of
+  another rank."""
   shards = len(rows[0])
   if batch_size == data_size:
     return lambda i, k: rows[i]
@@ -301,8 +325,9 @@ def batch_rows(rows, data_size, batch_size, perms, group_size):
     local = batch_size // shards
 
     def local_batch(i, k):
-      return [gather_batch(r.x_t, r.seasonal_t, r.y, members(
-          p, i)[:, k * local:(k + 1) * local].to(r.y.device))
+      return [None if r is None else gather_batch(
+          r.x_t, r.seasonal_t, r.y,
+          members(p, i)[:, k * local:(k + 1) * local].to(r.y.device))
               for r, p in zip(rows[i], perms)]
 
     return local_batch
@@ -317,7 +342,7 @@ def batch_rows(rows, data_size, batch_size, perms, group_size):
     return global_batch
   # A global batch over several shards: each shard gathers the batch's
   # stored positions it holds, and the others weigh 0.
-  local_rows = rows[0][0].y.shape[0]
+  local_rows = minibatch_lib.shard_counts(data_size, shards)[0]
   stored = torch.as_tensor(minibatch_lib.stored_positions(
       data_size, shards), device=keep.device)[keep]
 
@@ -325,6 +350,9 @@ def batch_rows(rows, data_size, batch_size, perms, group_size):
     pos = members(stored, i)[:, k * batch_size:(k + 1) * batch_size]
     out = []
     for j, r in enumerate(rows[i]):
+      if r is None:
+        out.append(None)
+        continue
       at = (pos - j * local_rows).to(r.y.device)
       held = (at >= 0) & (at < local_rows)
       out.append((*gather_batch(r.x_t, r.seasonal_t, r.y,
@@ -337,29 +365,58 @@ def batch_rows(rows, data_size, batch_size, perms, group_size):
 
 def split_groups(leaves, mesh):
   """Leaves with a leading member axis E split into the mesh's ensemble
-  groups: group i, members [i E / ens, (i + 1) E / ens), on the first
-  device of the mesh's row i.
+  groups: group i, members [i E / ens, (i + 1) E / ens), on `mesh.home(i)`
+  (the first device of row i in one process); across ranks None for a
+  group of which this rank holds no cell (`distributed.make_global`).
 
   Raises:
     ValueError: if E is not a multiple of the 'ens' extent.
   """
-  groups = mesh.shape[mesh_lib.ENSEMBLE_AXIS]
-  members = leaves[0].shape[0]
-  if members % groups:
-    raise ValueError(
-        f'{members} members do not split into {groups} ensemble groups; pad '
-        'them to a multiple (`mesh.pad_ensemble_size`).')
-  size = members // groups
-  return [tuple(t[i * size:(i + 1) * size].to(row[0]) for t in leaves)
-          for i, row in enumerate(mesh.devices)]
+  blocks = [distributed.make_global(t, mesh) for t in leaves]
+  return [None if parts[0] is None else tuple(parts)
+          for parts in zip(*blocks)]
 
 
-def gather_groups(groups, device):
+def gather_groups(groups, device, mesh=None):
   """`split_groups` undone: each leaf's groups joined on `device` (one
-  group: its leaves as they are)."""
+  group: its leaves as they are); over a mesh across ranks, every group
+  gathered to every rank first, group i from the rank of cell (i, 0)."""
+  if mesh is not None and mesh.is_multiprocess:
+    groups = distributed.host_leaves(groups, [row[0] for row in mesh.ranks],
+                                     device)
   return tuple(parts[0] if len(parts) == 1 else
                torch.cat([t.to(device) for t in parts])
                for parts in zip(*groups))
+
+
+def split_state(opt_state: AdamState, mesh) -> list:
+  """`opt_state`'s moments split as `split_groups` splits the parameters:
+  one `AdamState` a group (None for another rank's)."""
+  return [None if mu is None else AdamState(opt_state.count, mu, nu)
+          for mu, nu in zip(split_groups(opt_state.mu, mesh),
+                            split_groups(opt_state.nu, mesh))]
+
+
+def gather_state(groups, states, mesh):
+  """(leaves, `AdamState`) of every group joined on the mesh's first device
+  (`gather_groups`, one gather of the leaves and both moments)."""
+  joined = [None if g is None else (*g, *s.mu, *s.nu)
+            for g, s in zip(groups, states)]
+  leaves = gather_groups(joined, mesh.first_device, mesh)
+  num = len(leaves) // 3
+  count = next(s for s in states if s is not None).count
+  return leaves[:num], AdamState(count, leaves[num:2 * num],
+                                 leaves[2 * num:])
+
+
+def gather_losses(history, mesh, members):
+  """(members, T) losses on the mesh's first device from each group's list
+  of T (group size,) losses (None for another rank's group)."""
+  if not any(history):
+    return torch.zeros((members, 0), device=mesh.first_device)
+  return gather_groups(
+      [None if h is None else (torch.stack(h, dim=1),) for h in history],
+      mesh.first_device, mesh)[0]
 
 
 def train(
@@ -405,9 +462,10 @@ def train(
     mesh: a `parallel.mesh.Mesh`, or None: one device, that of `target`.
 
   Returns:
-    (params, opt_state, losses) on the mesh's first device: losses
-    (E, num_epochs), each epoch's loss before its update (full batch) or the
-    mean of its steps' losses (minibatch).
+    (params, opt_state, losses) on the mesh's first device (on every rank
+    of a mesh across ranks): losses (E, num_epochs), each epoch's loss
+    before its update (full batch) or the mean of its steps' losses
+    (minibatch).
 
   Raises:
     ValueError: if E does not split into the mesh's ensemble groups, or
@@ -422,35 +480,32 @@ def train(
       config, distribution, prior_weight, backend, lik_scale=n / batch_size,
       precision=precision)
   rows = minibatch_lib.shard_rows(aug_t, target, mesh, config.num_inputs)
+  members = params[0].shape[0]
   params = split_groups(params, mesh)
-  states = [AdamState(opt_state.count, mu, nu) for mu, nu in zip(
-      split_groups(opt_state.mu, mesh), split_groups(opt_state.nu, mesh))]
-  size = params[0][0].shape[0]
+  states = split_state(opt_state, mesh)
+  size = members // len(params)
   num_batches = n // batch_size
-  history = [[] for _ in params]
+  history = [None if p is None else [] for p in params]
   for epoch in range(int(num_epochs)):
     batch = batch_rows(rows, n, batch_size,
                        None if batch_size == n else permutations(epoch), size)
     step_losses = [[] for _ in params]
     for k in range(num_batches):
       for i, state in enumerate(states):
-        losses, grads = losses_and_grads(params[i], batch(i, k))
+        if state is None:
+          continue
+        losses, grads = losses_and_grads(
+            params[i], batch(i, k),
+            exchange=distributed.shard_exchange(mesh, i))
         updates, states[i] = adam_update(grads, state, learning_rate)
         params[i] = tuple(p + u for p, u in zip(params[i], updates))
         step_losses[i].append(losses)
     for i, group in enumerate(step_losses):
-      history[i].append(group[0] if num_batches == 1 else
-                        torch.stack(group).mean(dim=0))
-  first = mesh.first_device
-  losses = gather_groups(
-      [(torch.stack(h, dim=1) if h else
-        torch.zeros((size, 0), device=p[0].device),) for h, p in zip(
-            history, params)], first)[0]
-  return (gather_groups(params, first),
-          AdamState(states[0].count,
-                    gather_groups([s.mu for s in states], first),
-                    gather_groups([s.nu for s in states], first)),
-          losses)
+      if group:
+        history[i].append(group[0] if num_batches == 1 else
+                          torch.stack(group).mean(dim=0))
+  params, opt_state = gather_state(params, states, mesh)
+  return params, opt_state, gather_losses(history, mesh, members)
 
 
 def init_ensemble(config, ensemble_size, seed: int, log_noise_init, device):
@@ -501,13 +556,18 @@ def check_supported(batch_size, data_size, data_shards,
 
 def fit_mesh(mesh, device):
   """The mesh of a fit: `mesh` itself, or one `device` (a 1 x 1 mesh).
+  Across ranks, the process groups of its rows are made here, where every
+  rank enters (`distributed.row_groups`).
 
   Raises:
     TypeError: if `mesh` is not a `parallel.mesh.Mesh`.
   """
   if mesh is None:
     return mesh_lib.Mesh([[device]])
-  return mesh_lib.check_mesh(mesh)
+  mesh = mesh_lib.check_mesh(mesh)
+  if mesh.is_multiprocess:
+    distributed.row_groups(mesh)
+  return mesh
 
 
 def resolve_fit_backend(backend, mesh, config, distribution, batch_size,
@@ -523,7 +583,9 @@ def resolve_fit_backend(backend, mesh, config, distribution, batch_size,
 
 class SeededPermutations:
   """The `permutations` of a minibatch MAP fit (see `train`), drawn on the
-  mesh's first device, each member from a generator of its own: every
+  mesh's first device (every rank of a mesh across ranks draws them all,
+  so each cell reads what it reads in one process), each member from a
+  generator of its own: every
   epoch member m's permutation of the rows from `stream_seed(seed,
   PERMUTATION_STREAM, m)`, or, with a batch that splits evenly over several
   data shards, its local permutation of shard j from `stream_seed(seed,
@@ -568,33 +630,57 @@ class SeededPermutations:
     return torch.argsort(self._uniforms(self._per_key[0]), dim=1)
 
 
+def local_shards(mesh) -> list[int]:
+  """The data shards of this rank's cells, in order (every shard in one
+  process)."""
+  return sorted({j for _, j in mesh.local_cells})
+
+
+def stream_columns(mesh, batch_size):
+  """The positions within a step's batch of this rank's data shards
+  (`local_shards`; step k's batch splits into equal column blocks over the
+  shards), or None when this rank holds every shard."""
+  shards = mesh.shape[mesh_lib.DATA_AXIS]
+  mine = local_shards(mesh)
+  if len(mine) == shards:
+    return None
+  local = batch_size // shards
+  return np.concatenate([np.arange(j * local, (j + 1) * local)
+                         for j in mine])
+
+
 def stream_batches(aug_s, y_s, num_inputs, mesh, group_size, remix=None):
   """The `(group, step) -> row shards` of one streamed slice (see `train`'s
   `batch_rows`).
 
   Args:
-    aug_s: (S, D + 2F, B) inputs of the slice's S steps.
-    y_s: (S, B) targets.
+    aug_s: (S, D + 2F, B') inputs of the slice's S steps: the columns of
+      this rank's data shards (`stream_columns`), B' = B in one process.
+    y_s: (S, B') targets.
     num_inputs: D.
     mesh: the fit's mesh; step k's batch splits into equal column blocks
-      over its data shards, block j on the group's device j.
+      over its data shards, block j on the group's device j (None for a
+      cell of another rank).
     group_size: members a group.
     remix: None, every member the step's batch as shared (D, B) rows; or
       (S, E, B / shards) positions (`streaming.remix_indices`) into each
       shard's pool of the slice's rows, the per-member batches gathered as
       (E, ., B / shards) inputs.
   """
-  shards = mesh.shape[mesh_lib.DATA_AXIS]
-  local = aug_s.shape[-1] // shards
-  pieces = [(aug_s[..., j * local:(j + 1) * local],
-             y_s[..., j * local:(j + 1) * local]) for j in range(shards)]
+  mine = local_shards(mesh)
+  local = aug_s.shape[-1] // len(mine)
+  pieces = {j: (aug_s[..., p * local:(p + 1) * local],
+                y_s[..., p * local:(p + 1) * local])
+            for p, j in enumerate(mine)}
   if remix is not None:
-    pools = [streaming_lib.remix_pool(a, y) for a, y in pieces]
+    pools = {j: streaming_lib.remix_pool(a, y) for j, (a, y) in pieces.items()}
 
   def batch(i, k):
     out = []
     for j, dev in enumerate(mesh.devices[i]):
-      if remix is None:
+      if not mesh.is_local(i, j):
+        out.append(None)
+      elif remix is None:
         a = pieces[j][0][k].to(dev).contiguous()
         y = pieces[j][1][k].to(dev).contiguous()
         out.append((a[:num_inputs], a[num_inputs:], y))
@@ -641,7 +727,9 @@ def stream_train(
 
   Every epoch takes `stream.num_batches` steps on the batches of `stream`
   (`parallel/streaming.py`), sent to the mesh's first device `slice_steps`
-  steps at a time (`streaming.run_stream_driver`).
+  steps at a time (`streaming.run_stream_driver`); across ranks each rank
+  builds the same slices and sends only its data shards' columns
+  (`stream_columns`) to its first device.
 
   Args:
     params, opt_state, config, distribution, learning_rate, prior_weight,
@@ -653,7 +741,7 @@ def stream_train(
     checkpoint_every: epochs a chunk, or None (one chunk).
     on_chunk: None, or `(params, opt_state, losses, epochs_done)` after each
       chunk, with the chunk's losses (E, chunk epochs), all on the mesh's
-      first device.
+      first device (gathered on every rank).
     remix_seed: None (the shared stream), or the fit's seed: each member
       remixes each slice (`slice_remix`).
 
@@ -671,8 +759,7 @@ def stream_train(
   members = params[0].shape[0]
   first = mesh.first_device
   groups = split_groups(params, mesh)
-  states = [AdamState(opt_state.count, mu, nu) for mu, nu in zip(
-      split_groups(opt_state.mu, mesh), split_groups(opt_state.nu, mesh))]
+  states = split_state(opt_state, mesh)
   size = members // len(groups)
   history = []
 
@@ -685,27 +772,27 @@ def stream_train(
                     stream.batch_size // shards, first))
     losses = []
     for k in range(steps):
-      step_losses = []
+      step_losses = [None] * len(states)
       for i, group_state in enumerate(states):
-        group_losses, grads = losses_and_grads(groups[i], batch(i, k))
+        if group_state is None:
+          continue
+        step_losses[i], grads = losses_and_grads(
+            groups[i], batch(i, k),
+            exchange=distributed.shard_exchange(mesh, i))
         updates, states[i] = adam_update(grads, group_state, learning_rate)
         groups[i] = tuple(p + u for p, u in zip(groups[i], updates))
-        step_losses.append((group_losses,))
-      losses.append(gather_groups(step_losses, first)[0])
+      losses.append(step_losses)
     return state, losses
 
   def chunk_done(state, step_losses, steps_done):
-    groups, states = state
+    step_losses = gather_step_losses(step_losses, mesh, members)
     epoch_losses = torch.stack([
         torch.stack(step_losses[e:e + num_batches]).mean(dim=0)
         for e in range(0, len(step_losses), num_batches)], dim=1)
     history.append(epoch_losses)
     if on_chunk is not None:
-      on_chunk(gather_groups(groups, first),
-               AdamState(states[0].count,
-                         gather_groups([s.mu for s in states], first),
-                         gather_groups([s.nu for s in states], first)),
-               epoch_losses, steps_done // num_batches)
+      on_chunk(*gather_state(*state, mesh), epoch_losses,
+               steps_done // num_batches)
 
   groups, states = streaming_lib.run_stream_driver(
       stream, device=first, run_slice=run_slice, state=(groups, states),
@@ -713,14 +800,19 @@ def stream_train(
       num_steps=int(num_epochs) * num_batches, slice_steps=int(slice_steps),
       checkpoint_steps=(None if checkpoint_every is None
                         else checkpoint_every * num_batches),
-      on_chunk=chunk_done)
+      on_chunk=chunk_done, columns=stream_columns(mesh, stream.batch_size))
   losses = (torch.cat(history, dim=1) if history
             else torch.zeros((members, 0), device=first))
-  return (gather_groups(groups, first),
-          AdamState(states[0].count,
-                    gather_groups([s.mu for s in states], first),
-                    gather_groups([s.nu for s in states], first)),
-          losses)
+  return (*gather_state(groups, states, mesh), losses)
+
+
+def gather_step_losses(step_losses, mesh, members):
+  """A chunk's losses as one (E,) tensor a step on the mesh's first device,
+  from a list a step of each group's losses (None for another rank's
+  group), gathered once."""
+  history = [None if group is None else [s[i] for s in step_losses]
+             for i, group in enumerate(step_losses[0])]
+  return list(gather_losses(history, mesh, members).unbind(1))
 
 
 def host_rows(aug_features, target):
@@ -734,13 +826,15 @@ def host_rows(aug_features, target):
 
 
 def open_checkpointer(checkpoint_dir, checkpoint_every, total, streaming,
-                      stream_member_remix, stream_chunk_steps, **fields):
+                      stream_member_remix, stream_chunk_steps, mesh,
+                      **fields):
   """(checkpointer, newest saved state or None, epochs or steps a chunk) of
   a fit of `total` epochs or steps whose fingerprint holds `fields` and
   `stream`, and the remix keys only when remix is on (with the digest that
   always held them accepted otherwise, as the JAX package does); a chunk
   is `checkpoint_every`, by default total // 10 but at least 1. (None,
-  None, None) without a `checkpoint_dir`: the fit is one chunk.
+  None, None) without a `checkpoint_dir`: the fit is one chunk. Over a
+  `mesh` across ranks the lowest rank writes and every rank restores.
 
   Raises:
     ValueError: for a `checkpoint_every` below 1, a remote URI, or a
@@ -760,9 +854,13 @@ def open_checkpointer(checkpoint_dir, checkpoint_every, total, streaming,
   else:
     legacy = (ckpt_lib.run_fingerprint(
         **fields, stream_remix=False, stream_remix_window=None),)
+  across = mesh.is_multiprocess
   checkpointer = ckpt_lib.TrainCheckpointer(
       checkpoint_dir, fingerprint=ckpt_lib.run_fingerprint(**fields),
-      legacy_fingerprints=legacy)
+      legacy_fingerprints=legacy,
+      writer=not across or mesh.rank == min(r for row in mesh.ranks
+                                            for r in row),
+      barrier=distributed.barrier if across else None)
   return checkpointer, checkpointer.restore_latest(), int(checkpoint_every)
 
 
@@ -856,7 +954,8 @@ def ensemble_map(
   generators = () if permutations is None else permutations.generators
   checkpointer, restored, checkpoint_every = open_checkpointer(
       checkpoint_dir, checkpoint_every, num_epochs, streaming,
-      stream_member_remix, stream_chunk_steps, kind='map', config=config,
+      stream_member_remix, stream_chunk_steps, mesh, kind='map',
+      config=config,
       distribution=distribution.value, ensemble_size=ensemble_size,
       learning_rate=float(learning_rate),
       batch_size=int(batch_size), data_size=n,

@@ -28,7 +28,12 @@ split into one slice per mesh device; the parameters are copied once to
 each device, which encodes its slice, runs the forward and makes its
 forecast parameters. The slices are gathered in row order on the mesh's
 first device, where the quantile root-find runs (on one device: a later
-speed item, ROADMAP.md).
+speed item, ROADMAP.md). Over a mesh across ranks
+(`parallel/distributed.py`) each rank runs only its own cells' slices, the
+slices are gathered in cell order on every rank (`distributed.host_leaves`),
+and every rank then runs the search over all rows on its first device, as
+the single-process mesh does on its own: the results are the same on every
+rank by construction.
 """
 
 import numpy as np
@@ -40,6 +45,7 @@ from bayesnf_torch.models import distributions as dist_lib
 from bayesnf_torch.models import field as field_lib
 from bayesnf_torch.models import likelihoods
 from bayesnf_torch.ops import fused_mlp
+from bayesnf_torch.parallel import distributed
 from bayesnf_torch.parallel import mesh as mesh_lib
 
 
@@ -69,11 +75,13 @@ def _forecast_params_chunked(
       its size).
     backend: 'torch' or 'kernel' (resolved; see `backends.py`).
     mesh: None (every chunk on the parameters' device) or a mesh whose
-      devices each take one slice of every chunk.
+      devices each take one slice of every chunk (across ranks, each rank
+      its own cells' slices).
 
   Returns:
     Tuple of tensors on the parameters' device (over a mesh, its first
-    device): per-observation leaves (K, N), per-member scalar leaves (K,).
+    device, on every rank): per-observation leaves (K, N), per-member
+    scalar leaves (K,).
   """
   d = config.num_inputs
   n = aug.shape[0]
@@ -85,19 +93,26 @@ def _forecast_params_chunked(
       if backend == 'kernel'
       else fused_mlp.fused_field_mlp_t_reference
   )
-  devices = ([params_flat[0].device] if mesh is None
-             else [dev for row in mesh.devices for dev in row])
-  home = devices[0]
-  local = chunk_size // len(devices)
+  home = params_flat[0].device
+  if mesh is None:
+    mesh = mesh_lib.Mesh([[home]])
+  cells = [(i, j) for i, row in enumerate(mesh.devices)
+           for j in range(len(row))]
+  local = chunk_size // len(cells)
   placed = {}
-  for dev in devices:
+  for i, j in mesh.local_cells:
+    dev = mesh.devices[i][j]
     if dev not in placed:
       pf = tuple(p.to(dev) for p in params_flat)
       placed[dev] = (pf, *field_lib.dense_params(config, pf))
   aug_t = aug.T.contiguous()  # (D + 2F, N): rows last, as the kernel reads.
   slices = []
   for lo in range(0, n, chunk_size):
-    for k, dev in enumerate(devices):
+    for k, (i, j) in enumerate(cells):
+      if not mesh.is_local(i, j):
+        slices.append(None)
+        continue
+      dev = mesh.devices[i][j]
       start = lo + k * local
       pf, weights, biases = placed[dev]
       chunk_t = aug_t[:, start : start + local].to(dev)
@@ -112,12 +127,29 @@ def _forecast_params_chunked(
       slices.append(tuple(
           f.to(home)
           for f in likelihoods.forecast_params(distribution, pf, pred)))
+  if mesh.is_multiprocess:
+    slices = _gather_slices(slices, [mesh.ranks[i][j] for _ in range(
+        n // chunk_size) for i, j in cells], home)
   # Per-observation leaves join along rows; scalar leaves are the same in
   # every slice.
   return tuple(
       torch.cat(leaves, dim=1) if leaves[0].ndim == 2 else leaves[0]
       for leaves in zip(*slices)
   )
+
+
+def _gather_slices(slices, owners, device):
+  """Every slice of the forward on every rank (`slices` holds this rank's,
+  None for the others; slice k comes from rank `owners[k]`): the per-row
+  leaves gathered, the per-member leaves, the same in every slice, this
+  rank's."""
+  like = next(s for s in slices if s is not None)
+  rows = [k for k, leaf in enumerate(like) if leaf.ndim == 2]
+  full = distributed.host_leaves(
+      [None if s is None else tuple(s[k] for k in rows) for s in slices],
+      owners, device)
+  return [tuple(f[rows.index(k)] if k in rows else leaf
+                for k, leaf in enumerate(like)) for f in full]
 
 
 def _prepare_predict_inputs(features, params, config, ensemble_dims,
@@ -212,10 +244,11 @@ def fold_summaries(distribution, stats, more):
 
 # The quantile search runs on the valid rows padded with zero rows, or cut
 # from the forward's padded ones, to a multiple of this: a mean over the
-# members of such an array takes one order of sums whatever its width, on
-# the CPU (its vector loops take 32 or 64 columns at a time) and on CUDA
-# (4-wide vector loads over at least 128 columns), so a chunk's search gives
-# the whole array's values bit for bit.
+# members of such an array (`quantiles.member_mean`) takes one order of sums
+# whatever its width, on the CPU (its vector loops take 32 or 64 columns at
+# a time) and on CUDA (4-wide vector loads over at least 128 columns, in
+# blocks of at most 1,020 members added in order), so a chunk's search gives
+# the whole array's values bit for bit at any member count.
 SEARCH_ROWS = 128
 
 

@@ -19,8 +19,10 @@ larger than the card (`parallel/streaming.py`) can also predict on it.
   in-memory predict pads its tail), so the forward sees the same chunks,
   and every quantile search runs on the valid rows rounded up to a
   multiple of `predict.SEARCH_ROWS`, whose sums over the members take one
-  order whatever the width (for up to 1,020 members on CUDA; past that the sums
-  split over thread blocks by the width). The results are the
+  order whatever the width (`quantiles.member_mean`: past 1,020 members
+  CUDA's own reduction would split the sums over thread blocks by the
+  width, so they go in blocks of 1,020 added in order; held on an H100 at
+  1,920 members, `chip_smoke.py` phase 16). The results are the
   in-memory predict's bit for bit (tested), but the approximate quantiles,
   which are held to rounding (rtol 1e-6) as in the JAX package.
 - **No device cache.** Pass 2 re-uploads the leaves it searches on (the
@@ -37,11 +39,14 @@ larger than the card (`parallel/streaming.py`) can also predict on it.
   deep (`_Fetches`), so the host assembles chunk k while chunk k + 1
   computes. Nothing a copy reads or writes is reused or freed before the
   copy's event.
-- Over a single-process mesh (`parallel/mesh.py`) pass 1 runs each chunk
-  row-parallel through `predict._forecast_params_chunked`, host chunks
-  whole chunks of the mesh-rounded size, and pass 2 runs on the mesh's
-  first device, as in the in-memory predict. Meshes across processes are
-  not ported (ROADMAP.md).
+- Over a mesh (`parallel/mesh.py`) pass 1 runs each chunk row-parallel
+  through `predict._forecast_params_chunked`, host chunks whole chunks of
+  the mesh-rounded size, and pass 2 runs on the mesh's first device, as in
+  the in-memory predict. Across ranks (`parallel/distributed.py`) every
+  rank uploads each host chunk to its first device, runs only its own
+  cells' slices of it, and gathers the chunk's slices in cell order; every
+  rank then runs pass 2 over all rows, so the results are equal on every
+  rank and bit for bit the in-memory predict's.
 """
 
 import numpy as np
@@ -136,7 +141,7 @@ def _stream_forecast_params(
     config: model config.
     chunk_size: rows of a forward chunk.
     backend: the resolved backend.
-    mesh: None or a single-process mesh.
+    mesh: None or a mesh (in one process or across ranks).
     rows: rows of a host chunk (`_resolve_rows`).
     with_count_means: count models: append the observation means as a
       per-row leaf (the public means of `predict_bnf_streamed`).

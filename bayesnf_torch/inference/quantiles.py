@@ -10,11 +10,48 @@
 - NB and ZINB: the same search on the mixture's continuous CDF over
   [0, max mean + 1.1 max stddev / sqrt(1 - q)], then the ceiling, and 0
   where the mixture's P(0) already exceeds q.
+- The mixture CDF's mean over the members (`member_mean`) takes one order
+  of sums whatever the number of rows, so a chunk of rows searched alone
+  gives the whole table's bits (`inference/predict_stream.py`).
 """
+
+import math
 
 import torch
 
 from bayesnf_torch.ops import special
+
+
+# The members a sum over the ensemble axes takes in one piece. On CUDA, a
+# mean over the leading axis of a (K, W) array, W a multiple of 128, takes
+# one order of sums whatever W for K up to 1,020; past that torch's
+# reduction splits the members over thread blocks by W (on an H100 over
+# 1,920 members a 4,096-wide mean differed from a 38,144-wide one in 1,161
+# columns, `chip_smoke.py` phase 16 (d)), while sums of blocks of 1,020
+# members, added in order, agree at every width.
+MEMBER_BLOCK = 1020
+
+
+def member_mean(x, axis):
+  """The mean of `x` over its leading ensemble `axis` (0, ..., d - 1), in
+  an order of sums that does not depend on the trailing width: up to
+  MEMBER_BLOCK members `torch.mean`, past it the sums of blocks of
+  MEMBER_BLOCK members, added in block order, over the member count.
+
+  Raises:
+    ValueError: if `axis` is not the leading axes.
+  """
+  axis = tuple(axis)
+  if axis != tuple(range(len(axis))):
+    raise ValueError(f'{axis=} must be the leading axes.')
+  k = math.prod(x.shape[:len(axis)])
+  if k <= MEMBER_BLOCK:
+    return torch.mean(x, dim=axis)
+  flat = x.reshape((k,) + tuple(x.shape[len(axis):]))
+  total = flat[:MEMBER_BLOCK].sum(dim=0)
+  for lo in range(MEMBER_BLOCK, k, MEMBER_BLOCK):
+    total = total + flat[lo:lo + MEMBER_BLOCK].sum(dim=0)
+  return total / k
 
 
 def find_root_chandrupatla(
@@ -126,7 +163,7 @@ def normal_mixture_quantile_root(means, scales, q, axis=(0, 1), stats=None):
   """
 
   def f(x):
-    return torch.mean(special.normal_cdf(x, means, scales), dim=axis) - q
+    return member_mean(special.normal_cdf(x, means, scales), axis) - q
 
   if stats is None:
     stats = (torch.amin(means), torch.amax(means), torch.amax(scales))
@@ -191,7 +228,7 @@ def count_mixture_quantile_root(dist, q, ensemble_axes=(0, 1), stats=None):
   q = torch.tensor(q, dtype=torch.float32)
 
   def f(x):
-    return torch.mean(dist.cdf(x), dim=ensemble_axes) - q.to(x.device)
+    return member_mean(dist.cdf(x), ensemble_axes) - q.to(x.device)
 
   if stats is None:
     stats = (torch.amax(dist.mean()), torch.amax(dist.stddev()))
@@ -199,6 +236,6 @@ def count_mixture_quantile_root(dist, q, ensemble_axes=(0, 1), stats=None):
   high = max_mean + 1.1 * torch.rsqrt(1.0 - q).to(max_mean.device) * max_std
   root = find_root_chandrupatla(
       f, 0.0, high, value_tolerance=1e-5, max_iterations=60)
-  prob_zero = torch.mean(dist.prob(0.0), dim=ensemble_axes)
+  prob_zero = member_mean(dist.prob(0.0), ensemble_axes)
   return torch.ceil(torch.where(prob_zero > q.to(root.device),
                                 torch.zeros_like(root), root))

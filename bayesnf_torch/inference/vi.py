@@ -34,7 +34,12 @@
   group sees the same draws, as the JAX package's keys are split over
   'ens' only), each group samples its draws on its device, and `_NLL` sums
   the shards' NLLs and their gradients (K1 with the shard's `n_valid` on
-  'kernel') in shard order; log q and the prior count once.
+  'kernel') in shard order; log q and the prior count once. Across ranks
+  (`parallel/distributed.py`) every rank draws the noise of every member
+  from the same generator and keeps its own groups' slice; a group whose
+  shards live on several ranks gathers their terms first
+  (`distributed.shard_exchange`); the surrogate and the posterior draws come back
+  whole on every rank.
 
 The observation model is NORMAL, NB or ZINB, and `precision` sets the
 likelihood term's products as in `map.make_nll_and_grads` ('f32',
@@ -59,6 +64,7 @@ from bayesnf_torch.models import field as field_lib
 from bayesnf_torch.models import likelihoods
 from bayesnf_torch.models import priors
 from bayesnf_torch.ops import special
+from bayesnf_torch.parallel import distributed
 from bayesnf_torch.parallel import mesh as mesh_lib
 from bayesnf_torch.parallel import minibatch as minibatch_lib
 from bayesnf_torch.parallel import streaming as streaming_lib
@@ -113,8 +119,9 @@ class _NLL(torch.autograd.Function):
   by each member's cotangent."""
 
   @staticmethod
-  def forward(ctx, nll_and_grads, shards, *params):
-    losses, grads = map_lib.sum_over_shards(nll_and_grads, params, shards)
+  def forward(ctx, nll_and_grads, shards, exchange, *params):
+    losses, grads = map_lib.sum_over_shards(nll_and_grads, params, shards,
+                                            exchange)
     ctx.grads = grads
     return losses
 
@@ -122,7 +129,7 @@ class _NLL(torch.autograd.Function):
   def backward(ctx, g):
     grads = ctx.grads
     del ctx.grads
-    return (None, None,
+    return (None, None, None,
             *(gr * g.reshape((-1,) + (1,) * (gr.ndim - 1)) for gr in grads))
 
 
@@ -134,18 +141,19 @@ def make_elbo_losses(config, distribution, lik_scale, backend,
   `lik_scale` is (N / B) / kl_weight; `noise` leaves are (E, S, ...);
   `rows` (`map.as_shards`) is x_b (D, N), seasonal_b (2F, N), y_b (N,), the
   full batch, or (E, D, B), (E, 2F, B), (E, B) per-member minibatches, or
-  one sequence of row shards, every shard seeing the same draws. The
-  likelihood term's products run at `precision`.
+  one sequence of row shards, every shard seeing the same draws
+  (`exchange` as for `map.sum_over_shards`). The likelihood term's products
+  run at `precision`.
   """
   nll_and_grads = map_lib.make_nll_and_grads(
       config, distribution, lik_scale, backend, precision)
 
-  def elbo_losses(locs, raw_scales, noise, *rows):
+  def elbo_losses(locs, raw_scales, noise, *rows, exchange=None):
     scales = surrogate_scales(raw_scales)
     z = surrogate_sample(locs, scales, noise)
     e, s = z[0].shape[:2]
     z_f = tuple(p.reshape((e * s,) + p.shape[2:]) for p in z)
-    nll = _NLL.apply(nll_and_grads, map_lib.as_shards(rows), *z_f)
+    nll = _NLL.apply(nll_and_grads, map_lib.as_shards(rows), exchange, *z_f)
     target = (priors.prior_log_prob(config, z_f) - nll).reshape(e, s)
     return (surrogate_log_prob(locs, scales, z) - target).mean(dim=1)
 
@@ -154,18 +162,19 @@ def make_elbo_losses(config, distribution, lik_scale, backend,
 
 def make_step(config, distribution, lik_scale, learning_rate, backend,
               precision='f32'):
-  """One Adam step of every surrogate: `(surrogate, opt_state, noise, *rows)
-  -> (surrogate, opt_state, losses (E,))`, the losses before the update
-  (see `make_elbo_losses` for the arguments)."""
+  """One Adam step of every surrogate: `(surrogate, opt_state, noise, *rows,
+  exchange=None) -> (surrogate, opt_state, losses (E,))`, the losses before
+  the update (see `make_elbo_losses` for the arguments)."""
   elbo_losses = make_elbo_losses(config, distribution, lik_scale, backend,
                                  precision)
 
-  def step(surrogate, opt_state, noise, *rows):
+  def step(surrogate, opt_state, noise, *rows, exchange=None):
     leaves = [p.detach().requires_grad_(True)
               for p in (*surrogate[0], *surrogate[1])]
     num = len(leaves) // 2
     with torch.enable_grad():
-      losses = elbo_losses(leaves[:num], leaves[num:], noise, *rows)
+      losses = elbo_losses(leaves[:num], leaves[num:], noise, *rows,
+                           exchange=exchange)
       grads = torch.autograd.grad(losses.sum(), leaves)
     updates, opt_state = map_lib.adam_update(grads, opt_state, learning_rate)
     new = tuple(p.detach() + u for p, u in zip(leaves, updates))
@@ -202,13 +211,10 @@ def train(surrogate, opt_state, aug_t, target, config, distribution,
                    learning_rate, backend, precision)
   rows = minibatch_lib.shard_rows(aug_t, target, mesh, config.num_inputs)
   local_rows, counts = minibatch_lib.shard_counts(n, shards)
-  surrogates = list(zip(map_lib.split_groups(surrogate[0], mesh),
-                        map_lib.split_groups(surrogate[1], mesh)))
-  states = [map_lib.AdamState(opt_state.count, mu, nu) for mu, nu in zip(
-      map_lib.split_groups(opt_state.mu, mesh),
-      map_lib.split_groups(opt_state.nu, mesh))]
+  surrogates = split_surrogate(surrogate, mesh)
+  states = map_lib.split_state(opt_state, mesh)
   size = members // len(surrogates)
-  history = [[] for _ in surrogates]
+  history = [None if s is None else [] for s in surrogates]
   for t in range(int(num_steps)):
     eps = map_lib.split_groups(
         draw_noise(config, members, sample_size, generator)
@@ -223,21 +229,33 @@ def train(surrogate, opt_state, aug_t, target, config, distribution,
       perms = map_lib.random_permutations(generator, members, n)
     batch = map_lib.batch_rows(rows, n, batch_size, perms, size)
     for i, state in enumerate(states):
-      surrogates[i], states[i], losses = step(surrogates[i], state, eps[i],
-                                              batch(i, 0))
+      if state is None:
+        continue
+      surrogates[i], states[i], losses = step(
+          surrogates[i], state, eps[i], batch(i, 0),
+          exchange=distributed.shard_exchange(mesh, i))
       history[i].append(losses)
-  first = mesh.first_device
-  losses = map_lib.gather_groups(
-      [(torch.stack(h, dim=1) if h else
-        torch.zeros((size, 0), device=s[0][0].device),)
-       for h, s in zip(history, surrogates)], first)[0]
-  surrogate = tuple(map_lib.gather_groups(part, first)
-                    for part in zip(*surrogates))
-  opt_state = map_lib.AdamState(
-      states[0].count,
-      map_lib.gather_groups([s.mu for s in states], first),
-      map_lib.gather_groups([s.nu for s in states], first))
-  return surrogate, opt_state, losses * kl_weight
+  surrogate, opt_state = gather_surrogate(surrogates, states, mesh)
+  return (surrogate, opt_state,
+          map_lib.gather_losses(history, mesh, members) * kl_weight)
+
+
+def split_surrogate(surrogate, mesh):
+  """(locs, raw_scales) of each ensemble group (`map.split_groups`; None
+  for a group of another rank)."""
+  return [None if locs is None else (locs, raw) for locs, raw in zip(
+      map_lib.split_groups(surrogate[0], mesh),
+      map_lib.split_groups(surrogate[1], mesh))]
+
+
+def gather_surrogate(surrogates, states, mesh):
+  """The groups' surrogates and Adam states joined on the mesh's first
+  device, on every rank (`map.gather_state`)."""
+  leaves, opt_state = map_lib.gather_state(
+      [None if s is None else (*s[0], *s[1]) for s in surrogates], states,
+      mesh)
+  num = len(leaves) // 2
+  return (leaves[:num], leaves[num:]), opt_state
 
 
 def posterior_draws(config, surrogate, num_samples: int, generator):
@@ -281,21 +299,10 @@ def stream_train(surrogate, opt_state, stream, config, distribution,
                    (stream.data_size / stream.batch_size) / kl_weight,
                    learning_rate, backend, precision)
   first = mesh.first_device
-  surrogates = list(zip(map_lib.split_groups(surrogate[0], mesh),
-                        map_lib.split_groups(surrogate[1], mesh)))
-  states = [map_lib.AdamState(opt_state.count, mu, nu) for mu, nu in zip(
-      map_lib.split_groups(opt_state.mu, mesh),
-      map_lib.split_groups(opt_state.nu, mesh))]
+  surrogates = split_surrogate(surrogate, mesh)
+  states = map_lib.split_state(opt_state, mesh)
   size = members // len(surrogates)
   history = []
-
-  def gathered(surrogates, states):
-    return (tuple(map_lib.gather_groups(part, first)
-                  for part in zip(*surrogates)),
-            map_lib.AdamState(
-                states[0].count,
-                map_lib.gather_groups([s.mu for s in states], first),
-                map_lib.gather_groups([s.nu for s in states], first)))
 
   def run_slice(state, aug_s, y_s, slice_step):
     surrogates, states = state
@@ -308,27 +315,31 @@ def stream_train(surrogate, opt_state, stream, config, distribution,
     for k in range(steps):
       eps = map_lib.split_groups(
           draw_noise(config, members, sample_size, generator), mesh)
-      step_losses = []
+      step_losses = [None] * len(states)
       for i, group_state in enumerate(states):
-        surrogates[i], states[i], group_losses = step(
-            surrogates[i], group_state, eps[i], batch(i, k))
-        step_losses.append((group_losses,))
-      losses.append(map_lib.gather_groups(step_losses, first)[0])
+        if group_state is None:
+          continue
+        surrogates[i], states[i], step_losses[i] = step(
+            surrogates[i], group_state, eps[i], batch(i, k),
+            exchange=distributed.shard_exchange(mesh, i))
+      losses.append(step_losses)
     return state, losses
 
   def chunk_done(state, step_losses, steps_done):
-    history.append(torch.stack(step_losses, dim=1) * kl_weight)
+    history.append(torch.stack(map_lib.gather_step_losses(
+        step_losses, mesh, members), dim=1) * kl_weight)
     if on_chunk is not None:
-      on_chunk(*gathered(*state), history[-1], steps_done)
+      on_chunk(*gather_surrogate(*state, mesh), history[-1], steps_done)
 
   surrogates, states = streaming_lib.run_stream_driver(
       stream, device=first, run_slice=run_slice, state=(surrogates, states),
       start_step=int(start_step), num_steps=int(num_steps),
       slice_steps=int(slice_steps), checkpoint_steps=checkpoint_every,
-      on_chunk=chunk_done)
+      on_chunk=chunk_done,
+      columns=map_lib.stream_columns(mesh, stream.batch_size))
   losses = (torch.cat(history, dim=1) if history
             else torch.zeros((members, 0), device=first))
-  return (*gathered(surrogates, states), losses)
+  return (*gather_surrogate(surrogates, states, mesh), losses)
 
 
 def fit_vi(
@@ -417,7 +428,8 @@ def fit_vi(
       map_lib.stream_seed(seed, map_lib.VI_STEP_STREAM))
   checkpointer, restored, checkpoint_every = map_lib.open_checkpointer(
       checkpoint_dir, checkpoint_every, num_steps, streaming,
-      stream_member_remix, stream_chunk_steps, kind='vi', config=config,
+      stream_member_remix, stream_chunk_steps, mesh, kind='vi',
+      config=config,
       distribution=distribution.value, ensemble_size=ensemble_size,
       learning_rate=float(learning_rate),
       batch_size=int(batch_size), data_size=n,

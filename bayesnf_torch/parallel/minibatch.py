@@ -112,18 +112,22 @@ def local_permutations(generator, members: int, local_rows: int,
 
 def shard_rows(aug_t, target, mesh, num_inputs: int):
   """The balanced layout of the N rows over `mesh`: rows[i][j] is data
-  shard j as a `RowShard` on device (i, j). A device that appears in several
-  cells holds one copy of each shard it serves; a one-shard mesh keeps
-  `aug_t`'s rows as they are (views, no copy, on their device)."""
+  shard j as a `RowShard` on device (i, j), or None for a cell of another
+  rank (a rank places only its own cells' rows). A device that appears in
+  several cells holds one copy of each shard it serves; a one-shard mesh
+  keeps `aug_t`'s rows as they are (views, no copy, on their device)."""
   n = target.shape[0]
   shards = len(mesh.devices[0])
   local_rows, counts = shard_counts(n, shards)
   aug_p, y_p = pad_rows_balanced(aug_t, target, n, shards)
   placed = {}
   rows = []
-  for row in mesh.devices:
+  for i, row in enumerate(mesh.devices):
     rows.append([])
     for j, dev in enumerate(row):
+      if not mesh.is_local(i, j):
+        rows[-1].append(None)
+        continue
       if (j, dev) not in placed:
         cols = slice(j * local_rows, (j + 1) * local_rows)
         a = aug_p[:, cols].to(dev)

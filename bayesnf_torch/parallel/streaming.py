@@ -17,6 +17,11 @@ buffer is free) and the copy stream waits on slice k - 2's last step (so
 the device buffer is no longer read). On the CPU the same loop runs without
 streams.
 
+Across ranks (`parallel/distributed.py`) every rank builds the same
+slices from the same entropy and keeps only the columns of its own data
+shards (`run_stream_driver(columns=...)`), which it uploads to its own
+first device.
+
 The batch schedule is the JAX package's, derived in numpy from an entropy
 tuple (`epoch_permutation`, `step_sample`): one permutation of the rows an
 epoch, shared by every member (MAP, MLE; split into N // B steps, the
@@ -109,18 +114,23 @@ class HostBatchStream:
       self._perm_epoch = epoch
     return self._perm[b * self.batch_size:(b + 1) * self.batch_size]
 
-  def slice_at(self, step: int, num_steps: int, out=None):
+  def slice_at(self, step: int, num_steps: int, out=None, columns=None):
     """(num_steps, F, B) inputs and (num_steps, B) targets of steps `step`
     on, written into `out` (a pair of float32 arrays at least that large)
-    when it is given."""
-    shape = (num_steps, self.aug_t.shape[0], self.batch_size)
+    when it is given; with `columns` (positions within a batch) only those
+    B' columns of each step's batch, (num_steps, F, B') and (num_steps,
+    B')."""
+    width = self.batch_size if columns is None else len(columns)
+    shape = (num_steps, self.aug_t.shape[0], width)
     if out is None:
       aug = np.empty(shape, dtype=np.float32)
-      y = np.empty((num_steps, self.batch_size), dtype=np.float32)
+      y = np.empty((num_steps, width), dtype=np.float32)
     else:
       aug, y = out[0][:num_steps], out[1][:num_steps]
     for s in range(num_steps):
       rows = self.batch_rows(step + s)
+      if columns is not None:
+        rows = rows[columns]
       aug[s] = self.aug_t[:, rows]
       y[s] = self.target[rows]
     return aug, y
@@ -274,7 +284,7 @@ class HostUploads:
 
 def run_stream_driver(stream: HostBatchStream, *, device, run_slice, state,
                       start_step: int, num_steps: int, slice_steps: int,
-                      checkpoint_steps: int | None, on_chunk):
+                      checkpoint_steps: int | None, on_chunk, columns=None):
   """The host loop of a streamed fit, shared by the MAP and VI trainers.
 
   Runs steps `start_step` to `num_steps` in chunks of `checkpoint_steps`
@@ -286,21 +296,25 @@ def run_stream_driver(stream: HostBatchStream, *, device, run_slice, state,
     device: where the slices go (a mesh fit's first device).
     run_slice: `(state, aug (S, F, B), y (S, B), slice_step) -> (state,
       losses)`, the trainer's steps over one slice on the current stream,
-      `losses` a list of one (E,) tensor a step.
+      `losses` a list of one entry a step.
     state: the trainer's state, passed through `run_slice`.
     start_step: the first step (0, or a resumed fit's).
     num_steps: the fit's total steps.
     slice_steps: steps a slice.
     checkpoint_steps: steps a chunk, or None.
     on_chunk: `(state, losses, steps_done)` after each chunk, `losses` its
-      list of per-step (E,) tensors.
+      list of `run_slice`'s per-step entries.
+    columns: None, or the positions within a step's batch to send (a rank's
+      data shards, `HostBatchStream.slice_at`); the slices are then
+      (S, F, len(columns)).
 
   Returns:
     The final state.
   """
   features = stream.aug_t.shape[0]
-  uploads = HostUploads([(slice_steps, features, stream.batch_size),
-                         (slice_steps, stream.batch_size)], device)
+  width = stream.batch_size if columns is None else len(columns)
+  uploads = HostUploads([(slice_steps, features, width),
+                         (slice_steps, width)], device)
   step = start_step
   while step < num_steps:
     chunk = (num_steps - step if checkpoint_steps is None
@@ -309,7 +323,7 @@ def run_stream_driver(stream: HostBatchStream, *, device, run_slice, state,
     for slice_step, s in slice_bounds(step, chunk, slice_steps):
 
       def fill(host, slice_step=slice_step, s=s):
-        stream.slice_at(slice_step, s, out=host)
+        stream.slice_at(slice_step, s, out=host, columns=columns)
         return s
 
       upload = uploads.send(fill)

@@ -11,7 +11,9 @@ What the port does, and what it does not yet:
 
 - `fit` for MAP, MLE and VI with the NORMAL, NB or ZINB observation model,
   full batch or minibatch, on one device or over a `mesh`
-  (`parallel/mesh.py`: members split over 'ens', rows over 'data'), on the
+  (`parallel/mesh.py`: members split over 'ens', rows over 'data'; in one
+  process, or across ranks, `parallel/distributed.py`, every rank calling
+  `fit` and `predict` alike and getting the whole results), on the
   'kernel' (CUDA) or 'torch' backend (`inference/map.py`,
   `inference/vi.py`), at `precision` 'f32', 'highest' (the same) or 'bf16'
   (`ops/mixed.py`); with a `checkpoint_dir` it saves in chunks and resumes
@@ -31,7 +33,8 @@ What the port does, and what it does not yet:
   when the mesh's size divides E, else (1, E). `save` writes the mesh's
   extents as `fit_mesh`; `load` rebuilds the mesh when their product is the
   count of devices of the load device's type, and stays meshless
-  otherwise, as the JAX package does.
+  otherwise, as the JAX package does; it never builds a mesh across
+  processes.
 """
 
 from collections.abc import Sequence
@@ -514,6 +517,8 @@ class BayesianNeuralFieldMAP(BayesianNeuralFieldEstimator):
         may repeat) to fit over: members split over 'ens' (padded to a
         multiple of its extent), rows over 'data' (`inference/map.py`).
         `params_` then live on its first device, and `predict` runs over it.
+        A mesh across ranks (`parallel/distributed.py`) takes the same call
+        on every rank, and each gets the whole `params_` and `losses_`.
       checkpoint_dir: None, or a local directory: the fit saves its state
         every `checkpoint_every` epochs (split i of several into
         `split_{i}` there), and a fit started on a directory that holds a

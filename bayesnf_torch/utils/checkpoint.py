@@ -16,6 +16,13 @@ Intended differences from the JAX package:
   orbax directories. Neither package reads the other's checkpoints.
 - Local directories only: a remote URI (`gs://...`) raises ValueError,
   since the port does not depend on orbax or etils, which write them.
+
+Across ranks (`parallel/distributed.py`) there is one writer, as in the JAX
+package: the lowest rank writes the fingerprint marker and every save, the
+others only validate and restore. Every rank saves the same gathered state,
+and a barrier after the marker and after each save keeps a rank from
+reading a file before it is in place. The directory is one that every rank
+sees (one host, or a shared file system).
 """
 
 import dataclasses
@@ -148,7 +155,8 @@ class TrainCheckpointer:
 
   def __init__(self, directory, max_to_keep: int = 2,
                fingerprint: str | None = None,
-               legacy_fingerprints: tuple[str, ...] = ()):
+               legacy_fingerprints: tuple[str, ...] = (),
+               writer: bool = True, barrier=None):
     """Opens (and creates) `directory`.
 
     Args:
@@ -158,6 +166,10 @@ class TrainCheckpointer:
       legacy_fingerprints: earlier digests of this same configuration
         (a superseded recipe), accepted as this fit; a directory marked
         with one keeps its marker, so it stays resumable by both recipes.
+      writer: whether this process writes the marker and the saves; across
+        ranks one does and the others only validate and restore.
+      barrier: None (one process), or a function that waits for every
+        rank, called after the marker and after each save.
 
     Raises:
       ValueError: for a remote URI, or if the directory holds saved steps
@@ -168,6 +180,40 @@ class TrainCheckpointer:
     self.max_to_keep = int(max_to_keep)
     self._fingerprint = fingerprint
     self._meta_path = os.path.join(self.directory, 'fingerprint.json')
+    self._writer = bool(writer)
+    self._barrier = barrier
+    if not self._writer:
+      self._sync()
+      self._validate(fingerprint, tuple(legacy_fingerprints))
+      return
+    try:
+      self._claim(fingerprint, tuple(legacy_fingerprints))
+    finally:
+      self._sync()
+
+  def _sync(self):
+    if self._barrier is not None:
+      self._barrier()
+
+  def _validate(self, fingerprint, legacy_fingerprints):
+    """A reader's check of the marker the writer left.
+
+    Raises:
+      ValueError: if it is another fit's.
+    """
+    if fingerprint is None:
+      return
+    stored = self._read_marker()
+    if stored in legacy_fingerprints:
+      self._fingerprint = stored
+    elif stored != fingerprint:
+      raise ValueError(
+          f'Checkpoint directory {self.directory!r} is marked by a run with '
+          f'a different configuration (stored fingerprint {stored}, this '
+          f'run {fingerprint}).')
+
+  def _claim(self, fingerprint, legacy_fingerprints):
+    """The writer's check of the marker, which it writes if need be."""
     if fingerprint is None:
       return
     stored = self._read_marker()
@@ -226,10 +272,21 @@ class TrainCheckpointer:
     """Writes `state` as step `state.epoch`, then deletes all but the
     newest `max_to_keep` steps.
 
+    Across ranks only the writer writes, and every rank waits for it.
+
     Raises:
       ValueError: if another fit has claimed the directory since this one
         opened it.
     """
+    if not self._writer:
+      self._sync()
+      return
+    try:
+      self._write(state)
+    finally:
+      self._sync()
+
+  def _write(self, state: TrainState):
     if self._fingerprint is not None:
       stored = self._read_marker()
       if stored != self._fingerprint:

@@ -149,7 +149,31 @@ CUDA toolkit (nvcc). It imports nothing of JAX. Phases, one line each:
    streamed predict's peak device memory in chunks of 65,536 rows over
    2,000,000 rows within 16 MiB of its peak over 131,072, beside the
    in-memory predict's; rows/s streamed and in memory at 38,096 and
-   2,000,000 rows.
+   2,000,000 rows; (d) a VI predict over 1,920 members (the chickenpox VI
+   stanza's 64 surrogates x 30 draws, width 256, depth 2, `init_params`
+   from `--seed`) on main's 38,096 rows in host chunks of 4,096: streamed
+   means and quantiles bit for bit the in-memory ones, past the 1,020
+   members up to which CUDA's own member mean keeps one order of sums (at
+   these widths `torch.mean` in the search would break the identity); and
+   the columns of a 4,096-wide mean over 1,920 members that differ from
+   the 38,144-wide one's, `torch.mean` against `quantiles.member_mean`,
+   which must have none).
+17. Meshes across processes (`parallel/distributed.py`), run before phase
+   13's line: this script again as two ranks (hidden `--rank` flags) on
+   cuda:0 over Gloo, each one cell of the mesh, at main's model (38,096
+   rows, 64 members, width 512, depth 2, F = 49, 'kernel', 'f32'): (a)
+   FIT_EPOCHS full-batch MAP epochs over ens 2 x data 1 and over 1 x 2;
+   (b) phase 7's VI stanza for 2 epochs over 2 x 1; (c) a streamed MAP
+   epoch over 1 x 2 in slices of 5 steps; (d) the 1 x 2 fit's predict and
+   streamed predict over it; (e) that fit stopped at 2 epochs (rank 0
+   saving each epoch) and resumed by both ranks. Every rank's results (by
+   SHA-256) equal the single-process `default_mesh(['cuda:0'] * 2, ...)`
+   run of the same calls in this process, and the resumed fit the
+   straight one; each rank's K1 and K2 launches are counted. The ms of a
+   1 x 2 step across the ranks against the single-process mesh's (one
+   card: no speed is claimed). With a card a rank, (a) also over NCCL,
+   with its 1 x 2 step's ms; with one card the line says it was not run. A failing rank fails the
+   phase.
 13. A JSON line of the kernels, with each one's time, its plain version's,
    the least time the card could take for the same products and bytes
    (`bound_ms`) and the PyTorch call that computes the same function, if
@@ -163,12 +187,15 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
+import datetime
+import hashlib
 import io
 import json
 import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -185,11 +212,13 @@ from bayesnf_torch.cli import registry
 from bayesnf_torch.cli import stream_scale_run
 from bayesnf_torch.inference import map as map_lib
 from bayesnf_torch.inference import predict as predict_lib
+from bayesnf_torch.inference import quantiles as quantiles_lib
 from bayesnf_torch.inference import vi as vi_lib
 from bayesnf_torch.models import field as field_lib
 from bayesnf_torch.models import likelihoods
 from bayesnf_torch.ops import _build
 from bayesnf_torch.ops import fused_mlp
+from bayesnf_torch.parallel import distributed
 from bayesnf_torch.parallel import mesh as mesh_lib
 from bayesnf_torch.parallel import streaming as streaming_lib
 from bayesnf_torch.utils import checkpoint as ckpt_lib
@@ -1065,15 +1094,16 @@ def mixture_cdf_residual(x, means, scales, q):
   return (torch.special.ndtr(z).mean(dim=(0, 1)) - q).abs().max().item()
 
 
-def random_params(config, table, seed):
-  """An estimator's `params_`, (1, MEMBERS, ...) on the card, drawn by
-  `init_params` from `seed` (the noise scale from the table's targets)."""
+def random_params(config, table, seed, ens_shape=(1, MEMBERS)):
+  """An estimator's `params_`, `ens_shape` + each leaf's shape on the card,
+  drawn by `init_params` from `seed` (the noise scale from the table's
+  targets)."""
   generator = torch.Generator(device='cuda').manual_seed(seed)
   log_noise = math.log(float(np.std(table['y'])) / 2)
   members = [field_lib.init_params(config, generator, 'cuda', log_noise)
-             for _ in range(MEMBERS)]
+             for _ in range(math.prod(ens_shape))]
   return tuple(
-      torch.stack(leaves).reshape((1, MEMBERS) + tuple(leaves[0].shape))
+      torch.stack(leaves).reshape(ens_shape + tuple(leaves[0].shape))
       for leaves in zip(*members))
 
 
@@ -1137,9 +1167,9 @@ def check_main_path(seed):
 
 
 def bench_estimator(est_cls=bayesnf_torch.BayesianNeuralFieldMAP,
-                    observation_model='NORMAL'):
+                    observation_model='NORMAL', width=512):
   return est_cls(
-      feature_cols=['datetime', 'lat', 'lon'], target_col='y', width=512,
+      feature_cols=['datetime', 'lat', 'lon'], target_col='y', width=width,
       depth=2, timetype='index', freq='h', seasonality_periods=[24, 168],
       num_seasonal_harmonics=[4, 4], fourier_degrees=[5, 5, 5],
       standardize=['lat', 'lon'], observation_model=observation_model)
@@ -2300,6 +2330,14 @@ PEAK_ROWS = (131_072, 2_000_000)
 # The approximate quantiles: the moment-matched Normal's chain of means and
 # a square root, held to rounding (the JAX package's bound).
 APPROX_TOL = dict(rtol=1e-6, atol=1e-7)
+# Phase 16 (d): a VI predict past 1,020 members, the chickenpox VI stanza's
+# (`cli/registry.py`: 64 surrogates x 30 posterior draws, width 256, depth
+# 2) on main's 38,096 rows in host chunks of 4,096 (a ragged tail): at these
+# widths CUDA's own mean of a chunk's members differs from the whole
+# table's (a narrower table, 9,001 rows, happened to show no difference).
+WIDE_SURROGATES = 64
+WIDE_WIDTH = 256
+WIDE_ROWS = N_ROWS
 
 
 def assert_same_predictions(got, want, what):
@@ -2377,6 +2415,44 @@ def streamed_peak(x, params, config, stream=True):
   return peak, ms
 
 
+def check_wide_predict(seed, fields):
+  """Phase 16 (d): a VI predict over 1,920 members, past the 1,020 up to
+  which CUDA's own member mean keeps one order of sums at any width,
+  streamed against in memory, bit for bit; writes their ms into `fields`
+  and returns the K2 calls of each (one a chunk)."""
+  table = bench_table(seed).iloc[:WIDE_ROWS]
+  est = bench_estimator(bayesnf_torch.BayesianNeuralFieldVI, width=WIDE_WIDTH)
+  train = est.data_handler.get_train(table)
+  est.params_ = random_params(
+      est._field_config(train.shape), table, seed,  # pylint: disable=protected-access
+      (1, VI_POSTERIOR, WIDE_SURROGATES))
+  chunks = -(-WIDE_ROWS // CHUNK)
+  want, ms = timed(lambda: k2_counted(chunks, lambda: est.predict(
+      table, quantiles=QUANTILES, backend='kernel')))
+  fields['wide_kernel_ms_in_memory'] = f'{ms:.2f}'
+  got, ms = timed(lambda: k2_counted(chunks, lambda: est.predict(
+      table, quantiles=QUANTILES, backend='kernel',
+      stream_chunk_rows=COUNT_STREAM_CHUNK)))
+  fields['wide_kernel_ms_streamed'] = f'{ms:.2f}'
+  assert got[0].shape == (1, VI_POSTERIOR, WIDE_SURROGATES, WIDE_ROWS)
+  assert_same_predictions(got, want, 'wide: 1,920 members')
+  # What `quantiles.member_mean` is for: over 1,920 members, the columns
+  # in which CUDA's own mean of a chunk's 4,096 columns differs from the
+  # mean of the whole table's (38,096 rows searched as 38,144);
+  # `member_mean` must differ in none.
+  x = torch.rand((VI_POSTERIOR * WIDE_SURROGATES, -(-WIDE_ROWS // 128) * 128),
+                 generator=torch.Generator(device='cuda').manual_seed(seed),
+                 device='cuda')
+  chunk = x[:, :CHUNK].contiguous()
+  for name, mean in (('torch_mean', lambda t: torch.mean(t, dim=0)),
+                     ('member_mean',
+                      lambda t: quantiles_lib.member_mean(t, (0,)))):
+    fields[f'{name}_columns_differ'] = int(
+        (mean(chunk) != mean(x)[:CHUNK]).sum())
+  assert fields['member_mean_columns_differ'] == 0, fields
+  return chunks
+
+
 def check_streamed_predict(seed, nb_est, zinb_est):
   """Phase 16; returns the (K1, K2) launches counted while it drove the
   streamed predicts, the in-memory ones they are held to, and the scale
@@ -2409,10 +2485,12 @@ def check_streamed_predict(seed, nb_est, zinb_est):
                         predict_backends=('kernel',))
   check_stream_identity(zinb_est, counts, COUNT_STREAM_CHUNK, 'zinb', fields,
                         predict_backends=('kernel',))
-  # On 'kernel': in-memory and streamed predicts and likelihood models, and
-  # main's approximate quantiles in memory and streamed.
+  wide_chunks = check_wide_predict(seed, fields)
+  # On 'kernel': in-memory and streamed predicts and likelihood models,
+  # main's approximate quantiles in memory and streamed, and the wide
+  # predicts.
   count_chunks = -(-len(counts) // CHUNK)
-  expected_k2 = chunks * 6 + 2 * count_chunks * 4
+  expected_k2 = chunks * 6 + 2 * count_chunks * 4 + 2 * wide_chunks
   assert fused_mlp.fused_field_mlp_t.launches == expected_k2, (
       fused_mlp.fused_field_mlp_t.launches, expected_k2)
   rates = {key: len(table) / float(fields[f'normal_kernel_ms_{key}']) * 1e3
@@ -2456,7 +2534,10 @@ def check_streamed_predict(seed, nb_est, zinb_est):
         stream_chunk_rows=STREAM_ROWS, host_chunks=-(-len(table) // STREAM_ROWS),
         identity=('normal predict and likelihood model x kernel/torch, '
                   'nb/zinb predict x kernel and likelihood model x '
-                  'kernel/torch: bit-exact'),
+                  'kernel/torch, 1,920-member predict x kernel: bit-exact'),
+        wide=(f'{WIDE_SURROGATES} x {VI_POSTERIOR} members, width '
+              f'{WIDE_WIDTH}, {WIDE_ROWS} rows in chunks of '
+              f'{COUNT_STREAM_CHUNK}'),
         count_rows=len(counts), approx_max_abs_err=f'{approx_err:.3e}',
         **fields,
         rows_per_s_38096='/'.join(f'{rates[k]:.0f}' for k in (
@@ -2482,10 +2563,238 @@ def check_streamed_predict(seed, nb_est, zinb_est):
   return launches
 
 
+# Phase 17: meshes across processes. Two ranks, one cell each, on the card
+# over Gloo (NCCL refuses two ranks on one device); over NCCL only with a
+# card a rank. A rank that raises fails its peers within GANG_TIMEOUT; the
+# whole gang gets GANG_WALL_S.
+RANKS = 2
+GANG_TIMEOUT = datetime.timedelta(seconds=120)
+GANG_WALL_S = 420
+RANK_RESULT = 'RANK_RESULT '
+RESUME_AT = 2  # epochs of the stopped fit; the resumed one runs FIT_EPOCHS.
+PROCESS_STREAM_SLICE = 5  # a streamed epoch (10 steps) in 2 slices
+
+
+def digest(*arrays):
+  """SHA-256 over each array's dtype, shape and bytes: equal digests are
+  `np.array_equal` results of one dtype."""
+  h = hashlib.sha256()
+  for a in arrays:
+    a = np.ascontiguousarray(a.detach().cpu().numpy()
+                             if isinstance(a, torch.Tensor) else a)
+    h.update(f'{a.dtype}{a.shape}'.encode())
+    h.update(a.tobytes())
+  return h.hexdigest()
+
+
+def mesh_step_ms(table, seed, mesh):
+  """Host ms a full-batch MAP step of 64 members over `mesh` on 'kernel':
+  `map.train` for TIMED_STEPS epochs after one, to a synchronize (the
+  row placement and the final gathers included)."""
+  est = bench_estimator()
+  train = est.data_handler.get_train(table)
+  config = est._field_config(train.shape)  # pylint: disable=protected-access
+  aug_t = field_lib.aug_features(
+      config, torch.as_tensor(train, dtype=torch.float32, device='cuda')
+  ).T.contiguous()
+  y = torch.tensor(est.data_handler.get_target(table), dtype=torch.float32,
+                   device='cuda')
+  params = map_lib.init_ensemble(config, MEMBERS, seed, 0.0, 'cuda')
+
+  def run(epochs):
+    map_lib.train(params, map_lib.init_opt_state(params), aug_t, y, config,
+                  likelihoods.LikelihoodDist.NORMAL, 0.005, epochs,
+                  backend='kernel', mesh=mesh)
+
+  run(1)
+  _, ms = timed(lambda: run(TIMED_STEPS))
+  return ms / TIMED_STEPS
+
+
+def process_runs(seed, mesh_of, work_dir=None, full=True):
+  """Phase 17's fits and predicts over `mesh_of(ens, data)`, as digests:
+  (a) full-batch MAP over 2 x 1 and 1 x 2 (and the ms of a 1 x 2 step);
+  with `full`, (b) phase 7's VI stanza for 2 epochs over 2 x 1, (c) a
+  streamed MAP epoch over 1 x 2, (d) the predict and the streamed predict
+  of the 1 x 2 fit over it, bit for bit; with a `work_dir`, (e) the 1 x 2
+  fit stopped at RESUME_AT epochs (a checkpoint each epoch) and resumed.
+  The parent runs this over single-process meshes, each rank over meshes
+  across ranks; every digest must agree."""
+  table = bench_table(seed)
+  out = {}
+  for ens, data in ((2, 1), (1, 2)):
+    est = bench_estimator().fit(
+        table, seed, ensemble_size=MEMBERS, learning_rate=0.005,
+        num_epochs=FIT_EPOCHS, backend='kernel', device='cuda',
+        mesh=mesh_of(ens, data))
+    out[f'map-{ens}x{data}'] = digest(*leaves_of(est), est.losses_)
+  out['step_ms'] = mesh_step_ms(table, seed, mesh_of(1, 2))
+  if not full:
+    return out
+  leaves, losses = long_vi_fit(table, seed, num_epochs=2, mesh=mesh_of(2, 1))
+  out['vi-2x1'] = digest(*leaves, losses)
+  leaves, losses = stream_fit(table, seed, PROCESS_STREAM_SLICE,
+                              num_epochs=1, mesh=mesh_of(1, 2))
+  out['stream-1x2'] = digest(*leaves, losses)
+  want = est.predict(table, quantiles=QUANTILES, backend='kernel')
+  got = est.predict(table, quantiles=QUANTILES, backend='kernel',
+                    stream_chunk_rows=STREAM_ROWS)
+  assert_same_predictions(got, want, 'streamed predict over 1 x 2')
+  out['predict-1x2'] = digest(want[0], *want[1])
+  if work_dir is not None:
+    ckdir = os.path.join(work_dir, 'ckpt')
+    long_map_fit(table, seed, 'f32', num_epochs=RESUME_AT,
+                 checkpoint_dir=ckdir, checkpoint_every=1,
+                 mesh=mesh_of(1, 2))
+    leaves, losses = long_map_fit(
+        table, seed, 'f32', num_epochs=FIT_EPOCHS, checkpoint_dir=ckdir,
+        checkpoint_every=1, mesh=mesh_of(1, 2))
+    out['resumed-1x2'] = digest(*leaves, losses)
+  return out
+
+
+def rank_main(args):
+  """One rank of phase 17 (`--rank`): joins the group, runs
+  `process_runs` over meshes across the ranks, prints its digests and its
+  K1/K2 launches on a line of its own."""
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  distributed.initialize(f'localhost:{args.port}', args.world, args.rank,
+                         backend=args.backend, timeout=GANG_TIMEOUT)
+  devices = ['cuda:0' if args.backend == 'gloo' else f'cuda:{r}'
+             for r in range(args.world)]
+
+  def mesh_of(ens, data):
+    return mesh_lib.default_mesh(devices, ens, data,
+                                 ranks=list(range(args.world)))
+
+  fused_mlp.fused_train.launches = 0
+  fused_mlp.fused_field_mlp_t.launches = 0
+  full = args.backend == 'gloo'
+  out = process_runs(args.seed, mesh_of, args.work if full else None, full)
+  out.update(rank=args.rank, k1=fused_mlp.fused_train.launches,
+             k2=fused_mlp.fused_field_mlp_t.launches)
+  torch.distributed.barrier()
+  print(RANK_RESULT + json.dumps(out), flush=True)
+  torch.distributed.destroy_process_group()
+  return 0
+
+
+def run_gang(seed, backend, work_dir):
+  """The ranks of phase 17 over `backend`, each a process of this script;
+  their results. A rank that fails, or the wall limit, ends them all, and
+  the phase fails."""
+  with socket.socket() as sock:
+    sock.bind(('localhost', 0))
+    port = sock.getsockname()[1]
+  logs = [open(os.path.join(work_dir, f'rank{r}.log'), 'w+')
+          for r in range(RANKS)]
+  procs = [subprocess.Popen(
+      [sys.executable, os.path.abspath(__file__), '--seed', str(seed),
+       '--rank', str(r), '--world', str(RANKS), '--port', str(port),
+       '--backend', backend, '--work', work_dir],
+      stdout=log, stderr=subprocess.STDOUT) for r, log in enumerate(logs)]
+  deadline = time.monotonic() + GANG_WALL_S
+  try:
+    while any(p.poll() is None for p in procs):
+      if (any(p.returncode not in (None, 0) for p in procs)
+          or time.monotonic() > deadline):
+        break
+      time.sleep(0.2)
+  finally:
+    for p in procs:
+      if p.poll() is None:
+        p.kill()
+      p.wait(timeout=30)
+  results, failed = [], []
+  for r, (p, log) in enumerate(zip(procs, logs)):
+    log.seek(0)
+    text = log.read()
+    log.close()
+    lines = [line for line in text.splitlines()
+             if line.startswith(RANK_RESULT)]
+    if p.returncode != 0 or len(lines) != 1:
+      failed.append(f'rank {r} ({backend}) rc={p.returncode}:\n'
+                    f'{text[-3000:]}')
+    else:
+      results.append(json.loads(lines[0][len(RANK_RESULT):]))
+  if failed:
+    raise RuntimeError('phase 17: ' + '\n'.join(failed))
+  return results
+
+
+def check_processes(seed):
+  """Phase 17; returns the (K1, K2) launches counted: the single-process
+  references' and every rank's."""
+  torch.cuda.synchronize()
+  fused_mlp.fused_train.launches = 0
+  fused_mlp.fused_field_mlp_t.launches = 0
+  n = len(bench_table(seed))
+
+  def single_mesh(ens, data):
+    return mesh_lib.default_mesh(['cuda:0'] * RANKS, ens, data)
+
+  want = process_runs(seed, single_mesh)
+  launches = (fused_mlp.fused_train.launches,
+              fused_mlp.fused_field_mlp_t.launches)
+  steps = n // BATCH
+  # K1 a cell a step: 2 MAP fits, the timed 1 + TIMED_STEPS epochs, the VI
+  # epochs, the streamed epoch; K2 a slice of each 4,096-row chunk, twice.
+  k1_cell_steps = 2 * FIT_EPOCHS + 1 + TIMED_STEPS + 2 * steps + steps
+  k2_cells = 2 * -(-n // CHUNK)
+  assert launches == (RANKS * k1_cell_steps, RANKS * k2_cells), launches
+  torch.cuda.empty_cache()
+  with tempfile.TemporaryDirectory() as tmp:
+    ranks = run_gang(seed, 'gloo', tmp)
+  total = np.array(launches)
+  for out in ranks:
+    for key, value in want.items():
+      if key != 'step_ms':
+        assert out[key] == value, (out['rank'], key)
+    assert out['resumed-1x2'] == want['map-1x2'], out['rank']
+    # The resumed fit: RESUME_AT epochs, then the rest.
+    assert (out['k1'], out['k2']) == (k1_cell_steps + FIT_EPOCHS,
+                                      k2_cells), out
+    total += (out['k1'], out['k2'])
+  if torch.cuda.device_count() >= RANKS:
+    with tempfile.TemporaryDirectory() as tmp:
+      nccl = run_gang(seed, 'nccl', tmp)
+    for out in nccl:
+      for key in ('map-2x1', 'map-1x2'):
+        assert out[key] == want[key], (out['rank'], key)
+      total += (out['k1'], out['k2'])
+    nccl_note = (f'{RANKS} ranks on {RANKS} cards, MAP 2x1 and 1x2: '
+                 'bit-exact')
+    nccl_ms = '/'.join(f'{out["step_ms"]:.2f}' for out in nccl)
+  else:
+    nccl_note = f'not run: {torch.cuda.device_count()} card'
+    nccl_ms = 'not run'
+  phase('17 processes', ranks=RANKS, backend='gloo', devices='cuda:0 x 2',
+        rows=n, members=MEMBERS, width=512, depth=2,
+        identity=('MAP 2x1 and 1x2, VI 2x1, streamed MAP 1x2, predict and '
+                  'streamed predict 1x2, checkpoint resume 1x2: every rank '
+                  'bit-exact to the single-process mesh'),
+        step_ms_1x2_cross_rank='/'.join(f'{out["step_ms"]:.2f}'
+                                        for out in ranks),
+        step_ms_1x2_single_process=f'{want["step_ms"]:.2f}',
+        nccl=nccl_note, step_ms_1x2_nccl=nccl_ms,
+        k1_launches_ranks='/'.join(str(out['k1']) for out in ranks),
+        k2_launches_ranks='/'.join(str(out['k2']) for out in ranks),
+        k1_launches=int(total[0]), k2_launches=int(total[1]))
+  return int(total[0]), int(total[1])
+
+
 def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
   parser.add_argument('--seed', type=int, default=0)
+  # Phase 17 runs this script again as each rank of a process group.
+  for flag in ('--rank', '--world', '--port'):
+    parser.add_argument(flag, type=int, help=argparse.SUPPRESS)
+  parser.add_argument('--backend', help=argparse.SUPPRESS)
+  parser.add_argument('--work', help=argparse.SUPPRESS)
   args = parser.parse_args(argv)
+  if args.rank is not None:
+    return rank_main(args)
 
   if not torch.cuda.is_available():
     print('chip_smoke: CUDA is not available; this smoke runs on a GPU.',
@@ -2533,6 +2842,7 @@ def main(argv=None):
   harness_k1, harness_k1_bf16, harness_k2 = check_harness(args.seed)
   long_k1, long_k1_bf16 = check_long_fits(args.seed)
   stream_k1, stream_k2 = check_streamed_predict(args.seed, nb_est, zinb_est)
+  process_k1, process_k2 = check_processes(args.seed)
 
   def case_fields(case):
     """(max abs error, kernel ms, plain ms, bound) as JSON fields."""
@@ -2564,7 +2874,7 @@ def main(argv=None):
       'launches': (launches + vi_k2_launches + count_k2_launches
                    + count_vi_k2_launches + mesh_k2_launches
                    + field_launches['fused_field_mlp_t.launches']
-                   + harness_k2 + stream_k2),
+                   + harness_k2 + stream_k2 + process_k2),
       'max_abs_err': max_err,
       'ms': ms,
       'plain_ms': plain_ms,
@@ -2582,7 +2892,7 @@ def main(argv=None):
       'launches': (train_launches + vi_k1_launches + count_k1_launches
                    + count_vi_k1_launches + mesh_k1_launches
                    + field_launches['fused_train.launches'] + harness_k1
-                   + long_k1 + stream_k1),
+                   + long_k1 + stream_k1 + process_k1),
       'max_abs_err': max(train_cases['main'][0], train_cases['grouped'][0]),
       'ms': train_cases['main'][1],
       'plain_ms': train_cases['main'][2],
@@ -2599,7 +2909,7 @@ def main(argv=None):
       'launches_by_likelihood': {
           'NORMAL': (train_launches + vi_k1_launches + mesh_k1_launches
                      + field_launches['fused_train.launches'] + harness_k1
-                     + long_k1 + stream_k1),
+                     + long_k1 + stream_k1 + process_k1),
           'NB': count_k1_launches, 'ZINB': count_vi_k1_launches},
   }, {
       # K1 at precision 'bf16': the hidden GEMMs on the tensor cores (wgmma,

@@ -167,3 +167,29 @@ def test_count_root_clamps_to_zero_and_takes_given_stats():
   j_obs = j_dist.count_obs_dist(*[jnp.asarray(p) for p in params])
   _assert_counts_close(got, j_quantiles.count_mixture_quantile_root(
       j_obs, 0.3, ensemble_axes=(0, 1)))
+
+
+@pytest.mark.parametrize('members', [64, 1020, 1021, 1920])
+def test_member_mean_sums_in_blocks_of_at_most_1020_members(members):
+  """`member_mean`, the search's mean over the members: `torch.mean` up to
+  1,020 members, past that the sums of 1,020-member blocks added in order
+  (the order CUDA keeps at any width; ROADMAP.md queue 3 item 5), held to
+  a float64 sum; the first 128 columns alone give the same bits."""
+  rng = np.random.default_rng(members)
+  x = torch.as_tensor(rng.uniform(size=(1, members, 512)).astype(np.float32))
+  got = t_quantiles.member_mean(x, (0, 1))
+  plain = x.double().reshape(members, 512).sum(dim=0) / members
+  np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-6)
+  flat = x.reshape(members, 512)
+  if members <= t_quantiles.MEMBER_BLOCK:
+    want = torch.mean(x, dim=(0, 1))
+  else:
+    want = flat[:1020].sum(dim=0)
+    for lo in range(1020, members, 1020):
+      want = want + flat[lo:lo + 1020].sum(dim=0)
+    want = want / members
+  assert torch.equal(got, want)
+  assert torch.equal(t_quantiles.member_mean(x[..., :128].contiguous(),
+                                             (0, 1)), got[:128])
+  with pytest.raises(ValueError, match='leading axes'):
+    t_quantiles.member_mean(x, (1,))
