@@ -32,7 +32,6 @@ import argparse
 import json
 import os
 import resource
-import subprocess
 import sys
 import tempfile
 import time
@@ -45,6 +44,7 @@ from bayesnf_torch.inference import predict as predict_lib
 from bayesnf_torch.models import field as field_lib
 from bayesnf_torch.models import likelihoods
 from bayesnf_torch.ops import _build
+from bayesnf_torch.utils import profiling
 
 QUANTILES = (0.5, 0.025, 0.975)
 
@@ -58,12 +58,8 @@ def _card(device):
   nvidia-smi's power limit, or 'cpu' and None."""
   if device.type != 'cuda':
     return 'cpu', None
-  line = subprocess.run(
-      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-      check=True, capture_output=True, text=True).stdout.splitlines()
-  index = device.index or 0
   return (torch.cuda.get_device_name(device),
-          line[index].split(',')[-1].strip())
+          profiling.device_kind(device).split(',')[-1].strip())
 
 
 class _DevicePeak:

@@ -21,8 +21,8 @@
   runs autograd through `field.apply_field_t` and
   `likelihoods.log_likelihood` in `ROW_CHUNK`-row chunks, summed, as the
   JAX package's chunked gradient accumulation does. Both add the prior,
-  by autograd, after the likelihood. The observation model is NORMAL, NB
-  or ZINB on both.
+  in closed form (`_prior_losses_and_grads`), after the likelihood. The
+  observation model is NORMAL, NB or ZINB on both.
 - `fit_map` keeps the `num_splits` host loop over ensemble chunks.
 - A mesh (`parallel/mesh.py`; in one process a device may repeat): the
   members, padded to a multiple of the 'ens' extent, split into groups,
@@ -140,12 +140,22 @@ def adam_update(grads, state: AdamState, learning_rate: float):
 
 
 def _prior_losses_and_grads(config, params, prior_weight):
-  """-prior_weight * prior_log_prob per member, and its gradient."""
-  leaves = [p.detach().requires_grad_(True) for p in params]
-  with torch.enable_grad():
-    losses = -prior_weight * priors.prior_log_prob(config, leaves)
-    grads = torch.autograd.grad(losses.sum(), leaves)
-  return losses.detach(), list(grads)
+  """-prior_weight * prior_log_prob per member, and its gradient, in closed
+  form.
+
+  Every leaf's prior is Logistic(loc, 1) elementwise, so with z = p - loc
+  the gradient of the loss is w - 2w / (1 + e^z), evaluated op for op as
+  autograd's backward of `priors.prior_log_prob` (w in float32), so it
+  rounds alike. Autograd would run the backward of CUDA tensors on its
+  device thread, whose graph task holds the gradients it returned until
+  that thread lets it go, which may be after the step's next allocations:
+  the closed form keeps every tensor of a step on the caller's thread.
+  """
+  weight = torch.full((), prior_weight, dtype=torch.float32,
+                      device=params[0].device)
+  grads = [weight - 2.0 * weight / (1 + torch.exp(p - spec.prior_loc))
+           for spec, p in zip(field_lib.param_specs(config), params)]
+  return -prior_weight * priors.prior_log_prob(config, params), grads
 
 
 def make_nll_and_grads(config, distribution, lik_scale, backend,

@@ -4,12 +4,14 @@
 Any block can drop a `torch.profiler` Chrome trace (`maybe_trace`) and
 report member-steps/s/chip (`StepTimer`), the port's headline throughput
 metric. CUDA runs asynchronously, so `StepTimer` synchronizes the card
-before it reads the clock.
+before it reads the clock. `device_kind` and `num_devices` label the CLI
+tools' artifacts with the card a run used.
 """
 
 import contextlib
 import dataclasses
 import os
+import subprocess
 import time
 
 import torch
@@ -51,6 +53,62 @@ class ThroughputReport:
         f'{self.num_chips} chip(s) = '
         f'{self.member_steps_per_sec_per_chip:.1f} member-steps/s/chip'
     )
+
+
+def _pci_address(bus_id):
+  """(domain, bus, device) of nvidia-smi's "00000000:19:00.0", or None
+  where it prints no address ("[N/A]")."""
+  try:
+    domain, bus, rest = bus_id.split(':')
+    return int(domain, 16), int(bus, 16), int(rest.split('.')[0], 16)
+  except ValueError:
+    return None
+
+
+def device_kind(device) -> str:
+  """The card's name and power limit as `nvidia-smi --query-gpu=name,
+  power.limit --format=csv,noheader` prints them for a CUDA `device`, else
+  'cpu'.
+
+  nvidia-smi lists every card of the host whatever CUDA_VISIBLE_DEVICES
+  hides or reorders, so the line is the one with the device's PCI address
+  or UUID. Where nvidia-smi reads neither (a virtual machine may hide
+  both), it is the line of the card that CUDA_VISIBLE_DEVICES puts at the
+  device's index.
+  """
+  device = torch.device(device)
+  if device.type != 'cuda':
+    return 'cpu'
+  index = device.index or 0
+  props = torch.cuda.get_device_properties(index)
+  pci = (props.pci_domain_id, props.pci_bus_id, props.pci_device_id)
+  uuid = f'GPU-{props.uuid}'
+  visible = os.environ.get('CUDA_VISIBLE_DEVICES')
+  physical = (str(index) if visible is None
+              else visible.split(',')[index].strip())
+  rows = [[field.strip() for field in line.split(',')]
+          for line in subprocess.run(
+              ['nvidia-smi',
+               '--query-gpu=index,uuid,pci.bus_id,name,power.limit',
+               '--format=csv,noheader'],
+              check=True, capture_output=True,
+              text=True).stdout.strip().splitlines()]
+  for by in (lambda row: _pci_address(row[2]) == pci,
+             lambda row: row[1] == uuid,
+             lambda row: physical in (row[0], row[1])):
+    for row in rows:
+      if by(row):
+        return f'{row[3]}, {row[4]}'
+  raise RuntimeError(f'nvidia-smi lists no card with cuda:{index}\'s PCI '
+                     f'address {pci}, UUID or CUDA_VISIBLE_DEVICES entry '
+                     f'{physical!r}.')
+
+
+def num_devices(device) -> int:
+  """The devices of `device`'s type: the CUDA cards, or 1 (the CPU)."""
+  if torch.device(device).type == 'cuda':
+    return torch.cuda.device_count()
+  return 1
 
 
 def _synchronize():

@@ -3,8 +3,8 @@
 `bayesnf_tpu/__init__.py` imports JAX, so importing any `bayesnf_tpu` module
 would too. The check runs in a fresh interpreter and compares
 `sys.modules` before and after the import, since an interpreter may load
-`jax` at start-up; the sources (and `chip_smoke.py` and `bench_torch.py`)
-are also scanned.
+`jax` at start-up; the sources (and `chip_smoke.py`, `bench_torch.py` and
+`stream_memory_probe.py`) are also scanned.
 """
 
 import ast
@@ -18,7 +18,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ('jax', 'jaxlib', 'bayesnf_tpu', 'triton')
 SOURCES = sorted((ROOT / 'bayesnf_torch').rglob('*.py')) + [
-    ROOT / 'chip_smoke.py', ROOT / 'bench_torch.py'
+    ROOT / 'chip_smoke.py', ROOT / 'bench_torch.py',
+    ROOT / 'stream_memory_probe.py'
 ]
 
 _PROBE = """
@@ -31,12 +32,23 @@ print(json.dumps(sorted(set(sys.modules) - before)))
 """
 
 
-def test_importing_the_port_loads_no_jax():
+# The CLI tools of `bayesnf_tpu/cli/`, each with a copy in the port.
+CLI_TOOLS = ('selftest', 'parity_run', 'baseline_headtohead', 'synthetic',
+             'evaluate_baseline', 'baseline_gp', 'baseline_nf',
+             'prepare_data')
+
+
+@pytest.fixture(scope='module')
+def added():
+  """The modules that importing every module of the port loads."""
   out = subprocess.run(
       [sys.executable, '-c', _PROBE], cwd=ROOT, check=True,
       capture_output=True, text=True, timeout=120,
   ).stdout
-  added = json.loads(out.strip().splitlines()[-1])
+  return json.loads(out.strip().splitlines()[-1])
+
+
+def test_importing_the_port_loads_no_jax(added):
   assert 'bayesnf_torch.spatiotemporal' in added
   assert 'bayesnf_torch.ops.fused_mlp' in added
   assert 'bayesnf_torch.cli.evaluate' in added
@@ -44,6 +56,13 @@ def test_importing_the_port_loads_no_jax():
   assert 'bayesnf_torch.utils.checkpoint' in added
   assert 'bayesnf_torch.parallel.streaming' in added
   assert 'bayesnf_torch.parallel.distributed' in added
+  assert [m for m in added if m.split('.')[0] in FORBIDDEN] == []
+
+
+@pytest.mark.parametrize('tool', CLI_TOOLS)
+def test_cli_tools_load_without_jax(added, tool):
+  assert f'bayesnf_torch.cli.{tool}' in added
+  assert (ROOT / 'bayesnf_tpu' / 'cli' / f'{tool}.py').exists()
   assert [m for m in added if m.split('.')[0] in FORBIDDEN] == []
 
 

@@ -168,6 +168,39 @@ def test_log_probs_and_prior_match_jax():
   np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
 
 
+@pytest.mark.parametrize('prior_weight', [1.0, 0.3, 2.5])
+@pytest.mark.parametrize('spread', [0.01, 1.0, 40.0])
+def test_closed_form_prior_gradient_matches_autograd_and_jax(prior_weight,
+                                                             spread):
+  """The trainer's prior term (`_prior_losses_and_grads`, no autograd)
+  equals autograd of `priors.prior_log_prob` bit for bit, signed zeros and
+  saturated entries included, and `jax.grad` of the JAX prior to 1e-6."""
+  j_config, t_config, _, _ = _data()
+  rng = np.random.default_rng(5)
+  specs = j_field.param_specs(j_config)
+  params = [(rng.normal(size=(MEMBERS,) + s.shape) * spread
+             + s.prior_loc).astype(np.float32) for s in specs]
+  params[0][0] = 0.0
+  params[1][0] = -0.0
+  params[-1][1] = 95.0
+  params[-1][2] = -95.0
+  leaves = [torch.as_tensor(p).requires_grad_(True) for p in params]
+  want_losses = -prior_weight * t_priors.prior_log_prob(t_config, leaves)
+  want_grads = torch.autograd.grad(want_losses.sum(), leaves)
+  got_losses, got_grads = t_map._prior_losses_and_grads(
+      t_config, [torch.as_tensor(p) for p in params], prior_weight)
+  assert torch.equal(got_losses, want_losses.detach())
+  assert len(got_grads) == len(specs)
+  for got, want in zip(got_grads, want_grads):
+    assert torch.equal(got, want)
+  j_grads = jax.grad(lambda p: -prior_weight * jnp.sum(jax.vmap(
+      lambda q: j_priors.prior_log_prob(j_config, q))(p)))(
+          tuple(jnp.asarray(p) for p in params))
+  for got, want in zip(got_grads, j_grads):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
 def test_log_likelihood_matches_jax_and_count_models_raise():
   # The count models no longer raise: NB and ZINB match the JAX package too
   # (`test_count_log_likelihood_matches_jax`).
