@@ -70,6 +70,10 @@
   inputs. Over several data shards a step's batch splits evenly over
   them. The streamed fit's results do not depend on the slice size (but
   with remix, whose window it is).
+- Spans (`utils/profiling.py`, while a profiler records): `train` is
+  `bnf.fit`; each step, over every ensemble group, `bnf.fit.step`, and in
+  it each group's batch gather `bnf.fit.batch`, loss and gradients
+  `bnf.fit.loss` (K1's call inside it `bnf.k1`) and Adam `bnf.fit.adam`.
 """
 
 from typing import NamedTuple
@@ -88,6 +92,7 @@ from bayesnf_torch.parallel import mesh as mesh_lib
 from bayesnf_torch.parallel import minibatch as minibatch_lib
 from bayesnf_torch.parallel import streaming as streaming_lib
 from bayesnf_torch.utils import checkpoint as ckpt_lib
+from bayesnf_torch.utils import profiling
 
 # Rows per autograd chunk on the 'torch' backend (the JAX package's
 # `grad_row_chunk`): one chunk's graph holds a few (E, width, ROW_CHUNK)
@@ -482,40 +487,47 @@ def train(
       for 'kernel' with a minibatch that does not split evenly over the
       data shards.
   """
-  mesh = fit_mesh(mesh, target.device)
-  n = target.shape[0]
-  batch_size = n if batch_size is None else min(int(batch_size), n)
-  check_batch_split(backend, batch_size, n, mesh.shape[mesh_lib.DATA_AXIS])
-  losses_and_grads = make_losses_and_grads(
-      config, distribution, prior_weight, backend, lik_scale=n / batch_size,
-      precision=precision)
-  rows = minibatch_lib.shard_rows(aug_t, target, mesh, config.num_inputs)
-  members = params[0].shape[0]
-  params = split_groups(params, mesh)
-  states = split_state(opt_state, mesh)
-  size = members // len(params)
-  num_batches = n // batch_size
-  history = [None if p is None else [] for p in params]
-  for epoch in range(int(num_epochs)):
-    batch = batch_rows(rows, n, batch_size,
-                       None if batch_size == n else permutations(epoch), size)
-    step_losses = [[] for _ in params]
-    for k in range(num_batches):
-      for i, state in enumerate(states):
-        if state is None:
-          continue
-        losses, grads = losses_and_grads(
-            params[i], batch(i, k),
-            exchange=distributed.shard_exchange(mesh, i))
-        updates, states[i] = adam_update(grads, state, learning_rate)
-        params[i] = tuple(p + u for p, u in zip(params[i], updates))
-        step_losses[i].append(losses)
-    for i, group in enumerate(step_losses):
-      if group:
-        history[i].append(group[0] if num_batches == 1 else
-                          torch.stack(group).mean(dim=0))
-  params, opt_state = gather_state(params, states, mesh)
-  return params, opt_state, gather_losses(history, mesh, members)
+  with profiling.span('bnf.fit'):
+    mesh = fit_mesh(mesh, target.device)
+    n = target.shape[0]
+    batch_size = n if batch_size is None else min(int(batch_size), n)
+    check_batch_split(backend, batch_size, n,
+                      mesh.shape[mesh_lib.DATA_AXIS])
+    losses_and_grads = make_losses_and_grads(
+        config, distribution, prior_weight, backend,
+        lik_scale=n / batch_size, precision=precision)
+    rows = minibatch_lib.shard_rows(aug_t, target, mesh, config.num_inputs)
+    members = params[0].shape[0]
+    params = split_groups(params, mesh)
+    states = split_state(opt_state, mesh)
+    size = members // len(params)
+    num_batches = n // batch_size
+    history = [None if p is None else [] for p in params]
+    for epoch in range(int(num_epochs)):
+      batch = batch_rows(rows, n, batch_size, None if batch_size == n
+                         else permutations(epoch), size)
+      step_losses = [[] for _ in params]
+      for k in range(num_batches):
+        with profiling.span('bnf.fit.step'):
+          for i, state in enumerate(states):
+            if state is None:
+              continue
+            with profiling.span('bnf.fit.batch'):
+              rows_ik = batch(i, k)
+            with profiling.span('bnf.fit.loss'):
+              losses, grads = losses_and_grads(
+                  params[i], rows_ik,
+                  exchange=distributed.shard_exchange(mesh, i))
+            with profiling.span('bnf.fit.adam'):
+              updates, states[i] = adam_update(grads, state, learning_rate)
+              params[i] = tuple(p + u for p, u in zip(params[i], updates))
+            step_losses[i].append(losses)
+      for i, group in enumerate(step_losses):
+        if group:
+          history[i].append(group[0] if num_batches == 1 else
+                            torch.stack(group).mean(dim=0))
+    params, opt_state = gather_state(params, states, mesh)
+    return params, opt_state, gather_losses(history, mesh, members)
 
 
 def init_ensemble(config, ensemble_size, seed: int, log_noise_init, device):

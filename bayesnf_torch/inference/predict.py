@@ -34,6 +34,11 @@ slices are gathered in cell order on every rank (`distributed.host_leaves`),
 and every rank then runs the search over all rows on its first device, as
 the single-process mesh does on its own: the results are the same on every
 rank by construction.
+
+While a profiler records (`utils/profiling.py`), the in-memory predict's
+forward is the `bnf.predict.forward` span, `summaries` the
+`bnf.predict.summaries` span, and each quantile's search a
+`bnf.predict.quantile` span (`quantiles.py`).
 """
 
 import numpy as np
@@ -47,6 +52,7 @@ from bayesnf_torch.models import likelihoods
 from bayesnf_torch.ops import fused_mlp
 from bayesnf_torch.parallel import distributed
 from bayesnf_torch.parallel import mesh as mesh_lib
+from bayesnf_torch.utils import profiling
 
 
 def device_chunk_rows(chunk_size: int, mesh=None) -> int:
@@ -224,14 +230,16 @@ def summaries(distribution, fp, valid):
   max, which no order of rows changes, so the streamed predict folds them
   chunk by chunk (`fold_summaries`) to these very values.
   """
-  if likelihoods.LikelihoodDist(distribution) == (
-      likelihoods.LikelihoodDist.NORMAL):
-    means = fp[0]
-    return means, (torch.amin(means[:, :valid]), torch.amax(means[:, :valid]))
-  obs_d = dist_lib.count_obs_dist(*fp)
-  means = obs_d.mean()
-  return means, (torch.amax(means[:, :valid]),
-                 torch.amax(obs_d.stddev()[:, :valid]))
+  with profiling.span('bnf.predict.summaries'):
+    if likelihoods.LikelihoodDist(distribution) == (
+        likelihoods.LikelihoodDist.NORMAL):
+      means = fp[0]
+      return means, (torch.amin(means[:, :valid]),
+                     torch.amax(means[:, :valid]))
+    obs_d = dist_lib.count_obs_dist(*fp)
+    means = obs_d.mean()
+    return means, (torch.amax(means[:, :valid]),
+                   torch.amax(obs_d.stddev()[:, :valid]))
 
 
 def fold_summaries(distribution, stats, more):
@@ -385,11 +393,13 @@ def predict_bnf(
         approximate_quantiles=approximate_quantiles, chunk_size=chunk_size,
         backend=backend, mesh=mesh, stream_chunk_rows=stream_chunk_rows)
   distribution = likelihoods.LikelihoodDist(observation_model)
-  features, params_flat, ens_shape, backend, mesh = _prepare_predict_inputs(
-      features, params, config, ensemble_dims, backend, mesh)
-  n = features.shape[0]
-  fp = _padded_forecast_params(config, distribution, params_flat, features,
-                               chunk_size, backend, mesh)
+  with profiling.span('bnf.predict.forward'):
+    features, params_flat, ens_shape, backend, mesh = (
+        _prepare_predict_inputs(features, params, config, ensemble_dims,
+                                backend, mesh))
+    n = features.shape[0]
+    fp = _padded_forecast_params(config, distribution, params_flat,
+                                 features, chunk_size, backend, mesh)
   del features  # Off the device before the search, which needs only fp.
   means, stats = summaries(distribution, fp, n)
   q = quantile_rows(distribution, fp, ens_shape,

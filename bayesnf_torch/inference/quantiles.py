@@ -13,6 +13,10 @@
 - The mixture CDF's mean over the members (`member_mean`) takes one order
   of sums whatever the number of rows, so a chunk of rows searched alone
   gives the whole table's bits (`inference/predict_stream.py`).
+- While a profiler records, each search is a `bnf.predict.quantile` span
+  and counts its iterations (`ITERATIONS_RUN`) and those it needed
+  (`ITERATIONS_NEEDED`: until every lane had converged; the rest leave the
+  roots as they are), on the device, for `utils/profiling.counters`.
 """
 
 import math
@@ -20,6 +24,7 @@ import math
 import torch
 
 from bayesnf_torch.ops import special
+from bayesnf_torch.utils import profiling
 
 
 # The members a sum over the ensemble axes takes in one piece. On CUDA, a
@@ -30,6 +35,9 @@ from bayesnf_torch.ops import special
 # columns, `chip_smoke.py` phase 16 (d)), while sums of blocks of 1,020
 # members, added in order, agree at every width.
 MEMBER_BLOCK = 1020
+
+ITERATIONS_RUN = 'bnf.rootfind.iterations_run'
+ITERATIONS_NEEDED = 'bnf.rootfind.iterations_needed'
 
 
 def member_mean(x, axis):
@@ -94,7 +102,11 @@ def find_root_chandrupatla(
   def safe(d):
     return torch.where(d == 0, torch.ones_like(d), d)
 
+  counting = profiling.recording()
+  settled = []  # Whether every lane had converged as each iteration began.
   for _ in range(max_iterations):
+    if counting:
+      settled.append(converged.all())
     xt = a + t * (b - a)
     ft = f(xt)
 
@@ -145,6 +157,10 @@ def find_root_chandrupatla(
     t = torch.clamp(t, min=tlim, max=1.0 - tlim)
 
     a, b, c, fa, fb, fc = a2, b2, c2, fa2, fb2, fc2
+  if counting:
+    profiling.count(ITERATIONS_RUN, max_iterations)
+    profiling.count(ITERATIONS_NEEDED,
+                    (~torch.stack(settled)).sum() if settled else 0)
   return best_x
 
 
@@ -165,14 +181,15 @@ def normal_mixture_quantile_root(means, scales, q, axis=(0, 1), stats=None):
   def f(x):
     return member_mean(special.normal_cdf(x, means, scales), axis) - q
 
-  if stats is None:
-    stats = (torch.amin(means), torch.amax(means), torch.amax(scales))
-  min_mean, max_mean, max_scale = stats
-  low = min_mean - 5.0 * max_scale
-  high = max_mean + 5.0 * max_scale
-  return find_root_chandrupatla(
-      f, low, high, value_tolerance=1e-5, max_iterations=60
-  )
+  with profiling.span('bnf.predict.quantile'):
+    if stats is None:
+      stats = (torch.amin(means), torch.amax(means), torch.amax(scales))
+    min_mean, max_mean, max_scale = stats
+    low = min_mean - 5.0 * max_scale
+    high = max_mean + 5.0 * max_scale
+    return find_root_chandrupatla(
+        f, low, high, value_tolerance=1e-5, max_iterations=60
+    )
 
 
 def normal_mixture_quantile_approx(means, scales, q, axis=(0, 1)):
@@ -230,12 +247,14 @@ def count_mixture_quantile_root(dist, q, ensemble_axes=(0, 1), stats=None):
   def f(x):
     return member_mean(dist.cdf(x), ensemble_axes) - q.to(x.device)
 
-  if stats is None:
-    stats = (torch.amax(dist.mean()), torch.amax(dist.stddev()))
-  max_mean, max_std = stats
-  high = max_mean + 1.1 * torch.rsqrt(1.0 - q).to(max_mean.device) * max_std
-  root = find_root_chandrupatla(
-      f, 0.0, high, value_tolerance=1e-5, max_iterations=60)
-  prob_zero = member_mean(dist.prob(0.0), ensemble_axes)
-  return torch.ceil(torch.where(prob_zero > q.to(root.device),
-                                torch.zeros_like(root), root))
+  with profiling.span('bnf.predict.quantile'):
+    if stats is None:
+      stats = (torch.amax(dist.mean()), torch.amax(dist.stddev()))
+    max_mean, max_std = stats
+    high = (max_mean
+            + 1.1 * torch.rsqrt(1.0 - q).to(max_mean.device) * max_std)
+    root = find_root_chandrupatla(
+        f, 0.0, high, value_tolerance=1e-5, max_iterations=60)
+    prob_zero = member_mean(dist.prob(0.0), ensemble_axes)
+    return torch.ceil(torch.where(prob_zero > q.to(root.device),
+                                  torch.zeros_like(root), root))

@@ -54,6 +54,14 @@ rows on the host (`streaming.step_sample`), shared by every surrogate and
 draw (K1's shared (D, B) input), or with `stream_member_remix` each
 member's own remix of the slice (grouped inputs); the generator then draws
 only the noise.
+
+Spans (`utils/profiling.py`, while a profiler records): `train` is
+`bnf.fit`; each step, over every ensemble group, `bnf.fit.step`, and in
+it the noise and batch permutation `bnf.fit.draws`, then each group's
+batch gather `bnf.fit.batch`, negative ELBO `bnf.fit.loss` (K1's call
+inside it `bnf.k1`), autograd's backward `bnf.fit.backward` and Adam
+`bnf.fit.adam` (the last three in `make_step`, so the streamed fit has
+them too).
 """
 
 import numpy as np
@@ -69,6 +77,7 @@ from bayesnf_torch.parallel import mesh as mesh_lib
 from bayesnf_torch.parallel import minibatch as minibatch_lib
 from bayesnf_torch.parallel import streaming as streaming_lib
 from bayesnf_torch.utils import checkpoint as ckpt_lib
+from bayesnf_torch.utils import profiling
 
 # softplus_inverse(0.3), in double and rounded to float32 as the JAX package
 # takes it.
@@ -173,11 +182,15 @@ def make_step(config, distribution, lik_scale, learning_rate, backend,
               for p in (*surrogate[0], *surrogate[1])]
     num = len(leaves) // 2
     with torch.enable_grad():
-      losses = elbo_losses(leaves[:num], leaves[num:], noise, *rows,
-                           exchange=exchange)
-      grads = torch.autograd.grad(losses.sum(), leaves)
-    updates, opt_state = map_lib.adam_update(grads, opt_state, learning_rate)
-    new = tuple(p.detach() + u for p, u in zip(leaves, updates))
+      with profiling.span('bnf.fit.loss'):
+        losses = elbo_losses(leaves[:num], leaves[num:], noise, *rows,
+                             exchange=exchange)
+      with profiling.span('bnf.fit.backward'):
+        grads = torch.autograd.grad(losses.sum(), leaves)
+    with profiling.span('bnf.fit.adam'):
+      updates, opt_state = map_lib.adam_update(grads, opt_state,
+                                               learning_rate)
+      new = tuple(p.detach() + u for p, u in zip(leaves, updates))
     return (new[:num], new[num:]), opt_state, losses.detach()
 
   return step
@@ -202,42 +215,47 @@ def train(surrogate, opt_state, aug_t, target, config, distribution,
   Raises:
     ValueError: as `map.train`.
   """
-  mesh = map_lib.fit_mesh(mesh, target.device)
-  shards = mesh.shape[mesh_lib.DATA_AXIS]
-  n = target.shape[0]
-  members = surrogate[0][0].shape[0]
-  map_lib.check_batch_split(backend, batch_size, n, shards)
-  step = make_step(config, distribution, (n / batch_size) / kl_weight,
-                   learning_rate, backend, precision)
-  rows = minibatch_lib.shard_rows(aug_t, target, mesh, config.num_inputs)
-  local_rows, counts = minibatch_lib.shard_counts(n, shards)
-  surrogates = split_surrogate(surrogate, mesh)
-  states = map_lib.split_state(opt_state, mesh)
-  size = members // len(surrogates)
-  history = [None if s is None else [] for s in surrogates]
-  for t in range(int(num_steps)):
-    eps = map_lib.split_groups(
-        draw_noise(config, members, sample_size, generator)
-        if noise is None else noise(t), mesh)
-    if batch_size == n:
-      perms = None
-    elif shards > 1 and batch_size % shards == 0:
-      perms = [minibatch_lib.local_permutations(
-          generator, members, local_rows, n_s, batch_size // shards)
-               for n_s in counts]
-    else:
-      perms = map_lib.random_permutations(generator, members, n)
-    batch = map_lib.batch_rows(rows, n, batch_size, perms, size)
-    for i, state in enumerate(states):
-      if state is None:
-        continue
-      surrogates[i], states[i], losses = step(
-          surrogates[i], state, eps[i], batch(i, 0),
-          exchange=distributed.shard_exchange(mesh, i))
-      history[i].append(losses)
-  surrogate, opt_state = gather_surrogate(surrogates, states, mesh)
-  return (surrogate, opt_state,
-          map_lib.gather_losses(history, mesh, members) * kl_weight)
+  with profiling.span('bnf.fit'):
+    mesh = map_lib.fit_mesh(mesh, target.device)
+    shards = mesh.shape[mesh_lib.DATA_AXIS]
+    n = target.shape[0]
+    members = surrogate[0][0].shape[0]
+    map_lib.check_batch_split(backend, batch_size, n, shards)
+    step = make_step(config, distribution, (n / batch_size) / kl_weight,
+                     learning_rate, backend, precision)
+    rows = minibatch_lib.shard_rows(aug_t, target, mesh, config.num_inputs)
+    local_rows, counts = minibatch_lib.shard_counts(n, shards)
+    surrogates = split_surrogate(surrogate, mesh)
+    states = map_lib.split_state(opt_state, mesh)
+    size = members // len(surrogates)
+    history = [None if s is None else [] for s in surrogates]
+    for t in range(int(num_steps)):
+      with profiling.span('bnf.fit.step'):
+        with profiling.span('bnf.fit.draws'):
+          eps = map_lib.split_groups(
+              draw_noise(config, members, sample_size, generator)
+              if noise is None else noise(t), mesh)
+          if batch_size == n:
+            perms = None
+          elif shards > 1 and batch_size % shards == 0:
+            perms = [minibatch_lib.local_permutations(
+                generator, members, local_rows, n_s, batch_size // shards)
+                     for n_s in counts]
+          else:
+            perms = map_lib.random_permutations(generator, members, n)
+        batch = map_lib.batch_rows(rows, n, batch_size, perms, size)
+        for i, state in enumerate(states):
+          if state is None:
+            continue
+          with profiling.span('bnf.fit.batch'):
+            rows_i = batch(i, 0)
+          surrogates[i], states[i], losses = step(
+              surrogates[i], state, eps[i], rows_i,
+              exchange=distributed.shard_exchange(mesh, i))
+          history[i].append(losses)
+    surrogate, opt_state = gather_surrogate(surrogates, states, mesh)
+    return (surrogate, opt_state,
+            map_lib.gather_losses(history, mesh, members) * kl_weight)
 
 
 def split_surrogate(surrogate, mesh):

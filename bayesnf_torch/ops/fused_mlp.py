@@ -44,6 +44,7 @@ from bayesnf_torch.models import field as field_lib
 from bayesnf_torch.models import likelihoods
 from bayesnf_torch.ops import _build
 from bayesnf_torch.ops import mixed
+from bayesnf_torch.utils import profiling
 
 _T_LIB_NAME = 'fused_mlp_t'
 _TRAIN_LIB_NAME = 'fused_train'
@@ -473,7 +474,8 @@ def fused_field_mlp_t(
   through the result launches K3 (counted in
   `fused_field_mlp_t.bwd_launches`), which returns the gradient of every
   group, weight, bias, `scales_raw` and `logit` (the JAX package's
-  `_forward_t_bwd`); without a graph (as in predict) no K3 runs.
+  `_forward_t_bwd`); without a graph (as in predict) no K3 runs. The call
+  is the `bnf.k2` span (`utils/profiling.py`).
 
   Args:
     depth: hidden layers.
@@ -498,12 +500,13 @@ def fused_field_mlp_t(
     RuntimeError: if a kernel fails to build or to launch, or a tensor map
       of the 'bf16' products is refused.
   """
-  tensors = (*h0_groups, *weights, *biases, scales_raw, logit)
-  if not _on_cuda('features', precision, tensors):
-    return fused_field_mlp_t_reference(depth, h0_groups, weights, biases,
-                                       scales_raw, logit, precision)
-  return _FusedFieldMlp.apply('features', depth, precision, len(h0_groups),
-                              *tensors)
+  with profiling.span('bnf.k2'):
+    tensors = (*h0_groups, *weights, *biases, scales_raw, logit)
+    if not _on_cuda('features', precision, tensors):
+      return fused_field_mlp_t_reference(depth, h0_groups, weights, biases,
+                                         scales_raw, logit, precision)
+    return _FusedFieldMlp.apply('features', depth, precision,
+                                len(h0_groups), *tensors)
 
 
 fused_field_mlp_t.launches = 0
@@ -911,7 +914,8 @@ def fused_train(
   `subtiles`. On CPU tensors it returns :func:`fused_train_reference`; on
   CUDA tensors it launches the kernels of `csrc/fused_train.cu` on the
   current stream and counts the call in `fused_train.launches` (and a
-  'bf16' call in `fused_train.bf16_launches` too).
+  'bf16' call in `fused_train.bf16_launches` too). The call is the
+  `bnf.k1` span (`utils/profiling.py`).
 
   Args:
     distribution: 'NORMAL' | 'NB' | 'ZINB'.
@@ -958,36 +962,37 @@ def fused_train(
       for shapes, dtypes, devices or layouts the kernel does not take.
     RuntimeError: if the kernel fails to build or to launch.
   """
-  _check_call(distribution, precision, n_valid, x_t.shape[-1])
-  _input_layout(weights[0].shape[0], x_t, seasonal_t, y)
-  tensors = (x_t, seasonal_t, *weights, *biases, lsa, fs_raw, scales_raw,
-             logit, obs_raw, y)
-  if all(t.device.type == 'cpu' for t in tensors):
-    return fused_train_reference(
-        distribution, depth, lik_scale, input_scales, fourier_degrees,
-        interactions, x_t, seasonal_t, weights, biases, lsa, fs_raw,
-        scales_raw, logit, obs_raw, y, precision, n_valid,
-    )
-  if x_t.device.type != 'cuda':
-    raise ValueError(
-        f'fused_train runs on CUDA or CPU tensors, got {x_t.device}.'
-    )
-  dims = _check_train_inputs(
-      depth, input_scales, fourier_degrees, interactions, x_t, seasonal_t,
-      weights, biases, lsa, fs_raw, scales_raw, logit, obs_raw, y,
-      distribution,
-  )
-  lib = _train_lib()
-  with torch.cuda.device(x_t.device):
-    outs = _launch_fused_train(
-        lib, torch.cuda.current_stream().cuda_stream, dims, depth, lik_scale,
-        input_scales, fourier_degrees, interactions, x_t, seasonal_t,
+  with profiling.span('bnf.k1'):
+    _check_call(distribution, precision, n_valid, x_t.shape[-1])
+    _input_layout(weights[0].shape[0], x_t, seasonal_t, y)
+    tensors = (x_t, seasonal_t, *weights, *biases, lsa, fs_raw, scales_raw,
+               logit, obs_raw, y)
+    if all(t.device.type == 'cpu' for t in tensors):
+      return fused_train_reference(
+          distribution, depth, lik_scale, input_scales, fourier_degrees,
+          interactions, x_t, seasonal_t, weights, biases, lsa, fs_raw,
+          scales_raw, logit, obs_raw, y, precision, n_valid,
+      )
+    if x_t.device.type != 'cuda':
+      raise ValueError(
+          f'fused_train runs on CUDA or CPU tensors, got {x_t.device}.'
+      )
+    dims = _check_train_inputs(
+        depth, input_scales, fourier_degrees, interactions, x_t, seasonal_t,
         weights, biases, lsa, fs_raw, scales_raw, logit, obs_raw, y,
-        distribution, precision, n_valid,
+        distribution,
     )
-  fused_train.launches += 1
-  fused_train.bf16_launches += precision == 'bf16'
-  return outs
+    lib = _train_lib()
+    with torch.cuda.device(x_t.device):
+      outs = _launch_fused_train(
+          lib, torch.cuda.current_stream().cuda_stream, dims, depth,
+          lik_scale, input_scales, fourier_degrees, interactions, x_t,
+          seasonal_t, weights, biases, lsa, fs_raw, scales_raw, logit,
+          obs_raw, y, distribution, precision, n_valid,
+      )
+    fused_train.launches += 1
+    fused_train.bf16_launches += precision == 'bf16'
+    return outs
 
 
 fused_train.launches = 0

@@ -53,6 +53,7 @@ from bayesnf_torch.models import distributions as dist_lib
 from bayesnf_torch.models import field as field_lib
 from bayesnf_torch.models import likelihoods
 from bayesnf_torch.parallel import mesh as mesh_lib
+from bayesnf_torch.utils import profiling
 
 ARTIFACT_FORMAT = 'bayesnf-tpu-estimator-v1'
 
@@ -274,20 +275,22 @@ class BayesianNeuralFieldEstimator:
       ValueError: if the estimator is unfitted.
     """
     self._require_fitted('predict with')
-    test_data = self.data_handler.get_test(table)
-    return predict_lib.predict_bnf(
-        test_data,
-        self.observation_model,
-        params=self.params_,
-        config=self._field_config(test_data.shape),
-        quantiles=quantiles,
-        ensemble_dims=self._ensemble_dims,
-        approximate_quantiles=approximate_quantiles,
-        backend=backend,
-        mesh=self.mesh_,
-        stream_chunk_rows=stream_chunk_rows,
-        stream_cache_bytes=stream_cache_bytes,
-    )
+    with profiling.span('bnf.predict'):
+      with profiling.span('bnf.predict.handler'):
+        test_data = self.data_handler.get_test(table)
+      return predict_lib.predict_bnf(
+          test_data,
+          self.observation_model,
+          params=self.params_,
+          config=self._field_config(test_data.shape),
+          quantiles=quantiles,
+          ensemble_dims=self._ensemble_dims,
+          approximate_quantiles=approximate_quantiles,
+          backend=backend,
+          mesh=self.mesh_,
+          stream_chunk_rows=stream_chunk_rows,
+          stream_cache_bytes=stream_cache_bytes,
+      )
 
   def likelihood_model(self, table, backend='auto', stream_chunk_rows=None,
                        stream_cache_bytes=None):

@@ -1,21 +1,128 @@
-"""Profiling hooks: trace capture and throughput counters (counterpart of
-`bayesnf_tpu/utils/profiling.py`).
+"""Profiling hooks: trace capture, the program's spans and counters, and
+throughput counters (counterpart of `bayesnf_tpu/utils/profiling.py`).
 
 Any block can drop a `torch.profiler` Chrome trace (`maybe_trace`) and
 report member-steps/s/chip (`StepTimer`), the port's headline throughput
 metric. CUDA runs asynchronously, so `StepTimer` synchronizes the card
 before it reads the clock. `device_kind` and `num_devices` label the CLI
 tools' artifacts with the card a run used.
+
+The estimator, the predict, the root-find, the trainers and the kernels'
+entries mark their layers with `span('bnf.<layer>')`. A span records only
+while a `torch.profiler` records; otherwise it costs one flag check and a
+shared no-op context. Recording, it opens a `record_function` range of its
+name, so the span lands in the profiler's trace on the kernels' clock, and
+adds its calls, host seconds and self seconds (less its child spans) to a
+table in memory (`span_table`). `count` adds to named counters
+(`counters`), which may be device tensors, read once at the end.
+`reset` empties both.
 """
 
 import contextlib
 import dataclasses
 import os
 import subprocess
+import threading
 import time
 
 import torch
+import torch.autograd.profiler as autograd_profiler
 import torch.profiler
+
+_OFF = contextlib.nullcontext()
+_LOCK = threading.Lock()
+_OPEN = threading.local()  # Each thread's stack of open spans.
+
+
+@dataclasses.dataclass
+class SpanStats:
+  """What the spans of one name recorded: calls, host seconds from entry to
+  exit, and the part of those that no child span covers."""
+
+  calls: int = 0
+  host_s: float = 0.0
+  self_s: float = 0.0
+
+
+_SPANS: dict[str, SpanStats] = {}
+_COUNTERS: dict = {}
+
+
+def recording() -> bool:
+  """Whether a `torch.profiler` (or `torch.autograd.profiler`) records."""
+  return autograd_profiler._is_profiler_enabled  # pylint: disable=protected-access
+
+
+class _Span:
+  """One recording span: its `record_function` range and its clock."""
+
+  __slots__ = ('name', 'range', 'start', 'children')
+
+  def __init__(self, name):
+    self.name = name
+
+  def __enter__(self):
+    stack = getattr(_OPEN, 'stack', None)
+    if stack is None:
+      stack = _OPEN.stack = []
+    stack.append(self)
+    self.children = 0.0
+    self.range = torch.profiler.record_function(self.name)
+    self.range.__enter__()
+    self.start = time.perf_counter()
+    return self
+
+  def __exit__(self, *exc):
+    host = time.perf_counter() - self.start
+    self.range.__exit__(*exc)
+    stack = _OPEN.stack
+    stack.pop()
+    if stack:
+      stack[-1].children += host
+    with _LOCK:
+      stats = _SPANS.setdefault(self.name, SpanStats())
+      stats.calls += 1
+      stats.host_s += host
+      stats.self_s += host - self.children
+    return False
+
+
+def span(name: str):
+  """A context for the layer `name` (`bnf.` and the layer): a
+  `record_function` range and a row of `span_table` while a profiler
+  records, else a no-op."""
+  if not autograd_profiler._is_profiler_enabled:  # pylint: disable=protected-access
+    return _OFF
+  return _Span(name)
+
+
+def span_table() -> dict[str, SpanStats]:
+  """A copy of the spans' table: name -> `SpanStats`."""
+  with _LOCK:
+    return {k: dataclasses.replace(v) for k, v in _SPANS.items()}
+
+
+def count(name: str, value):
+  """Adds `value` (an int, or a 0-d tensor left on its device) to the
+  counter `name`."""
+  with _LOCK:
+    total = _COUNTERS.get(name, 0)
+    if isinstance(total, torch.Tensor) and isinstance(value, torch.Tensor):
+      value = value.to(total.device)
+    _COUNTERS[name] = total + value
+
+
+def counters() -> dict[str, int]:
+  """The counters as ints (a device counter synchronizes here, once)."""
+  with _LOCK:
+    return {k: int(v) for k, v in _COUNTERS.items()}
+
+
+def reset():
+  """Empties the spans' table and the counters."""
+  with _LOCK:
+    _SPANS.clear()
+    _COUNTERS.clear()
 
 
 @contextlib.contextmanager
