@@ -11,8 +11,9 @@ program is not carried over: see `backends.py`.
 
 The rows are padded with zero rows up to a whole number of chunks, as the
 JAX package pads them, and the padding is dropped from every result. So the
-forward only ever sees whole chunks, and the quantile search only the valid
-rows rounded up to a multiple of `SEARCH_ROWS`: the streamed predict
+forward only ever sees whole chunks, and the plain quantile search only the
+valid rows rounded up to a multiple of `SEARCH_ROWS` (the 'kernel'
+backend's NORMAL search kernel, only the valid rows): the streamed predict
 (`predict_stream.py`) makes the same calls chunk by chunk, which keeps it
 bit for bit equal to this one on either backend.
 
@@ -37,8 +38,10 @@ rank by construction.
 
 While a profiler records (`utils/profiling.py`), the in-memory predict's
 forward is the `bnf.predict.forward` span, `summaries` the
-`bnf.predict.summaries` span, and each quantile's search a
-`bnf.predict.quantile` span (`quantiles.py`).
+`bnf.predict.summaries` span, and each quantile's plain search, or the
+search kernel's launch for all of them (one for up to 32), a
+`bnf.predict.quantile` span
+(`quantiles.py`).
 """
 
 import numpy as np
@@ -261,12 +264,25 @@ SEARCH_ROWS = 128
 
 
 def quantile_rows(distribution, fp, ens_shape, quantiles, approximate,
-                  stats, valid):
+                  stats, valid, backend):
   """(num quantiles, valid) mixture quantiles of the first `valid` rows of
-  flat forecast parameters `fp` on the bracket of `stats` (`summaries`)."""
+  flat forecast parameters `fp` on the bracket of `stats` (`summaries`).
+
+  Under the 'kernel' backend (resolved) the exact NORMAL quantiles take the
+  search kernel, one launch for up to 32 of them
+  (`quantiles.normal_mixture_quantiles_kernel`), on the valid rows alone:
+  its sum over the members takes one order whatever the rows. Everything
+  else (the 'torch' backend, the count models, approximate quantiles) takes
+  the plain search over the valid rows rounded up to SEARCH_ROWS.
+  """
   axis = tuple(range(len(ens_shape)))
   if not quantiles:
     return torch.empty((0, valid), device=fp[0].device)
+  normal = likelihoods.LikelihoodDist(distribution) == (
+      likelihoods.LikelihoodDist.NORMAL)
+  if backend == 'kernel' and normal and not approximate:
+    return quantiles_lib.normal_mixture_quantiles_kernel(
+        fp[0][:, :valid], fp[1], quantiles, stats)
   searched = -(-valid // SEARCH_ROWS) * SEARCH_ROWS
   fp = tuple(f if f.ndim == 1 else f[:, :searched] if f.shape[1] >= searched
              else torch.nn.functional.pad(f, (0, searched - f.shape[1]))
@@ -275,8 +291,7 @@ def quantile_rows(distribution, fp, ens_shape, quantiles, approximate,
   def expand(leaf):
     return leaf.reshape(ens_shape + tuple(leaf.shape[1:]))
 
-  if likelihoods.LikelihoodDist(distribution) == (
-      likelihoods.LikelihoodDist.NORMAL):
+  if normal:
     q = quantiles_lib.normal_mixture_quantiles(
         expand(fp[0]), expand(fp[1]), quantiles, axis, approximate,
         stats=stats)
@@ -404,6 +419,6 @@ def predict_bnf(
   means, stats = summaries(distribution, fp, n)
   q = quantile_rows(distribution, fp, ens_shape,
                     tuple(float(q) for q in quantiles),
-                    approximate_quantiles, stats, n)
+                    approximate_quantiles, stats, n, backend)
   return (_valid_rows(means, n).reshape(ens_shape + (n,)),
           list(q.unbind(0)))

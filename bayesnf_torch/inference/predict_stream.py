@@ -17,12 +17,14 @@ larger than the card (`parallel/streaming.py`) can also predict on it.
   bracket. Both passes make the in-memory predict's calls: host chunks are
   whole device chunks (`chunk_size`, the last padded with zero rows as the
   in-memory predict pads its tail), so the forward sees the same chunks,
-  and every quantile search runs on the valid rows rounded up to a
+  and every plain quantile search runs on the valid rows rounded up to a
   multiple of `predict.SEARCH_ROWS`, whose sums over the members take one
   order whatever the width (`quantiles.member_mean`: past 1,020 members
   CUDA's own reduction would split the sums over thread blocks by the
   width, so they go in blocks of 1,020 added in order; held on an H100 at
-  1,920 members, `chip_smoke.py` phase 16). The results are the
+  1,920 members, `chip_smoke.py` phase 16); the 'kernel' backend's NORMAL
+  search kernel runs on the valid rows and sums in an order set by the
+  member count alone. The results are the
   in-memory predict's bit for bit (tested), but the approximate quantiles,
   which are held to rounding (rtol 1e-6) as in the JAX package.
 - **No device cache.** Pass 2 re-uploads the leaves it searches on (the
@@ -313,7 +315,7 @@ def predict_bnf_streamed(
                for i in range(len(scalars) + len(searched)))
     q = predict_lib.quantile_rows(
         distribution, fp, ens_shape, quantiles, approximate_quantiles, stats,
-        hi - lo)
+        hi - lo, backend)
     uploads.release(current)
 
     def store(arrays, lo=lo, hi=hi):

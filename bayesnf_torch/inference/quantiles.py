@@ -13,16 +13,24 @@
 - The mixture CDF's mean over the members (`member_mean`) takes one order
   of sums whatever the number of rows, so a chunk of rows searched alone
   gives the whole table's bits (`inference/predict_stream.py`).
+- NORMAL, exact, on the 'kernel' backend: the same search in one launch of
+  `ops/mixture_quantile.py`'s kernel for up to 32 quantiles of every row,
+  each row stopping when it converges (`normal_mixture_quantiles_kernel`).
 - While a profiler records, each search is a `bnf.predict.quantile` span
   and counts its iterations (`ITERATIONS_RUN`) and those it needed
   (`ITERATIONS_NEEDED`: until every lane had converged; the rest leave the
-  roots as they are), on the device, for `utils/profiling.counters`.
+  roots as they are), on the device, for `utils/profiling.counters`. The
+  kernel's launch is one span for all its quantiles; for each quantile it
+  counts the most iterations a row ran, under both names, so their ratio
+  reads 1 there by construction (a row runs no iteration it does not
+  need), and `KERNEL_SEARCHES` counts its quantiles.
 """
 
 import math
 
 import torch
 
+from bayesnf_torch.ops import mixture_quantile
 from bayesnf_torch.ops import special
 from bayesnf_torch.utils import profiling
 
@@ -38,6 +46,7 @@ MEMBER_BLOCK = 1020
 
 ITERATIONS_RUN = 'bnf.rootfind.iterations_run'
 ITERATIONS_NEEDED = 'bnf.rootfind.iterations_needed'
+KERNEL_SEARCHES = 'bnf.rootfind.kernel_searches'
 
 
 def member_mean(x, axis):
@@ -225,6 +234,36 @@ def normal_mixture_quantiles(
     stats = (*stats, torch.amax(scales))
   return [normal_mixture_quantile_root(means, scales, q, axis, stats=stats)
           for q in quantiles]
+
+
+def normal_mixture_quantiles_kernel(means, scales, quantiles, stats):
+  """`normal_mixture_quantiles` over one member axis, by the search kernel
+  (`ops/mixture_quantile.py`): up to 32 quantiles a launch, each row
+  stopping when it converges.
+
+  Args:
+    means: (K, N) float32 CUDA member means, rows contiguous.
+    scales: (K,) member scales.
+    quantiles: sequence of quantiles in (0, 1).
+    stats: (min_mean, max_mean) over all rows, as for
+      `normal_mixture_quantiles`.
+
+  Returns:
+    (num quantiles, N) tensor of mixture quantiles.
+  """
+  with profiling.span('bnf.predict.quantile'):
+    stats = (*stats, torch.amax(scales))
+    counting = profiling.recording()
+    most = (torch.zeros(len(quantiles), dtype=torch.int32,
+                        device=means.device) if counting else None)
+    roots = mixture_quantile.mixture_quantiles(means, scales, quantiles,
+                                               stats, most)
+    if counting:
+      ran = most.sum()
+      profiling.count(ITERATIONS_RUN, ran)
+      profiling.count(ITERATIONS_NEEDED, ran)
+      profiling.count(KERNEL_SEARCHES, len(quantiles))
+    return roots
 
 
 def count_mixture_quantile_root(dist, q, ensemble_axes=(0, 1), stats=None):

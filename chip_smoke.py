@@ -9,9 +9,10 @@ CUDA toolkit (nvcc). It imports nothing of JAX. Phases, one line each:
 1. Refuse to run without CUDA; print the card's name and power limit.
 2. Build the field MLP in both layouts (K2 and K3 features-major, K4a and
    K4b row-major, all layer-wise: `bayesnf_torch/ops/csrc/fused_mlp_t.cu` on
-   `field_layers.cuh`) and the K1 training kernel (`.../fused_train.cu`)
-   with nvcc from the checkout's sources, the two compiles started
-   together; print ptxas's registers, spills and shared memory.
+   `field_layers.cuh`), the K1 training kernel (`.../fused_train.cu`) and
+   the Normal-mixture quantile search (`.../mixture_quantile.cu`) with nvcc
+   from the checkout's sources, the three compiles started together; print
+   ptxas's registers, spills and shared memory.
 3. Hold K2 against its plain PyTorch version on the card, at the serving
    path's shapes (64 members, 49 features, 4096 rows, width 512, depth 2)
    and at a ragged row count, widths 100 (not a multiple of 8), 256 and
@@ -35,6 +36,19 @@ CUDA toolkit (nvcc). It imports nothing of JAX. Phases, one line each:
    product and the weight gradient, at M = 49, a width of 100 (not a
    multiple of 8) and ragged K, the padding of every operand row NaN; time
    the forward-sized case (64 x 512 x 8,192 x 512).
+3q. Hold the quantile search kernel (`ops/mixture_quantile.py`) against
+   the plain search (`quantiles.normal_mixture_quantiles`) on the card at
+   the air_quality VI predict's search (480 members x 38,144 rows, three
+   quantiles), at 16 and 1,920 members, at a ragged 4,100 rows, and at
+   4,100 rows of 184 members (the largest tile's last), 3,100 and 4,096
+   (past what shared memory stages: the means read from device memory):
+   one launch a call, every root within 1e-3 of the largest scale of the
+   plain one and within 2e-5 of its quantile on the float64 mixture CDF, a
+   second call bit for bit, and the rows in two chunks bit for bit the
+   whole, their iterations summed the whole's; the kernel's ms (CUDA
+   events, no counters), the plain search's device ms (torch.profiler) and
+   wall ms, and the bound (the floor of the FLOPs at the iterations the
+   rows ran, which the kernel sums).
 3t. Hold K1 against its plain PyTorch version (autograd) on the card: the
    loss and every gradient, at the training path's shapes (64 members,
    inputs (3, N), 16 seasonal rows, F = 49, width 512, depth 2, N = 8192;
@@ -170,7 +184,8 @@ CUDA toolkit (nvcc). It imports nothing of JAX. Phases, one line each:
    saving each epoch) and resumed by both ranks. Every rank's results (by
    SHA-256) equal the single-process `default_mesh(['cuda:0'] * 2, ...)`
    run of the same calls in this process, and the resumed fit the
-   straight one; each rank's K1 and K2 launches are counted. The ms of a
+   straight one; each rank's K1, K2 and search kernel launches are
+   counted. The ms of a
    1 x 2 step across the ranks against the single-process mesh's (one
    card: no speed is claimed). With a card a rank, (a) also over NCCL,
    with its 1 x 2 step's ms; with one card the line says it was not run. A failing rank fails the
@@ -180,7 +195,8 @@ CUDA toolkit (nvcc). It imports nothing of JAX. Phases, one line each:
    defaults (512 rows, width 64, 30 epochs, 4 members) and at main's width
    (4,096 rows, width 512, 8 members): 25 of 25 pass, each fit and predict
    it calls counted on its own (K1 once a 'kernel' fit step, K2 once a
-   'kernel' predict chunk, none on 'torch'; the K1 split by likelihood is
+   'kernel' predict chunk, the search kernel for each NORMAL 'kernel'
+   predict, none on 'torch'; the K1 split by likelihood is
    these counts), its seconds and its largest error over tolerance; (b) `parity_run.main` at the
    published chickenpox-8 MAP stanza (64 x 10,000, width 256, lr 0.005;
    'auto' picks 'kernel', K1 every epoch) within the JAX package's parity
@@ -194,8 +210,11 @@ CUDA toolkit (nvcc). It imports nothing of JAX. Phases, one line each:
    says `sklearn=absent`).
 13. A JSON line of the kernels, with each one's time, its plain version's,
    the least time the card could take for the same products and bytes
-   (`bound_ms`) and the PyTorch call that computes the same function, if
-   any (`library_ms`); then the last line,
+   (`bound_ms`), the PyTorch call that computes the same function, if
+   any (`library_ms`), and its launches in the main path's phases (each of
+   5, 7, 11, 14, 16, 17 and 18 asserts its own count of the search
+   kernel's: one a 'kernel' NORMAL predict with exact quantiles, one a
+   host chunk streamed, none on 'torch'); then the last line,
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 Any failed check raises, and the script exits non-zero with no result.
@@ -235,6 +254,7 @@ from bayesnf_torch.cli import selftest
 from bayesnf_torch.cli import stream_scale_run
 from bayesnf_torch.inference import map as map_lib
 from bayesnf_torch.inference import predict as predict_lib
+from bayesnf_torch.inference import predict_stream
 from bayesnf_torch.inference import quantiles as quantiles_lib
 from bayesnf_torch.inference import vi as vi_lib
 from bayesnf_torch.models import field as field_lib
@@ -242,6 +262,7 @@ from bayesnf_torch.models import likelihoods
 from bayesnf_torch.models import priors
 from bayesnf_torch.ops import _build
 from bayesnf_torch.ops import fused_mlp
+from bayesnf_torch.ops import mixture_quantile
 from bayesnf_torch.parallel import distributed
 from bayesnf_torch.parallel import mesh as mesh_lib
 from bayesnf_torch.parallel import streaming as streaming_lib
@@ -1076,6 +1097,99 @@ def quantile_atol(params):
   return QUANTILE_SCALE_TOL * (0.01 + math.exp(params[0].max().item()))
 
 
+# Phase 3q's cases: (name, members, rows). 'main' is the air_quality VI
+# predict's search (16 surrogates x 30 draws over the 38,096-row grid's
+# 38,144 searched rows), 'map' a MAP predict's, 'wide' phase 16 (d)'s
+# 1,920 members (4 rows a block), 'ragged' a streamed chunk's; 'tile-edge'
+# the most members a 64-row tile stages, 'past-staged' and 'unstaged' past
+# 3,048 members, where the kernel reads the means from device memory.
+MIXTURE_CASES = (('main', 480, 38_144), ('map', 16, 38_144),
+                 ('wide', 1920, 38_144), ('ragged', 480, 4_100),
+                 ('tile-edge', 184, 4_100), ('past-staged', 3_100, 4_100),
+                 ('unstaged', 4_096, 4_100))
+# A floor of the operations of one member's CDF at one point: sub, div,
+# mul, erf, add, mul and the sum's add, each counted once (erff and the
+# IEEE division take ~30 instructions between them).
+MIXTURE_CDF_FLOPS = 7
+
+
+def check_mixture_quantile(seed):
+  """Phase 3q; returns {case: (max |kernel - plain|, kernel ms, plain
+  device ms, (bound ms, bound by))}."""
+  rng = np.random.default_rng(seed)
+  cases = {}
+  for name, members, rows in MIXTURE_CASES:
+    means = torch.from_numpy(
+        rng.normal(scale=3.0, size=(members, rows)).astype(np.float32)).cuda()
+    scales = torch.from_numpy(
+        rng.uniform(0.2, 2.0, size=members).astype(np.float32)).cuda()
+    stats = (torch.amin(means), torch.amax(means), torch.amax(scales))
+
+    def kernel(lo=0, hi=rows, counters=None):  # pylint: disable=cell-var-from-loop
+      """The kernel's roots of rows [lo, hi), raising (most, total)."""
+      return mixture_quantile.mixture_quantiles(
+          means[:, lo:hi], scales, QUANTILES, stats,  # pylint: disable=cell-var-from-loop
+          *(counters or ()))
+
+    def counters():
+      return (torch.zeros(len(QUANTILES), dtype=torch.int32, device='cuda'),
+              torch.zeros(len(QUANTILES), dtype=torch.int64, device='cuda'))
+
+    def plain():
+      return torch.stack(quantiles_lib.normal_mixture_quantiles(
+          means, scales, QUANTILES, (0,), stats=stats[:2]))  # pylint: disable=cell-var-from-loop
+
+    before = mixture_quantile.mixture_quantiles.launches
+    whole = counters()
+    got = kernel(counters=whole)
+    torch.cuda.synchronize()
+    assert mixture_quantile.mixture_quantiles.launches == before + 1
+    want, plain_wall_ms = timed(plain)
+    _, plain_wall_ms = timed(plain)
+    err = (got - want).abs().max().item()
+    tol = 1e-3 * scales.max().item()
+    assert err <= tol, (name, err, tol)
+    residual = max(mixture_cdf_residual(got[j], means[None], scales[None], q)
+                   for j, q in enumerate(QUANTILES))
+    assert residual <= 2e-5, (name, residual)
+    # Fixed orders: bit-equal again, and a chunk of rows searched alone
+    # gives the whole search's bits and iterations.
+    assert torch.equal(kernel(), got)
+    half = rows // 3
+    split = counters()
+    parts = torch.cat([kernel(lo, hi, split)
+                       for lo, hi in ((0, half), (half, rows))], dim=1)
+    assert torch.equal(parts, got), name
+    assert all(torch.equal(a, b) for a, b in zip(split, whole)), name
+    most, total = (t.tolist() for t in whole)
+    assert all(rows <= t <= m * rows for m, t in zip(most, total)), name
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+      plain()
+      torch.cuda.synchronize()
+    plain_device_ms = sum(getattr(e, 'device_time_total', 0.0)
+                          for e in prof.key_averages()) / 1e3
+    # As a predict runs it off the profiler: no counters.
+    ms = cuda_ms(kernel)
+    # The least work: each row's two bracket ends and the iterations it
+    # ran, a CDF of every member each, at MIXTURE_CDF_FLOPS.
+    flops_s = ((2 * rows * len(QUANTILES) + sum(total)) * members
+               * MIXTURE_CDF_FLOPS / PEAK_FP32_FLOPS)
+    bytes_s = (members + len(QUANTILES)) * rows * 4 / PEAK_BYTES_PER_S
+    bound, bound_by = max((flops_s * 1e3, 'flops'), (bytes_s * 1e3, 'bytes'))
+    phase('3q mixture-quantile', case=name, members=members, rows=rows,
+          quantiles=len(QUANTILES), launches=1,
+          most_iterations='/'.join(str(i) for i in most),
+          mean_iterations='/'.join(f'{t / rows:.3f}' for t in total),
+          max_abs_diff=f'{err:.3e}', cdf_residual_max=f'{residual:.3e}',
+          chunks_bit_equal=True, kernel_ms=f'{ms:.4f}',
+          plain_device_ms=f'{plain_device_ms:.4f}',
+          plain_wall_ms=f'{plain_wall_ms:.2f}',
+          bound_ms=f'{bound:.4f}', bound_by=bound_by)
+    cases[name] = (err, ms, plain_device_ms, (bound, bound_by))
+  return cases
+
+
 def check_golden():
   """Phase 4: the JAX package's artifact and predictions, on the card."""
   model = bayesnf_torch.BayesianNeuralFieldEstimator.load(GOLDEN,
@@ -1133,7 +1247,8 @@ def random_params(config, table, seed, ens_shape=(1, MEMBERS)):
 
 
 def check_main_path(seed):
-  """Phase 5; returns the kernel launches counted while it drove the path."""
+  """Phase 5; returns the K2 and search kernel launches counted while it
+  drove the path."""
   table = bench_table(seed)
   est = bench_estimator()
   train = est.data_handler.get_train(table)
@@ -1151,6 +1266,7 @@ def check_main_path(seed):
   calls = 3
   torch.cuda.synchronize()
   fused_mlp.fused_field_mlp_t.launches = 0
+  mixture_quantile.mixture_quantiles.launches = 0
   kernel_ms = []
   for _ in range(calls):
     start = time.perf_counter()
@@ -1159,6 +1275,8 @@ def check_main_path(seed):
     kernel_ms.append((time.perf_counter() - start) * 1e3)
   launches = fused_mlp.fused_field_mlp_t.launches
   assert launches == chunks * calls, (launches, chunks * calls)
+  searches = mixture_quantile.mixture_quantiles.launches
+  assert searches == calls, (searches, calls)
 
   assert tuple(means.shape) == (1, MEMBERS, len(table)), means.shape
   assert all(tuple(q.shape) == (len(table),) for q in quantiles)
@@ -1171,6 +1289,7 @@ def check_main_path(seed):
   torch.cuda.synchronize()
   torch_ms = (time.perf_counter() - start) * 1e3
   assert fused_mlp.fused_field_mlp_t.launches == launches
+  assert mixture_quantile.mixture_quantiles.launches == searches
   torch.testing.assert_close(means, t_means, **KERNEL_TOL)
   scales = 0.01 + torch.exp(served.params_[0])
   residuals = []
@@ -1183,12 +1302,12 @@ def check_main_path(seed):
                                atol=1e-3 * scales.max().item())
   phase('5 main-path', rows=len(table), members=MEMBERS, width=512, depth=2,
         encoded_dim=config.encoded_dim, kernel_launches=launches,
-        expected_launches=chunks * calls,
+        expected_launches=chunks * calls, search_launches=searches,
         predict_ms_kernel='/'.join(f'{t:.2f}' for t in kernel_ms),
         predict_ms_torch=f'{torch_ms:.2f}',
         means_max_abs_diff=f'{(means - t_means).abs().max().item():.3e}',
         quantile_cdf_residual_max=f'{max(residuals):.3e}')
-  return launches
+  return launches, searches
 
 
 def bench_estimator(est_cls=bayesnf_torch.BayesianNeuralFieldMAP,
@@ -1345,8 +1464,8 @@ def vi_member_steps_per_s(est, table, backend, precision='f32'):
 
 
 def check_vi_path(seed):
-  """Phase 7; returns the K1 and K2 launches counted while it drove the VI
-  fit and its predict, and the 'kernel' fit's losses."""
+  """Phase 7; returns the K1, K2 and search kernel launches counted while
+  it drove the VI fit and its predict, and the 'kernel' fit's losses."""
   table = bench_table(seed)
   steps = len(table) // BATCH
   torch.cuda.synchronize()
@@ -1370,12 +1489,14 @@ def check_vi_path(seed):
   chunks = -(-len(table) // CHUNK)
   torch.cuda.synchronize()
   fused_mlp.fused_field_mlp_t.launches = 0
+  mixture_quantile.mixture_quantiles.launches = 0
   start = time.perf_counter()
   means, quantiles = est.predict(table, quantiles=QUANTILES)
   torch.cuda.synchronize()
   predict_ms = (time.perf_counter() - start) * 1e3
   k2_launches = fused_mlp.fused_field_mlp_t.launches
   assert k2_launches == chunks, (k2_launches, chunks)
+  assert mixture_quantile.mixture_quantiles.launches == 1
   assert tuple(means.shape) == (1, VI_POSTERIOR, VI_MEMBERS, len(table))
   assert bool(torch.isfinite(means).all())
   assert all(bool(torch.isfinite(q).all()) for q in quantiles)
@@ -1385,6 +1506,7 @@ def check_vi_path(seed):
   torch.cuda.synchronize()
   torch_predict_ms = (time.perf_counter() - start) * 1e3
   assert fused_mlp.fused_field_mlp_t.launches == k2_launches
+  assert mixture_quantile.mixture_quantiles.launches == 1
   torch.testing.assert_close(means, t_means, **KERNEL_TOL)
   scales = 0.01 + torch.exp(est.params_[0])
   residuals = []
@@ -1419,13 +1541,13 @@ def check_vi_path(seed):
         mean_loss_kernel='/'.join(
             f'{v:.6g}' for v in est.losses_.mean(axis=(0, 1))[[0, -1]]),
         loss_rel_diff_max=f'{loss_rel.max():.3e}',
-        predict_members=members, k2_launches=k2_launches,
+        predict_members=members, k2_launches=k2_launches, search_launches=1,
         predict_ms_kernel=f'{predict_ms:.2f}',
         predict_ms_torch=f'{torch_predict_ms:.2f}',
         means_max_abs_diff=f'{(means - t_means).abs().max().item():.3e}',
         quantile_cdf_residual_max=f'{max(residuals):.3e}',
         roundtrip='bit-exact', resampled=True)
-  return k1_launches, k2_launches, est.losses_
+  return k1_launches, k2_launches, 1, est.losses_
 
 
 def count_table(seed):
@@ -1641,8 +1763,8 @@ def mesh_predict_launches(rows, mesh):
 
 
 def check_mesh_path(seed, f32_full_losses):
-  """Phase 11; returns the K1 and K2 launches counted while it drove the
-  mesh fits and the mesh predict. `f32_full_losses` are phase 6's
+  """Phase 11; returns the K1, K2 and search kernel launches counted while
+  it drove the mesh fits and the mesh predict. `f32_full_losses` are phase 6's
   single-device 'kernel' full-batch losses from the same seed."""
   table = bench_table(seed)
   n = len(table)
@@ -1715,15 +1837,20 @@ def check_mesh_path(seed, f32_full_losses):
   # The row-parallel predict over (2, 3) against the meshless one.
   torch.cuda.synchronize()
   fused_mlp.fused_field_mlp_t.launches = 0
+  mixture_quantile.mixture_quantiles.launches = 0
   start = time.perf_counter()
   means, quantiles = est.predict(table, quantiles=QUANTILES)
   torch.cuda.synchronize()
   predict_ms = (time.perf_counter() - start) * 1e3
   k2_launches = fused_mlp.fused_field_mlp_t.launches
   assert k2_launches == mesh_predict_launches(n, mesh6), k2_launches
+  # The row-parallel predict searches every row once, on its first device.
+  assert mixture_quantile.mixture_quantiles.launches == 1
   est.mesh_ = None
   want_means, want_quantiles = est.predict(table, quantiles=QUANTILES)
   est.mesh_ = mesh6
+  searches = mixture_quantile.mixture_quantiles.launches
+  assert searches == 2, searches
   torch.testing.assert_close(means, want_means, **MEANS_TOL)
   scales = 0.01 + torch.exp(est.params_[0])
   residuals = []
@@ -1751,11 +1878,12 @@ def check_mesh_path(seed, f32_full_losses):
         vi_fit_s_torch=f'{vi_torch_s:.2f}',
         vi_loss_rel_diff_max=(
             f'{(np.abs(vi_losses - vi_plain) / np.abs(vi_plain)).max():.3e}'),
-        k2_launches=k2_launches, predict_ms=f'{predict_ms:.2f}',
+        k2_launches=k2_launches, search_launches=searches,
+        predict_ms=f'{predict_ms:.2f}',
         means_max_abs_diff=(
             f'{(means - want_means).abs().max().item():.3e}'),
         quantile_cdf_residual_max=f'{max(residuals):.3e}')
-  return k1_launches, k2_launches
+  return k1_launches, k2_launches, searches
 
 
 # Phase 12: Adam steps on each path's gradients, at fit()'s learning rate.
@@ -1967,14 +2095,16 @@ def check_artifacts(stem, rows, steps, particles):
 
 
 def harness_counts():
+  """(K1, K1 'bf16', K2, search kernel) launches so far."""
   return (fused_mlp.fused_train.launches, fused_mlp.fused_train.bf16_launches,
-          fused_mlp.fused_field_mlp_t.launches)
+          fused_mlp.fused_field_mlp_t.launches,
+          mixture_quantile.mixture_quantiles.launches)
 
 
 def check_harness(seed):
-  """Phase 14; returns the (K1 'f32', K1 'bf16', K2) launches counted while
-  it drove the CLI and the bench leg's main cell."""
-  totals = np.zeros(3, dtype=int)
+  """Phase 14; returns the (K1 'f32', K1 'bf16', K2, search kernel) launches
+  counted while it drove the CLI and the bench leg's main cell."""
+  totals = np.zeros(4, dtype=int)
   fields = {}
   with tempfile.TemporaryDirectory() as tmp:
     for objective in ('map', 'mle', 'vi'):
@@ -1986,16 +2116,18 @@ def check_harness(seed):
           model_config=registry.model_config('chickenpox', objective),
           inference_config=dict(MINI_INFERENCE[objective], backend='kernel'),
           device='cuda')
-      k1, k1_bf16, k2 = np.array(harness_counts()) - before
+      k1, k1_bf16, k2, searches = np.array(harness_counts()) - before
       steps = MINI_INFERENCE[objective]['num_epochs']  # Full batch.
-      # K1 every step; K2 on the predict's and the CRPS draws' one chunk.
-      assert (k1, k1_bf16, k2) == (steps, 0, 2), (objective, k1, k1_bf16, k2)
+      # K1 every step; K2 on the predict's and the CRPS draws' one chunk;
+      # the predict's quantiles in one search.
+      assert (k1, k1_bf16, k2, searches) == (steps, 0, 2, 1), (
+          objective, k1, k1_bf16, k2, searches)
       assert means.is_cuda
       stem = os.path.join(tmp, f'bnf-{objective}.chickenpox.8')
       widths = assert_mini_golden(stem + '.pred.csv', objective)
       metrics, _ = check_artifacts(
           stem, 308, steps, MINI_INFERENCE[objective]['num_particles'])
-      totals += (k1, k1_bf16, k2)
+      totals += (k1, k1_bf16, k2, searches)
       fields[f'{objective}_width'] = f'{widths[0]:.4f}/{widths[1]:.4f}'
       fields[f'{objective}_test_log10'] = f'{widths[2]:.3f}/{widths[3]:.3f}'
       fields[f'{objective}_crps'] = '/'.join(
@@ -2014,16 +2146,16 @@ def check_harness(seed):
                    '--data_root', data, '--output_dir', out, '--start_id',
                    '0', '--stop_id', '1', '--num_epochs',
                    str(HARNESS_EPOCHS), '--backend', 'kernel'])
-    k1, k1_bf16, k2 = np.array(harness_counts()) - before
+    k1, k1_bf16, k2, searches = np.array(harness_counts()) - before
     chunks = -(-len(table) // CHUNK)
-    assert (k1, k1_bf16, k2) == (HARNESS_EPOCHS, 0, 2 * chunks), (
-        k1, k1_bf16, k2)
+    assert (k1, k1_bf16, k2, searches) == (HARNESS_EPOCHS, 0, 2 * chunks,
+                                           1), (k1, k1_bf16, k2, searches)
     particles = registry.inference_config('air_quality', 'map')[
         'num_particles']
     metrics, runtime = check_artifacts(
         os.path.join(out, 'bnf-map.air_quality.0'), len(table),
         HARNESS_EPOCHS, particles)
-    totals += (k1, k1_bf16, k2)
+    totals += (k1, k1_bf16, k2, searches)
 
   before = np.array(harness_counts())
   start = time.perf_counter()
@@ -2032,14 +2164,15 @@ def check_harness(seed):
   bench_s = time.perf_counter() - start
   bench = np.array(harness_counts()) - before
   # Per 'kernel' leg ('f32', 'bf16'): K1 on a 1-epoch warm-up fit and 2
-  # repeats of its timed epochs, K2 on every chunk of its predicts.
+  # repeats of its timed epochs, K2 on every chunk of its predicts, the
+  # search kernel once a predict.
   kernel_legs = [l for l in bench_torch.CELLS['main'] if l.backend == 'kernel']
   per_leg = 1 + 2 * kernel_legs[0].timed_epochs
+  predicts = len(kernel_legs) * bench_torch.PREDICT_CALLS
   assert tuple(bench) == (
       len(kernel_legs) * per_leg, per_leg,
-      len(kernel_legs) * bench_torch.PREDICT_CALLS * -(-N_ROWS // CHUNK)), (
-          tuple(bench))
-  totals += (bench[0] - bench[1], bench[1], bench[2])
+      predicts * -(-N_ROWS // CHUNK), predicts), tuple(bench)
+  totals += (bench[0] - bench[1], bench[1], bench[2], bench[3])
   phase('14 harness', goldens='map/mle/vi', **fields,
         full_width=f'air_quality map width 512 x {particles} particles, '
         f'{N_ROWS}+{HARNESS_TEST_ROWS} rows, {HARNESS_EPOCHS} epochs',
@@ -2048,7 +2181,7 @@ def check_harness(seed):
             f'{metrics[r]["crps"]:.6g}' for r in ('train', 'test')),
         bench_main_s=f'{bench_s:.1f}',
         k1_launches=int(totals[0]), k1_bf16_launches=int(totals[1]),
-        k2_launches=int(totals[2]))
+        k2_launches=int(totals[2]), search_launches=int(totals[3]))
   return tuple(int(t) for t in totals)
 
 
@@ -2400,13 +2533,25 @@ def dist_tensors(dist):
   return [getattr(base, f.name) for f in dataclasses.fields(base)]
 
 
-def k2_counted(expected, fn):
-  """fn()'s result, asserting it launched K2 `expected` times."""
-  before = fused_mlp.fused_field_mlp_t.launches
+def k2_counted(expected, fn, searches=0):
+  """fn()'s result, asserting it launched K2 `expected` times and the
+  search kernel `searches` times."""
+  before = harness_counts()
   out = fn()
-  launched = fused_mlp.fused_field_mlp_t.launches - before
-  assert launched == expected, (launched, expected)
+  launched = tuple(b - a for a, b in zip(before, harness_counts()))[2:]
+  assert launched == (expected, searches), (launched, expected, searches)
   return out
+
+
+def search_calls(rows, stream_rows=None, mesh=None):
+  """Search kernel launches of a 'kernel' NORMAL predict of `rows` rows
+  with exact quantiles (at most MAX_QUANTILES): one in memory, one a host
+  chunk streamed in chunks of `stream_rows`."""
+  if stream_rows is None:
+    return 1
+  host = predict_stream._resolve_rows(  # pylint: disable=protected-access
+      stream_rows, predict_lib.device_chunk_rows(CHUNK, mesh), rows)
+  return -(-rows // host)
 
 
 def timed(fn):
@@ -2422,11 +2567,14 @@ def check_stream_identity(est, table, stream_rows, what, fields,
                           predict_backends=('kernel', 'torch')):
   """Phase 16 (a) for one estimator: the streamed likelihood model on
   'kernel' and 'torch', and the streamed predict on `predict_backends`,
-  against the in-memory ones, bit for bit; K2 once per chunk on 'kernel'.
-  Writes the predicts' ms into `fields`."""
+  against the in-memory ones, bit for bit; K2 once per chunk on 'kernel',
+  and for NORMAL the search kernel once a predict, or once a host chunk of
+  a streamed one. Writes the predicts' ms into `fields`."""
   chunks = -(-len(table) // CHUNK)
+  normal = est.observation_model == 'NORMAL'
   for backend in ('kernel', 'torch'):
     launches = chunks if backend == 'kernel' else 0
+    searched = normal and backend == 'kernel'
     lm_want = k2_counted(launches, lambda: est.likelihood_model(  # pylint: disable=cell-var-from-loop
         table, backend=backend))  # pylint: disable=cell-var-from-loop
     lm_got = k2_counted(launches, lambda: est.likelihood_model(  # pylint: disable=cell-var-from-loop
@@ -2437,11 +2585,13 @@ def check_stream_identity(est, table, stream_rows, what, fields,
     if backend not in predict_backends:
       continue
     want, ms = timed(lambda: k2_counted(launches, lambda: est.predict(  # pylint: disable=cell-var-from-loop
-        table, quantiles=QUANTILES, backend=backend)))  # pylint: disable=cell-var-from-loop
+        table, quantiles=QUANTILES, backend=backend),  # pylint: disable=cell-var-from-loop
+        searched * search_calls(len(table))))  # pylint: disable=cell-var-from-loop
     fields[f'{what}_{backend}_ms_in_memory'] = f'{ms:.2f}'
     got, ms = timed(lambda: k2_counted(launches, lambda: est.predict(  # pylint: disable=cell-var-from-loop
         table, quantiles=QUANTILES, backend=backend,  # pylint: disable=cell-var-from-loop
-        stream_chunk_rows=stream_rows)))
+        stream_chunk_rows=stream_rows),
+        searched * search_calls(len(table), stream_rows)))  # pylint: disable=cell-var-from-loop
     assert_same_predictions(got, want, (what, backend))
     fields[f'{what}_{backend}_ms_streamed'] = f'{ms:.2f}'
 
@@ -2473,11 +2623,12 @@ def check_wide_predict(seed, fields):
       (1, VI_POSTERIOR, WIDE_SURROGATES))
   chunks = -(-WIDE_ROWS // CHUNK)
   want, ms = timed(lambda: k2_counted(chunks, lambda: est.predict(
-      table, quantiles=QUANTILES, backend='kernel')))
+      table, quantiles=QUANTILES, backend='kernel'), search_calls(WIDE_ROWS)))
   fields['wide_kernel_ms_in_memory'] = f'{ms:.2f}'
   got, ms = timed(lambda: k2_counted(chunks, lambda: est.predict(
       table, quantiles=QUANTILES, backend='kernel',
-      stream_chunk_rows=COUNT_STREAM_CHUNK)))
+      stream_chunk_rows=COUNT_STREAM_CHUNK),
+      search_calls(WIDE_ROWS, COUNT_STREAM_CHUNK)))
   fields['wide_kernel_ms_streamed'] = f'{ms:.2f}'
   assert got[0].shape == (1, VI_POSTERIOR, WIDE_SURROGATES, WIDE_ROWS)
   assert_same_predictions(got, want, 'wide: 1,920 members')
@@ -2499,12 +2650,13 @@ def check_wide_predict(seed, fields):
 
 
 def check_streamed_predict(seed, nb_est, zinb_est):
-  """Phase 16; returns the (K1, K2) launches counted while it drove the
-  streamed predicts, the in-memory ones they are held to, and the scale
-  run's fits."""
+  """Phase 16; returns the (K1, K2, search kernel) launches counted while it
+  drove the streamed predicts, the in-memory ones they are held to, and the
+  scale run's fits."""
   torch.cuda.synchronize()
   fused_mlp.fused_train.launches = 0
   fused_mlp.fused_field_mlp_t.launches = 0
+  mixture_quantile.mixture_quantiles.launches = 0
   fields = {}
   # (a) Bit for bit: main's model at full width, then the count models.
   table = bench_table(seed)
@@ -2538,12 +2690,20 @@ def check_streamed_predict(seed, nb_est, zinb_est):
   expected_k2 = chunks * 6 + 2 * count_chunks * 4 + 2 * wide_chunks
   assert fused_mlp.fused_field_mlp_t.launches == expected_k2, (
       fused_mlp.fused_field_mlp_t.launches, expected_k2)
+  # The search kernel: main's and the wide exact predicts, in memory and
+  # streamed (the approximate and count quantiles take none).
+  expected_searches = (
+      search_calls(len(table)) + search_calls(len(table), STREAM_ROWS)
+      + search_calls(WIDE_ROWS) + search_calls(WIDE_ROWS, COUNT_STREAM_CHUNK))
+  assert mixture_quantile.mixture_quantiles.launches == expected_searches, (
+      mixture_quantile.mixture_quantiles.launches, expected_searches)
   rates = {key: len(table) / float(fields[f'normal_kernel_ms_{key}']) * 1e3
            for key in ('in_memory', 'streamed')}
 
   # (b) The scale run: a streamed fit and predict at 2,000,000 rows.
   before = np.array([fused_mlp.fused_train.launches,
                      fused_mlp.fused_field_mlp_t.launches])
+  searches_before = mixture_quantile.mixture_quantiles.launches
   with tempfile.TemporaryDirectory() as tmp:
     with contextlib.redirect_stdout(io.StringIO()):
       scale = stream_scale_run.main([
@@ -2556,6 +2716,10 @@ def check_streamed_predict(seed, nb_est, zinb_est):
   assert tuple(np.array([fused_mlp.fused_train.launches,
                          fused_mlp.fused_field_mlp_t.launches]) - before) == (
                              scale_steps, 2 * -(-SCALE_ROWS // CHUNK))
+  # The streamed predict a host chunk, the in-memory one once.
+  scale_searches = scale['streamed_predict']['chunks'] + 1
+  assert (mixture_quantile.mixture_quantiles.launches - searches_before
+          == scale_searches), scale_searches
 
   # (c) Memory: the streamed predict's peak is flat in the rows.
   with tempfile.TemporaryDirectory() as tmp:
@@ -2574,6 +2738,11 @@ def check_streamed_predict(seed, nb_est, zinb_est):
               fused_mlp.fused_field_mlp_t.launches)
   assert launches[1] - before[1] == 2 * -(-SCALE_ROWS // CHUNK) + sum(
       -(-r // CHUNK) for r in (*PEAK_ROWS, big)), launches
+  searches = mixture_quantile.mixture_quantiles.launches
+  assert searches == expected_searches + scale_searches + sum(
+      search_calls(r, PEAK_CHUNK) for r in PEAK_ROWS) + search_calls(big), (
+          searches)
+  launches += (searches,)
   mib = 2**20
   phase('16 streamed-predict', rows=len(table), members=MEMBERS,
         stream_chunk_rows=STREAM_ROWS, host_chunks=-(-len(table) // STREAM_ROWS),
@@ -2604,7 +2773,8 @@ def check_streamed_predict(seed, nb_est, zinb_est):
         peak_mib_in_memory=f'{memory_peak / mib:.2f}',
         rows_per_s_2000000='/'.join(f'{big / t * 1e3:.0f}' for t in (
             memory_ms, ms[big])),
-        k1_launches=launches[0], k2_launches=launches[1])
+        k1_launches=launches[0], k2_launches=launches[1],
+        search_launches=launches[2])
   return launches
 
 
@@ -2701,7 +2871,7 @@ def process_runs(seed, mesh_of, work_dir=None, full=True):
 def rank_main(args):
   """One rank of phase 17 (`--rank`): joins the group, runs
   `process_runs` over meshes across the ranks, prints its digests and its
-  K1/K2 launches on a line of its own."""
+  K1, K2 and search kernel launches on a line of its own."""
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   distributed.initialize(f'localhost:{args.port}', args.world, args.rank,
@@ -2715,10 +2885,12 @@ def rank_main(args):
 
   fused_mlp.fused_train.launches = 0
   fused_mlp.fused_field_mlp_t.launches = 0
+  mixture_quantile.mixture_quantiles.launches = 0
   full = args.backend == 'gloo'
   out = process_runs(args.seed, mesh_of, args.work if full else None, full)
   out.update(rank=args.rank, k1=fused_mlp.fused_train.launches,
-             k2=fused_mlp.fused_field_mlp_t.launches)
+             k2=fused_mlp.fused_field_mlp_t.launches,
+             searches=mixture_quantile.mixture_quantiles.launches)
   torch.distributed.barrier()
   print(RANK_RESULT + json.dumps(out), flush=True)
   torch.distributed.destroy_process_group()
@@ -2769,11 +2941,12 @@ def run_gang(seed, backend, work_dir):
 
 
 def check_processes(seed):
-  """Phase 17; returns the (K1, K2) launches counted: the single-process
-  references' and every rank's."""
+  """Phase 17; returns the (K1, K2, search kernel) launches counted: the
+  single-process references' and every rank's."""
   torch.cuda.synchronize()
   fused_mlp.fused_train.launches = 0
   fused_mlp.fused_field_mlp_t.launches = 0
+  mixture_quantile.mixture_quantiles.launches = 0
   n = len(bench_table(seed))
 
   def single_mesh(ens, data):
@@ -2781,13 +2954,19 @@ def check_processes(seed):
 
   want = process_runs(seed, single_mesh)
   launches = (fused_mlp.fused_train.launches,
-              fused_mlp.fused_field_mlp_t.launches)
+              fused_mlp.fused_field_mlp_t.launches,
+              mixture_quantile.mixture_quantiles.launches)
   steps = n // BATCH
   # K1 a cell a step: 2 MAP fits, the timed 1 + TIMED_STEPS epochs, the VI
-  # epochs, the streamed epoch; K2 a slice of each 4,096-row chunk, twice.
+  # epochs, the streamed epoch; K2 a slice of each 4,096-row chunk, twice;
+  # the search kernel once for the predict (every rank searches all rows)
+  # and once a host chunk of the streamed one.
   k1_cell_steps = 2 * FIT_EPOCHS + 1 + TIMED_STEPS + 2 * steps + steps
   k2_cells = 2 * -(-n // CHUNK)
-  assert launches == (RANKS * k1_cell_steps, RANKS * k2_cells), launches
+  rank_searches = search_calls(n) + search_calls(
+      n, STREAM_ROWS, single_mesh(1, 2))
+  assert launches == (RANKS * k1_cell_steps, RANKS * k2_cells,
+                      rank_searches), launches
   torch.cuda.empty_cache()
   with tempfile.TemporaryDirectory() as tmp:
     ranks = run_gang(seed, 'gloo', tmp)
@@ -2798,16 +2977,17 @@ def check_processes(seed):
         assert out[key] == value, (out['rank'], key)
     assert out['resumed-1x2'] == want['map-1x2'], out['rank']
     # The resumed fit: RESUME_AT epochs, then the rest.
-    assert (out['k1'], out['k2']) == (k1_cell_steps + FIT_EPOCHS,
-                                      k2_cells), out
-    total += (out['k1'], out['k2'])
+    assert (out['k1'], out['k2'], out['searches']) == (
+        k1_cell_steps + FIT_EPOCHS, k2_cells, rank_searches), out
+    total += (out['k1'], out['k2'], out['searches'])
   if torch.cuda.device_count() >= RANKS:
     with tempfile.TemporaryDirectory() as tmp:
       nccl = run_gang(seed, 'nccl', tmp)
     for out in nccl:
       for key in ('map-2x1', 'map-1x2'):
         assert out[key] == want[key], (out['rank'], key)
-      total += (out['k1'], out['k2'])
+      assert out['searches'] == 0, out
+      total += (out['k1'], out['k2'], out['searches'])
     nccl_note = (f'{RANKS} ranks on {RANKS} cards, MAP 2x1 and 1x2: '
                  'bit-exact')
     nccl_ms = '/'.join(f'{out["step_ms"]:.2f}' for out in nccl)
@@ -2825,8 +3005,9 @@ def check_processes(seed):
         nccl=nccl_note, step_ms_1x2_nccl=nccl_ms,
         k1_launches_ranks='/'.join(str(out['k1']) for out in ranks),
         k2_launches_ranks='/'.join(str(out['k2']) for out in ranks),
-        k1_launches=int(total[0]), k2_launches=int(total[1]))
-  return int(total[0]), int(total[1])
+        k1_launches=int(total[0]), k2_launches=int(total[1]),
+        search_launches=int(total[2]))
+  return tuple(int(t) for t in total)
 
 
 # Phase 18: the rest of the CLI on the card. `selftest.main` at its
@@ -2866,7 +3047,8 @@ SELFTEST_CALLS = ((map_lib, 'fit_map'), (vi_lib, 'fit_vi'),
 @contextlib.contextmanager
 def recording_launches(calls):
   """Patches SELFTEST_CALLS so that each call appends (function name, its
-  arguments, its (K1, K1 'bf16', K2) launches) to `calls`."""
+  arguments, its (K1, K1 'bf16', K2, search kernel) launches) to
+  `calls`."""
   def wrap(name, fn):
     def counted(*args, **kwargs):
       torch.cuda.synchronize()
@@ -2889,26 +3071,32 @@ def recording_launches(calls):
 
 
 def call_launches(name, args, kwargs):
-  """(K1, K1 'bf16', K2) launches one recorded call must make: on 'kernel'
-  K1 once a step of a fit (a MAP epoch is rows // batch steps, a VI epoch
-  one) and K2 once a 4,096-row chunk of a predict, streamed or not; on
-  'torch' none."""
+  """(K1, K1 'bf16', K2, search kernel) launches one recorded call must
+  make: on 'kernel' K1 once a step of a fit (a MAP epoch is rows // batch
+  steps, a VI epoch one), K2 once a 4,096-row chunk of a predict, streamed
+  or not, and the search kernel for a NORMAL predict's exact quantiles
+  (`search_calls`); on 'torch' none."""
   if kwargs['backend'] != 'kernel':
-    return 0, 0, 0
+    return 0, 0, 0, 0
   rows = len(args[0])
   if name == 'fit_map':
     return kwargs['num_epochs'] * (rows // (kwargs.get('batch_size')
-                                            or rows)), 0, 0
+                                            or rows)), 0, 0, 0
   if name == 'fit_vi':
-    return kwargs['num_epochs'], 0, 0
-  return 0, 0, -(-rows // CHUNK)
+    return kwargs['num_epochs'], 0, 0, 0
+  searched = bool(name == 'predict_bnf' and args[1] == 'NORMAL'
+                  and kwargs['quantiles']
+                  and not kwargs.get('approximate_quantiles', False))
+  return 0, 0, -(-rows // CHUNK), searched * search_calls(
+      rows, kwargs.get('stream_chunk_rows'))
 
 
 def check_selftests():
   """Phase 18 (a): `selftest.main` on 'kernel' against 'torch' at each size
-  of SELFTEST_RUNS; returns ({likelihood: K1}, K2) launches."""
+  of SELFTEST_RUNS; returns ({likelihood: K1}, K2, search kernel)
+  launches."""
   k1_total = {'NORMAL': 0, 'NB': 0, 'ZINB': 0}
-  k2_total = 0
+  k2_total = searches_total = 0
   fields = {}
   with tempfile.TemporaryDirectory() as tmp:
     for name, flags in SELFTEST_RUNS.items():
@@ -2922,14 +3110,15 @@ def check_selftests():
         rc = selftest.main(['--device', 'cuda', '--json-out', out, *flags])
       seconds = time.perf_counter() - start
       launches = np.array(harness_counts()) - before
-      k1, _, k2 = launches
+      k1, _, k2, searches = launches
       with open(out) as f:
         result = json.load(f)
       assert rc == 0 and result['ok'] and result['num_checks'] == 25, (
           name, rc, result['failed'], log.getvalue())
       args = result['args']
       # Every launch of the run came from a recorded call, each 'kernel' fit
-      # launched K1 once a step and each 'kernel' predict K2 once a chunk.
+      # launched K1 once a step, each 'kernel' predict K2 once a chunk and
+      # each NORMAL one the search kernel.
       assert (sum(c[3] for c in calls) == launches).all(), (name, launches)
       for fn, fn_args, kwargs, got in calls:
         want = call_launches(fn, fn_args, kwargs)
@@ -2940,8 +3129,9 @@ def check_selftests():
       assert {c[2]['observation_model'] for c in calls
               if c[0] == 'fit_map' and c[2]['backend'] == 'kernel'} == set(
                   k1_total), (name, calls)
-      assert k2 > 0, name
+      assert k2 > 0 and searches > 0, name
       k2_total += int(k2)
+      searches_total += int(searches)
 
       def ratio(check):
         """The check's error over its tolerance (1 at the bound)."""
@@ -2960,14 +3150,15 @@ def check_selftests():
       fields[f'{name}_s'] = f'{seconds:.1f}'
       fields[f'{name}_k1'] = int(k1)
       fields[f'{name}_k2'] = int(k2)
+      fields[f'{name}_searches'] = int(searches)
       fields[f'{name}_worst'] = f'{worst["check"]}:{ratio(worst):.3g}'
   phase('18a selftest', checks='25/25 each', **fields)
-  return k1_total, k2_total
+  return k1_total, k2_total, searches_total
 
 
 def check_parity_run():
   """Phase 18 (b): `parity_run.main` at the published chickenpox-8 MAP
-  stanza; returns its (K1, K2) launches."""
+  stanza; returns its (K1, K2, search kernel) launches."""
   inference = registry.inference_config('chickenpox', 'map')
   with tempfile.TemporaryDirectory() as tmp:
     out = os.path.join(tmp, 'parity.json')
@@ -2977,14 +3168,14 @@ def check_parity_run():
     with contextlib.redirect_stdout(log):
       rc = parity_run.main(['--json-out', out, '--output_dir',
                             os.path.join(tmp, 'run'), '--device', 'cuda'])
-    k1, k1_bf16, k2 = np.array(harness_counts()) - before
+    k1, k1_bf16, k2, searches = np.array(harness_counts()) - before
     assert rc == 0, log.getvalue()
     with open(out) as f:
       artifact = json.load(f)
   # Full batch: K1 every epoch; K2 on the predict's and the CRPS draws' one
-  # chunk of the 308 rows.
-  assert (k1, k1_bf16, k2) == (inference['num_epochs'], 0, 2), (k1, k1_bf16,
-                                                                k2)
+  # chunk of the 308 rows; the predict's quantiles in one search.
+  assert (k1, k1_bf16, k2, searches) == (inference['num_epochs'], 0, 2, 1), (
+      k1, k1_bf16, k2, searches)
   assert artifact['config'] == {
       key: inference[key]
       for key in ('num_particles', 'num_epochs', 'learning_rate')}
@@ -3001,8 +3192,8 @@ def check_parity_run():
            for key in ours},
         fit_predict_s=f'{artifact["fit_predict_wall_s"]}',
         total_s=f'{artifact["total_wall_s"]}', k1_launches=int(k1),
-        k2_launches=int(k2))
-  return int(k1), int(k2)
+        k2_launches=int(k2), search_launches=int(searches))
+  return int(k1), int(k2), int(searches)
 
 
 def raw_metrics(run, y, true_mean):
@@ -3033,9 +3224,11 @@ def assert_headtohead_gates(observation_model, bnf, baselines):
 
 def check_headtohead():
   """Phase 18 (c): the head-to-head's BNF-MAP synthetic legs of H2H_LEGS
-  (full budgets) on 'kernel' and 'torch'; returns ({likelihood: K1}, K2)."""
+  (full budgets) on 'kernel' and 'torch'; returns ({likelihood: K1}, K2,
+  search kernel) launches."""
   sklearn = importlib.util.find_spec('sklearn') is not None
   k1_total, k2_total = {lik: 0 for lik in H2H_EPOCHS}, 0
+  searches_total = 0
   fields = {}
   for lik, seed in H2H_LEGS:
     epochs = H2H_EPOCHS[lik]
@@ -3048,15 +3241,17 @@ def check_headtohead():
       runs[backend] = baseline_headtohead.fit_bnf_synthetic(
           'map', df_train, df_test, False, lik, device='cuda',
           backend=backend)
-      k1, k1_bf16, k2 = np.array(harness_counts()) - before
+      got = tuple(np.array(harness_counts()) - before)
       # 'kernel': K1 every full-batch epoch, K2 on the predict's and the
-      # likelihood model's one chunk; 'torch' launches neither.
-      want = (epochs, 0, 2) if backend == 'kernel' else (0, 0, 0)
-      assert (k1, k1_bf16, k2) == want, (lik, seed, backend, k1, k1_bf16,
-                                         k2)
+      # likelihood model's one chunk, NORMAL's quantiles in one search;
+      # 'torch' launches none.
+      want = ((epochs, 0, 2, int(lik == 'NORMAL')) if backend == 'kernel'
+              else (0, 0, 0, 0))
+      assert got == want, (lik, seed, backend, got)
       metrics[backend] = raw_metrics(runs[backend], y_te, mu_te)
     k1_total[lik] += epochs
     k2_total += 2
+    searches_total += int(lik == 'NORMAL')
     got, want = metrics['kernel'], metrics['torch']
     rel = {key: abs(got[key] - want[key]) / abs(want[key])
            for key in H2H_METRICS}
@@ -3086,22 +3281,25 @@ def check_headtohead():
         sklearn=('present: gates held on kernel, seed 0' if sklearn
                  else 'absent'),
         **fields)
-  return k1_total, k2_total
+  return k1_total, k2_total, searches_total
 
 
 def check_cli_tools():
-  """Phase 18; returns ({likelihood: K1 launches}, K2 launches)."""
+  """Phase 18; returns ({likelihood: K1 launches}, K2 launches, search
+  kernel launches)."""
   start = time.perf_counter()
-  selftest_k1, selftest_k2 = check_selftests()
-  parity_k1, parity_k2 = check_parity_run()
-  h2h_k1, h2h_k2 = check_headtohead()
+  selftest_k1, selftest_k2, selftest_searches = check_selftests()
+  parity_k1, parity_k2, parity_searches = check_parity_run()
+  h2h_k1, h2h_k2, h2h_searches = check_headtohead()
   k1 = {lik: selftest_k1[lik] + h2h_k1.get(lik, 0) for lik in selftest_k1}
   k1['NORMAL'] += parity_k1
   k2 = selftest_k2 + parity_k2 + h2h_k2
+  searches = selftest_searches + parity_searches + h2h_searches
   phase('18 cli-tools', seconds=f'{time.perf_counter() - start:.1f}',
         k1_launches=sum(k1.values()), k1_by_likelihood='/'.join(
-            f'{lik} {count}' for lik, count in k1.items()), k2_launches=k2)
-  return k1, k2
+            f'{lik} {count}' for lik, count in k1.items()), k2_launches=k2,
+        search_launches=searches)
+  return k1, k2, searches
 
 
 def main(argv=None):
@@ -3128,7 +3326,7 @@ def main(argv=None):
         torch=torch.__version__, cuda=torch.version.cuda)
 
   # One nvcc per source, started together.
-  sources = ('fused_mlp_t', 'fused_train')
+  sources = ('fused_mlp_t', 'fused_train', 'mixture_quantile')
   with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
     builds = list(pool.map(_build.build, sources))
   for path, seconds, report in builds:
@@ -3141,26 +3339,32 @@ def main(argv=None):
   mlp_cases = check_field_mlp_kernels(args.seed)
   k2k3_breakdowns(args.seed)
   check_tc_gemm(args.seed)
+  mixture_cases = check_mixture_quantile(args.seed)
   train_cases = check_train_kernel(args.seed)
   # The predict phases build no graph: they launch no K3.
   fused_mlp.fused_field_mlp_t.bwd_launches = 0
   check_golden()
-  launches = check_main_path(args.seed)
+  # The main path's phases count the search kernel's launches from here.
+  mixture_quantile.mixture_quantiles.launches = 0
+  launches, searches = check_main_path(args.seed)
   train_launches, f32_losses = check_training_path(args.seed)
-  vi_k1_launches, vi_k2_launches, f32_losses['vi'] = check_vi_path(args.seed)
+  vi_k1_launches, vi_k2_launches, vi_searches, f32_losses['vi'] = (
+      check_vi_path(args.seed))
   count_k1_launches, count_k2_launches, nb_est = check_count_path(args.seed)
   count_vi_k1_launches, count_vi_k2_launches, zinb_est = check_count_vi_path(
       args.seed)
   bf16_launches = check_bf16_path(args.seed, f32_losses)
-  mesh_k1_launches, mesh_k2_launches = check_mesh_path(args.seed,
-                                                       f32_losses['full'])
+  mesh_k1_launches, mesh_k2_launches, mesh_searches = check_mesh_path(
+      args.seed, f32_losses['full'])
   assert fused_mlp.fused_field_mlp_t.bwd_launches == 0
   field_launches = check_differentiable_field(args.seed)
-  harness_k1, harness_k1_bf16, harness_k2 = check_harness(args.seed)
+  harness_k1, harness_k1_bf16, harness_k2, harness_searches = check_harness(
+      args.seed)
   long_k1, long_k1_bf16 = check_long_fits(args.seed)
-  stream_k1, stream_k2 = check_streamed_predict(args.seed, nb_est, zinb_est)
-  process_k1, process_k2 = check_processes(args.seed)
-  cli_k1, cli_k2 = check_cli_tools()
+  stream_k1, stream_k2, stream_searches = check_streamed_predict(
+      args.seed, nb_est, zinb_est)
+  process_k1, process_k2, process_searches = check_processes(args.seed)
+  cli_k1, cli_k2, cli_searches = check_cli_tools()
 
   def case_fields(case):
     """(max abs error, kernel ms, plain ms, bound) as JSON fields."""
@@ -3168,17 +3372,19 @@ def main(argv=None):
             'bound_by': case[3][1], 'max_abs_err': case[0]}
 
   def row(name, source, replaces, launches, cases):
-    """A kernel's JSON entry from its phase 3b cases."""
+    """A kernel's JSON entry from its phase 3b or 3q cases; `replaces` is
+    the line of the Pallas kernel it replaces, or None."""
     err, kernel_ms, plain, (bound, bound_by) = cases['main']
     return {
         'name': name, 'route': 'cuda',
         'source': f'bayesnf_torch/ops/csrc/{source}',
-        'replaces': f'bayesnf_tpu/ops/fused_mlp.py:{replaces}',
+        'replaces': (None if replaces is None
+                     else f'bayesnf_tpu/ops/fused_mlp.py:{replaces}'),
         'launches': launches, 'max_abs_err': err, 'ms': kernel_ms,
         'plain_ms': plain, 'bound_ms': bound, 'bound_by': bound_by,
         'library_ms': None,
-        # The other shapes and precisions of phase 3b: (kernel ms, plain ms,
-        # bound ms, max abs error against the plain version).
+        # The other shapes and precisions of phase 3b or 3q: (kernel ms,
+        # plain ms, bound ms, max abs error against the plain version).
         'cases': {case: case_fields(c) for case, c in cases.items()
                   if case != 'main'},
     }
@@ -3252,6 +3458,11 @@ def main(argv=None):
                 for name, case in train_cases.items()
                 if name.endswith('bf16') and name != 'main-bf16'},
   },
+      # Replaces no TPU kernel: the JAX package's search is plain jnp.
+      row('mixture_quantiles', 'mixture_quantile.cu', None,
+          searches + vi_searches + mesh_searches + harness_searches
+          + stream_searches + process_searches + cli_searches,
+          mixture_cases),
       row('fused_field_mlp_t_bwd', 'fused_mlp_t.cu', 765,
           field_launches['fused_field_mlp_t.bwd_launches'],
           mlp_cases['fused_field_mlp_t_bwd']),

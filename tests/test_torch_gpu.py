@@ -18,10 +18,13 @@ import torch
 
 import bayesnf_torch
 from bayesnf_torch.inference import predict
+from bayesnf_torch.inference import quantiles as quantiles_lib
 from bayesnf_torch.models import field
 from bayesnf_torch.ops import fused_mlp
 from bayesnf_torch.ops import mixed
+from bayesnf_torch.ops import mixture_quantile
 from bayesnf_torch.parallel import mesh as mesh_lib
+from bayesnf_torch.utils import profiling
 
 DATA = pathlib.Path(__file__).resolve().parent / 'test_data'
 # fp32 sums over fan-in <= 1024 taken in another order than torch.matmul.
@@ -123,6 +126,178 @@ def test_streamed_predict_on_cuda_kernel_matches_in_memory(cuda):
   assert torch.equal(got[0], want[0].cpu())
   for g, w in zip(got[1], want[1]):
     assert torch.equal(g, w.cpu())
+
+
+QUANTILES = (0.025, 0.5, 0.975)
+
+
+def _mixture_rows(members, rows, device, kind='random', seed=0):
+  """(means (members, rows), scales (members,)): random, or with every
+  member the same ('same'), one member 1,000 above the rest ('far'), or
+  scales of 1e-6 ('tiny')."""
+  rng = np.random.default_rng(seed)
+  means = rng.normal(scale=3.0, size=(members, rows))
+  scales = rng.uniform(0.2, 2.0, size=members)
+  if kind == 'same':
+    means = np.repeat(means[:1], members, axis=0)
+  elif kind == 'far':
+    means = means + np.where(np.arange(members) == 0, 1000.0, 0.0)[:, None]
+  elif kind == 'tiny':
+    scales = np.full(members, 1e-6)
+  return (torch.as_tensor(means.astype(np.float32), device=device),
+          torch.as_tensor(scales.astype(np.float32), device=device))
+
+
+def _search(means, scales, quantiles=QUANTILES):
+  """(kernel roots, plain roots) over one member axis, one bracket; one
+  launch for each MAX_QUANTILES quantiles."""
+  stats = (torch.amin(means), torch.amax(means), torch.amax(scales))
+  before = mixture_quantile.mixture_quantiles.launches
+  got = mixture_quantile.mixture_quantiles(means, scales, quantiles, stats)
+  torch.cuda.synchronize()
+  groups = -(-len(quantiles) // mixture_quantile.MAX_QUANTILES)
+  assert mixture_quantile.mixture_quantiles.launches == before + groups
+  want = torch.stack(quantiles_lib.normal_mixture_quantiles(
+      means, scales, quantiles, (0,), stats=stats[:2]))
+  return got, want
+
+
+def _cdf_gap(x, means, scales, q):
+  """|F(x) - q| of every row, F the mixture CDF in float64."""
+  z = (x.double() - means.double()) / scales.double()[:, None]
+  return (torch.special.ndtr(z).mean(dim=0) - q).abs()
+
+
+# Member counts: 184 is the most a 64-row tile stages; at 2,048 a tile's
+# means once filled all 48 KB, with no room for the static counters; 3,100
+# and 4,096 are past the 3,048 up to which two rows fit in shared memory
+# (the kernel then reads the means from device memory).
+@pytest.mark.gpu
+@pytest.mark.parametrize('rows', [1, 127, 129, 4100])
+@pytest.mark.parametrize('members',
+                         [1, 16, 184, 480, 1920, 2048, 3100, 4096])
+def test_mixture_quantile_kernel_matches_plain(cuda, members, rows):
+  means, scales = _mixture_rows(members, rows, cuda, seed=members + rows)
+  got, want = _search(means, scales)
+  assert tuple(got.shape) == (len(QUANTILES), rows)
+  for root, q in zip(got, QUANTILES):
+    assert _cdf_gap(root, means, scales, q).max().item() <= 2e-5
+  noise = scales.max().item()
+  torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-3 * noise)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kind', ['same', 'far', 'tiny'])
+def test_mixture_quantile_kernel_on_degenerate_rows(cuda, kind):
+  means, scales = _mixture_rows(16, 300, cuda, kind)
+  got, want = _search(means, scales)
+  if kind == 'tiny':
+    # A step CDF: each root sits at the step that passes q, to within the
+    # search's position tolerance (~1e-6 here).
+    for root, q in zip(got, QUANTILES):
+      assert bool((_cdf_gap(root - 1e-4, means, scales, 0.0) <= q).all())
+      assert bool((_cdf_gap(root + 1e-4, means, scales, 0.0) >= q).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    return
+  for root, q in zip(got, QUANTILES):
+    assert _cdf_gap(root, means, scales, q).max().item() <= 2e-5
+  torch.testing.assert_close(got, want, rtol=2e-5,
+                             atol=1e-3 * scales.max().item())
+
+
+def _counters(device):
+  """Fresh (most, total) iteration counters of the three quantiles."""
+  return (torch.zeros(len(QUANTILES), dtype=torch.int32, device=device),
+          torch.zeros(len(QUANTILES), dtype=torch.int64, device=device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('members', [16, 480, 1920, 3100, 4096])
+def test_mixture_quantile_kernel_chunks_are_bit_for_bit(cuda, members):
+  rows = 4100
+  means, scales = _mixture_rows(members, rows, cuda)
+  stats = (torch.amin(means), torch.amax(means), torch.amax(scales))
+  counted = _counters(cuda)
+  whole = mixture_quantile.mixture_quantiles(means, scales, QUANTILES, stats,
+                                             *counted)
+  most, total = counted
+  # Each row ran at least one iteration and at most the slowest row's.
+  assert bool((total >= rows).all() and (total <= most.long() * rows).all())
+  for cut in (1, 129, 2050):
+    split = _counters(cuda)
+    parts = [mixture_quantile.mixture_quantiles(m, scales, QUANTILES, stats,
+                                                *split)
+             for m in (means[:, :cut], means[:, cut:].contiguous())]
+    assert torch.equal(torch.cat(parts, dim=1), whole), cut
+    # The same rows ran the same iterations.
+    assert all(torch.equal(a, b) for a, b in zip(split, counted)), cut
+
+
+@pytest.mark.gpu
+def test_mixture_quantile_kernel_counts_one_row_iterations(cuda):
+  means, scales = _mixture_rows(480, 1, cuda)
+  stats = (torch.amin(means), torch.amax(means), torch.amax(scales))
+  most, total = _counters(cuda)
+  mixture_quantile.mixture_quantiles(means, scales, QUANTILES, stats, most,
+                                     total)
+  assert bool((most >= 1).all() and (most <= 60).all())
+  assert torch.equal(total, most.long())
+
+
+@pytest.mark.gpu
+def test_mixture_quantile_kernel_takes_many_quantiles_in_one_call(cuda):
+  means, scales = _mixture_rows(16, 129, cuda)
+  quantiles = tuple(np.linspace(0.01, 0.99, 40).tolist())
+  before = mixture_quantile.mixture_quantiles.launches
+  got, want = _search(means, scales, quantiles)
+  # 32 quantiles a launch.
+  assert mixture_quantile.mixture_quantiles.launches == before + 2
+  torch.testing.assert_close(got, want, rtol=2e-5,
+                             atol=1e-3 * scales.max().item())
+
+
+@pytest.mark.gpu
+def test_mixture_quantile_kernel_refuses_what_it_cannot_take(cuda):
+  means, scales = _mixture_rows(16, 129, cuda)
+  stats = (torch.amin(means), torch.amax(means), torch.amax(scales))
+  for args in ((means, scales.cpu(), stats),
+               (means, scales, (stats[0].cpu(), *stats[1:])),
+               (means.t(), scales, stats), (means.half(), scales, stats)):
+    with pytest.raises(ValueError, match='float32 CUDA means'):
+      mixture_quantile.mixture_quantiles(args[0], args[1], QUANTILES,
+                                         args[2])
+  most, total = _counters(cuda)
+  for counters in ((most, total.int()), (most.long(), total),
+                   (most[:2], total)):
+    with pytest.raises(ValueError, match='float32 CUDA means'):
+      mixture_quantile.mixture_quantiles(means, scales, QUANTILES, stats,
+                                         *counters)
+
+
+@pytest.mark.gpu
+def test_predict_on_cuda_searches_in_one_kernel_launch(cuda):
+  model = bayesnf_torch.BayesianNeuralFieldMAP.load(
+      str(DATA / 'bnf-map.chickenpox.8.port.npz'), device=cuda)
+  table = pd.read_csv(DATA / 'chickenpox.8.train.csv', index_col=0,
+                      parse_dates=['datetime'])
+  profiling.reset()
+  before = mixture_quantile.mixture_quantiles.launches
+  with torch.profiler.profile(activities=[
+      torch.profiler.ProfilerActivity.CPU,
+      torch.profiler.ProfilerActivity.CUDA]):
+    model.predict(table, quantiles=QUANTILES)
+  counts = profiling.counters()
+  spans = profiling.span_table()
+  profiling.reset()
+  assert mixture_quantile.mixture_quantiles.launches == before + 1
+  assert spans['bnf.predict.quantile'].calls == 1
+  assert counts[quantiles_lib.KERNEL_SEARCHES] == len(QUANTILES)
+  ran = counts[quantiles_lib.ITERATIONS_RUN]
+  assert counts[quantiles_lib.ITERATIONS_NEEDED] == ran
+  assert len(QUANTILES) <= ran <= 60 * len(QUANTILES)
+  # The 'torch' backend keeps the plain search: no launch.
+  model.predict(table, quantiles=QUANTILES, backend='torch')
+  assert mixture_quantile.mixture_quantiles.launches == before + 1
 
 
 def _train_inputs(depth, width, n, members, device, seasonal=True,
