@@ -37,7 +37,8 @@ the single-process mesh does on its own: the results are the same on every
 rank by construction.
 
 While a profiler records (`utils/profiling.py`), the in-memory predict's
-forward is the `bnf.predict.forward` span, `summaries` the
+forward is the `bnf.predict.forward` span, each chunk's encode in it the
+`bnf.predict.encode` span, `summaries` the
 `bnf.predict.summaries` span, and each quantile's plain search, or the
 search kernel's launch for all of them (one for up to 32), a
 `bnf.predict.quantile` span
@@ -125,9 +126,10 @@ def _forecast_params_chunked(
       start = lo + k * local
       pf, weights, biases = placed[dev]
       chunk_t = aug_t[:, start : start + local].to(dev)
-      groups = field_lib.encode_t_groups(
-          config, pf, chunk_t[:d], chunk_t[d:]
-      )
+      with profiling.span('bnf.predict.encode'):
+        groups = field_lib.encode_t_groups(
+            config, pf, chunk_t[:d], chunk_t[d:]
+        )
       pred = forward(
           config.depth, groups, weights, biases,
           pf[field_lib.IDX_LAYER_SCALES],

@@ -23,7 +23,8 @@
   kernel's launch is one span for all its quantiles; for each quantile it
   counts the most iterations a row ran, under both names, so their ratio
   reads 1 there by construction (a row runs no iteration it does not
-  need), and `KERNEL_SEARCHES` counts its quantiles.
+  need), and `KERNEL_SEARCHES` counts its quantiles. `member_mean` counts
+  the blocks it sums (`MEMBER_BLOCKS`).
 """
 
 import math
@@ -44,6 +45,7 @@ from bayesnf_torch.utils import profiling
 # members, added in order, agree at every width.
 MEMBER_BLOCK = 1020
 
+MEMBER_BLOCKS = 'bnf.predict.member_blocks'
 ITERATIONS_RUN = 'bnf.rootfind.iterations_run'
 ITERATIONS_NEEDED = 'bnf.rootfind.iterations_needed'
 KERNEL_SEARCHES = 'bnf.rootfind.kernel_searches'
@@ -62,6 +64,8 @@ def member_mean(x, axis):
   if axis != tuple(range(len(axis))):
     raise ValueError(f'{axis=} must be the leading axes.')
   k = math.prod(x.shape[:len(axis)])
+  if profiling.recording():
+    profiling.count(MEMBER_BLOCKS, -(-k // MEMBER_BLOCK))
   if k <= MEMBER_BLOCK:
     return torch.mean(x, dim=axis)
   flat = x.reshape((k,) + tuple(x.shape[len(axis):]))

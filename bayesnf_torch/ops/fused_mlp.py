@@ -70,6 +70,9 @@ LAYOUT_CODES = {'features': 0, 'rows': 1}
 # Global scratch one `fused_train` call, or one call of the field MLP's
 # kernels, may hold; rows are processed in chunks that fit it.
 TRAIN_SCRATCH_BYTES = 2 << 30
+# While a profiler records (`utils/profiling.py`), K2's inner row chunks
+# under that budget, summed over its calls.
+K2_ROW_CHUNKS = 'bnf.k2.row_chunks'
 
 
 def fused_field_mlp_t_reference(
@@ -313,6 +316,8 @@ def _launch_k2(lib, stream, layout, depth, precision, width, h0, weights,
   e, f, n = _dims(h0, layout)
   code = PRECISION_CODES[precision]
   chunk_rows, scratch = _t_scratch(lib, h0, layout, width, depth, code, 0)
+  if layout == 'features' and profiling.recording():
+    profiling.count(K2_ROW_CHUNKS, -(-n // chunk_rows))
   out = torch.empty((e, n), dtype=torch.float32, device=h0.device)
   err = lib.bnf_fused_mlp_t_fwd(
       h0.data_ptr(), _ptrs(weights), _ptrs(biases), scales_raw.data_ptr(),
@@ -475,7 +480,8 @@ def fused_field_mlp_t(
   `fused_field_mlp_t.bwd_launches`), which returns the gradient of every
   group, weight, bias, `scales_raw` and `logit` (the JAX package's
   `_forward_t_bwd`); without a graph (as in predict) no K3 runs. The call
-  is the `bnf.k2` span (`utils/profiling.py`).
+  is the `bnf.k2` span (`utils/profiling.py`), and K2 counts its inner row
+  chunks in `K2_ROW_CHUNKS` while a profiler records.
 
   Args:
     depth: hidden layers.

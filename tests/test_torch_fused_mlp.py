@@ -16,8 +16,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.profiler
 
 from bayesnf_torch.ops import fused_mlp as t_fused
+from bayesnf_torch.utils import profiling
 from bayesnf_tpu.ops import fused_mlp as j_fused
 
 torch.set_num_threads(1)
@@ -191,6 +193,42 @@ def test_k2_k3_chunk_plan_of_a_480_member_predict():
   assert (fwd, bwd) == (1024, 256)
   # 64 members (phase 5's serving chunk) take their 4,096 rows at once.
   assert _plan(64, 49, 512, 2, 4096, 'f32', 0) == 4096
+
+
+@pytest.mark.parametrize('layout, counted', [('features', True),
+                                             ('rows', False)])
+def test_k2_counts_its_row_chunks_while_a_profiler_records(layout, counted):
+  # 1,920 members of width 512 and F = 79 (the wind stanza's VI predict)
+  # over a 4,096-row chunk: the plan's 128-row chunks, counted only for
+  # K2 (features-major) and only while a profiler records.
+  members, f, width, n = 1920, 79, 512, 4096
+  plan = _plan(members, f, width, 2, n, 'f32', 0)
+  assert plan == 128
+  h0 = torch.empty((members, f, n) if layout == 'features'
+                   else (members, n, f), device='meta')
+  fan = [(f, width), (width, width), (width, 1)]
+  params = ([torch.empty((members, i, o), device='meta') for i, o in fan],
+            [torch.empty((members, o), device='meta') for _, o in fan],
+            torch.empty((members, 3), device='meta'),
+            torch.empty(members, device='meta'))
+  lib = _FakeFieldLib()
+
+  def launch():
+    t_fused._launch_k2(  # pylint: disable=protected-access
+        lib, 'stream', layout, 2, 'f32', width, h0, *params)
+
+  profiling.reset()
+  launch()
+  assert profiling.counters() == {}
+  with torch.profiler.profile(
+      activities=[torch.profiler.ProfilerActivity.CPU]):
+    launch()
+    launch()
+  counts = profiling.counters()
+  profiling.reset()
+  assert counts == ({t_fused.K2_ROW_CHUNKS: 2 * n // plan} if counted
+                    else {})
+  assert [c['chunk_rows'] for c in lib.calls] == [plan] * 3
 
 
 def _launch_call(lib, layout, precision, h0, params, g=None):

@@ -17,9 +17,11 @@ import numpy as np
 import pytest
 from scipy import stats
 import torch
+import torch.profiler
 
 from bayesnf_torch.inference import quantiles as t_quantiles
 from bayesnf_torch.models import distributions as t_dist
+from bayesnf_torch.utils import profiling
 from bayesnf_tpu.inference import quantiles as j_quantiles
 from bayesnf_tpu.models import distributions as j_dist
 
@@ -174,10 +176,19 @@ def test_member_mean_sums_in_blocks_of_at_most_1020_members(members):
   """`member_mean`, the search's mean over the members: `torch.mean` up to
   1,020 members, past that the sums of 1,020-member blocks added in order
   (the order CUDA keeps at any width; ROADMAP.md queue 3 item 5), held to
-  a float64 sum; the first 128 columns alone give the same bits."""
+  a float64 sum; the first 128 columns alone give the same bits. While a
+  profiler records it counts its blocks, and only then."""
   rng = np.random.default_rng(members)
   x = torch.as_tensor(rng.uniform(size=(1, members, 512)).astype(np.float32))
+  profiling.reset()
   got = t_quantiles.member_mean(x, (0, 1))
+  assert profiling.counters() == {}
+  with torch.profiler.profile(
+      activities=[torch.profiler.ProfilerActivity.CPU]):
+    assert torch.equal(t_quantiles.member_mean(x, (0, 1)), got)
+  counts = profiling.counters()
+  profiling.reset()
+  assert counts == {t_quantiles.MEMBER_BLOCKS: -(-members // 1020)}
   plain = x.double().reshape(members, 512).sum(dim=0) / members
   np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-6)
   flat = x.reshape(members, 512)

@@ -49,6 +49,7 @@ CHUNK = 32
 PARENTS = {
     'bnf.predict.handler': 'bnf.predict',
     'bnf.predict.forward': 'bnf.predict',
+    'bnf.predict.encode': 'bnf.predict.forward',
     'bnf.predict.summaries': 'bnf.predict',
     'bnf.predict.quantile': 'bnf.predict',
     'bnf.fit.step': 'bnf.fit',
@@ -137,9 +138,11 @@ def _expected(case):
       'map': fit,
       'vi': dict(fit, **{'bnf.fit.draws': STEPS, 'bnf.fit.backward': groups}),
       'predict': {'bnf.predict': 1, 'bnf.predict.handler': 1,
-                  'bnf.predict.forward': 1, 'bnf.predict.summaries': 1,
+                  'bnf.predict.forward': 1, 'bnf.predict.encode': 1,
+                  'bnf.predict.summaries': 1,
                   'bnf.predict.quantile': len(QUANTILES)},
-      'chunks': {'bnf.k2': PREDICT_ROWS // CHUNK},
+      'chunks': {'bnf.k2': PREDICT_ROWS // CHUNK,
+                 'bnf.predict.encode': PREDICT_ROWS // CHUNK},
   }[case]
 
 
