@@ -1,11 +1,14 @@
 """Host-side data layer: long-format pandas DataFrames -> float matrices.
 
-A copy of `bayesnf_tpu/data.py` (pure numpy/pandas), so that both packages
-turn a table into the same matrix. Behavioral parity surface (upstream
-BayesNF `SpatiotemporalDataHandler`, `bayesnf/spatiotemporal.py:98-192` —
-same observable behavior, independently structured implementation):
+The counterpart of `bayesnf_tpu/data.py` (numpy/pandas): both packages
+turn a table into the same matrix, bit for bit, though this one takes the
+period index from the `PeriodArray`'s int64 ordinals in one vectorised
+step where the JAX package reads each row's `Period`. Behavioral parity
+surface (upstream BayesNF `SpatiotemporalDataHandler`,
+`bayesnf/spatiotemporal.py:98-192` — same observable behavior,
+independently structured implementation):
 
-- rows with NaN targets are dropped,
+- rows with NaN targets are dropped; a missing time (``NaT``) raises,
 - the time column is converted either to an integer period index relative to
   2020-01-01 (``timetype='index'``) or to raw floats (``timetype='float'``),
   then shifted so the training minimum is zero,
@@ -15,12 +18,20 @@ same observable behavior, independently structured implementation):
 
 Everything downstream of this module consumes plain ``(N, D)`` float32
 matrices; pandas never reaches device code.
+
+While a profiler records (`utils/profiling.py`), ``time_to_numeric`` adds
+the rows it turns into period indices to the counter ``PERIOD_ROWS``.
 """
 
 from collections.abc import Sequence
 
 import numpy as np
 import pandas as pd
+
+from bayesnf_torch.utils import profiling
+
+# Counter of the time values converted to period indices.
+PERIOD_ROWS = 'bnf.handler.period_rows'
 
 # Origin of the integer period index. Any fixed date works (times are
 # re-based to the training minimum afterwards); this one keeps the
@@ -34,14 +45,25 @@ def time_to_numeric(col: pd.Series, timetype: str, freq: str | None):
   ``timetype='index'`` counts `freq`-periods since ``_PERIOD_ORIGIN`` as
   integers (so e.g. weekly data maps consecutive weeks to consecutive
   ints); ``'float'`` takes the values as-is.
+
+  Raises:
+    ValueError: if ``timetype='index'`` and a time is missing (``NaT``).
   """
   if timetype == 'float':
     return col.astype(float)
   if timetype == 'index':
+    periods = col.dt.to_period(freq).array
+    if periods.isna().any():
+      raise ValueError(
+          f'the time column {col.name!r} has missing times (NaT), which '
+          'have no period index'
+      )
+    if profiling.recording():
+      profiling.count(PERIOD_ROWS, len(periods))
     origin = pd.Timestamp(_PERIOD_ORIGIN).to_period(freq).ordinal
-    # Period.ordinal is the period count since pandas' own epoch, so the
-    # difference of ordinals is the period count since `origin`.
-    return col.dt.to_period(freq).map(lambda p: p.ordinal) - origin
+    # The PeriodArray's int64 ordinals count periods since pandas' own
+    # epoch, so their difference from `origin`'s is the count since it.
+    return pd.Series(periods.asi8 - origin, index=col.index, name=col.name)
   raise ValueError(
       f"timetype must be 'index' or 'float', got {timetype!r}"
   )

@@ -13,6 +13,9 @@ the CPU.
   the profiler on and off.
 - The root-find's iterations needed are at most those run, and a search
   stopped at the needed count returns the same roots bit for bit.
+- The handler's `bnf.handler.period_rows` counts the rows of a profiled
+  `fit`'s table and of a profiled `predict`'s grid at `timetype='index'`,
+  and none at `timetype='float'`.
 """
 
 import json
@@ -24,6 +27,7 @@ import torch
 import torch.profiler
 
 import bayesnf_torch
+from bayesnf_torch import data as t_data
 from bayesnf_torch.inference import map as t_map
 from bayesnf_torch.inference import predict as t_predict
 from bayesnf_torch.inference import quantiles as t_quantiles
@@ -248,3 +252,29 @@ def test_the_search_stopped_when_every_lane_converged_is_the_same(
   short = t_quantiles.find_root_chandrupatla(f, low, high,
                                              max_iterations=needed)
   assert torch.equal(short, full)
+
+
+@pytest.mark.parametrize('timetype', ['index', 'float'])
+def test_the_handler_counts_the_rows_it_converts_to_periods(timetype):
+  table, grid = _table(24, 0), _table(30, 1)
+  if timetype == 'float':
+    for df in (table, grid):
+      df['datetime'] = (df['datetime'] - pd.Timestamp('2021-03-01')) / (
+          pd.Timedelta(hours=1))
+  index = timetype == 'index'
+  est = bayesnf_torch.BayesianNeuralFieldMAP(
+      feature_cols=['datetime', 'lat', 'lon'], target_col='y',
+      timetype=timetype, freq='h' if index else None, width=8, depth=2,
+      seasonality_periods=[24], num_seasonal_harmonics=[2] if index else None)
+  profiling.reset()
+  _profiled(lambda: est.fit(table, seed=0, ensemble_size=2, num_epochs=1,
+                            device='cpu'))
+  fit_rows = profiling.counters().get(t_data.PERIOD_ROWS, 0)
+  profiling.reset()
+  _profiled(lambda: est.predict(grid, quantiles=QUANTILES, backend='torch'))
+  predict_rows = profiling.counters().get(t_data.PERIOD_ROWS, 0)
+  profiling.reset()
+  if index:
+    assert (fit_rows, predict_rows) == (len(table), len(grid)) == (96, 120)
+  else:
+    assert (fit_rows, predict_rows) == (0, 0)
